@@ -1,0 +1,80 @@
+"""Public factory: build a ready-to-use CTC decoder on the PyTorch engine.
+
+Mirrors the reference entry point ``build_ctcdecoder``
+(ref ``pyctcdecode/decoder.py:1051-1099``) and the JAX package's
+``api.build_ctcdecoder``; the decoder runs on CUDA unless ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Collection, List, Optional, Union
+
+import torch
+
+from .alphabet import Alphabet, verify_alphabet_coverage
+from .constants import (
+    DEFAULT_ALPHA,
+    DEFAULT_BETA,
+    DEFAULT_SCORE_LM_BOUNDARY,
+    DEFAULT_UNK_LOGP_OFFSET,
+)
+from .models.language_model import LanguageModel
+from .models.ngram import load_unigram_set_from_arpa, open_ngram_file
+from .torch_decoder import TorchBeamSearchDecoderCTC
+
+logger = logging.getLogger(__name__)
+
+_ENGINES = ("torch", "host")
+
+
+def build_ctcdecoder(
+    labels: List[str],
+    kenlm_model_path: Optional[str] = None,
+    unigrams: Optional[Collection[str]] = None,
+    alpha: float = DEFAULT_ALPHA,
+    beta: float = DEFAULT_BETA,
+    unk_score_offset: float = DEFAULT_UNK_LOGP_OFFSET,
+    lm_score_boundary: bool = DEFAULT_SCORE_LM_BOUNDARY,
+    engine: str = "torch",
+    device: Union[None, str, torch.device] = None,
+) -> TorchBeamSearchDecoderCTC:
+    """Build a ready-to-use decoder (main entry point).
+
+    Args:
+        labels: raw model labels (logit column order).
+        kenlm_model_path: optional path to an ARPA n-gram LM (``.arpa`` or
+            ``.arpa.gz``); the kwarg name matches the reference API, but the
+            file is loaded by this package's own n-gram runtime.
+        unigrams: known word vocabulary (inferred from \\1-grams for ARPA).
+        alpha: LM weight for shallow fusion.
+        beta: per-word length bonus.
+        unk_score_offset: log-score offset for OOV words.
+        lm_score_boundary: whether the LM scores <s>/</s> boundaries.
+        engine: ``"torch"``; the exact host engine (``"host"``) is not
+            ported yet and raises.
+        device: ``None`` (CUDA, raising when absent) or an explicit device
+            such as ``"cpu"``.
+    """
+    if engine not in _ENGINES:
+        raise ValueError(f"engine must be one of {_ENGINES}; got {engine!r}")
+    if engine == "host":
+        raise NotImplementedError(
+            "the host oracle engine is not ported to pyctcdecode_torch yet"
+        )
+    ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
+    if unigrams is None and kenlm_model_path is not None:
+        unigrams = load_unigram_set_from_arpa(kenlm_model_path)
+    alphabet = Alphabet.build_alphabet(labels)
+    if unigrams is not None:
+        verify_alphabet_coverage(alphabet, unigrams)
+    language_model: Optional[LanguageModel] = None
+    if ngram_model is not None:
+        language_model = LanguageModel(
+            ngram_model,
+            unigrams,
+            alpha=alpha,
+            beta=beta,
+            unk_score_offset=unk_score_offset,
+            score_boundary=lm_score_boundary,
+        )
+    return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device)

@@ -1,0 +1,96 @@
+"""Build and load the hand-written CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/*.cu`` source compiles on its own into a shared library with a
+plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+
+The library lands in ``build/`` at the repository root at first use (the
+file name carries a hash of the source, so an edited source rebuilds) and is
+loaded with :mod:`ctypes`. Sources build in parallel, one ``nvcc`` each. No
+fast-math flag: the kernels' ``expf``/``logf`` must track PyTorch's.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = CSRC_DIR.parents[1] / "build"
+SOURCES = ("merge.cu",)
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and under CUDA_HOME); the CUDA "
+            "kernels of pyctcdecode_torch need the CUDA toolkit"
+        )
+    return path
+
+
+def library_path(source: str) -> Path:
+    """Where ``source``'s shared library lives (hash of the source text)."""
+    text = (CSRC_DIR / source).read_bytes()
+    digest = hashlib.sha256(text).hexdigest()[:12]
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
+
+
+def build(sources: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, Path]:
+    """Compile every source whose library is missing; all nvcc runs at once.
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
+    kernel) and prints the compiler's output. Returns source -> library.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, Path] = {}
+    pending: List[tuple] = []
+    for src in sources:
+        lib = library_path(src)
+        out[src] = lib
+        if lib.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [
+            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+            "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC_DIR / src),
+        ]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        pending.append((src, lib, tmp, proc))
+    failed = []
+    for src, lib, tmp, proc in pending:
+        log, _ = proc.communicate()
+        if verbose and log:
+            print(f"[nvcc {src}]\n{log}", flush=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{src}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load one source's library (callers cache it)."""
+    lib = build([source])[source]
+    return ctypes.CDLL(str(lib))

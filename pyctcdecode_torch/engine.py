@@ -1,0 +1,578 @@
+"""Device engine: fixed-width vectorized CTC beam search over a frame loop.
+
+The JAX reference package's ``engine.py`` keeps the whole beam state
+as fixed-shape device arrays and scans a per-frame step over the frames,
+``vmap``-ped over utterances. This port writes the batch dimension ``N``
+out: every state plane is ``[N, B, ...]`` (``decode_beams`` is the case
+``N = 1``), and the scan is a Python loop over frames. Per frame:
+
+    1. LM commit scoring: fetch each beam's trie row, probe the n-gram
+       fingerprint tables for the word it would commit (``_commit_quantities``);
+    2-3. expand B beams x K tokens (4-way CTC transition), merge colliding
+       candidates within each token column and window-prune — the
+       hand-written CUDA kernel :func:`~pyctcdecode_torch.ops.merge.expand_merge_prune`;
+       the trie walk and the partial-word score it needs run here in torch;
+    4. rank the top B (stable sort: lowest position wins ties, as
+       ``lax.top_k``);
+    5. select the winners, replay their transitions, optionally prune
+       duplicate histories.
+
+Text never exists on the device: beams are 2x32-bit rolling hashes plus trie
+nodes, and each frame emits a ``(parent, token)`` backpointer pair; the final
+ranking merges beams by text (``_finalize``, the
+:func:`~pyctcdecode_torch.ops.merge.merge_prune` kernel with K = 1) and a
+backtrace turns pointers into token paths, which the host replays into words
+and frame spans.
+
+Semantic contracts kept bit for bit with the reference: uint32 wraparound
+hashes (int64 lanes here, see ``ops/hashing.py``), the ``DEAD`` /
+``DEAD_THRESH`` sentinels, newest-member donor with first-member rank
+position, lowest-position tie order, and the ``-2 - arange(B)`` sentinels
+of dead beams' last token. TPU lowering workarounds of the reference (one-hot
+matmul selection, one-hot token lookups, optimization barriers, layout
+transposes) are plain indexing and ``gather`` here.
+
+This slice covers the dense (non-timeline) step of a char alphabet with at
+most one n-gram LM.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .constants import AVG_TOKEN_LEN, LOG_BASE_CHANGE_FACTOR
+from .models.device_tables import DeviceLM, lm_score_words, trie_fetch_rows
+from .ops.hashing import M32, as_lane, hash_extend_char_t, hash_text_commit_t, mix4_t
+from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
+from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
+
+_NODE_MASK = DeviceLM.NODE_MASK
+_BIT_IN_VOCAB = DeviceLM.BIT_IN_VOCAB
+_BIT_UNI_WORD = DeviceLM.BIT_UNI_WORD
+_BIT_UNI_PREFIX = DeviceLM.BIT_UNI_PREFIX
+_LOG10 = float(np.float32(LOG_BASE_CHANGE_FACTOR))
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static decode configuration."""
+
+    beam_width: int
+    vocab_size: int
+    k_tokens: int  # tokens expanded per frame (== vocab_size: exact)
+    use_lm: bool
+    order: int  # LM order (1 when no LM); sets the history-prune window
+    prune_history: bool
+    # backtrace only the top-N beams (None: all B)
+    emit_paths: Optional[int] = None
+
+    @property
+    def ring_width(self) -> int:
+        return max(self.order - 1, 1)
+
+    @property
+    def ctx_w(self) -> int:
+        return max(self.order - 1, 1)
+
+
+def build_table_args(
+    tokens: TokenArrays, device_lm: Optional[DeviceLM], device: torch.device
+) -> Dict[str, Any]:
+    """Upload the token tables and the LM tables to ``device`` (once per decoder)."""
+    if tokens.raw_chars.shape[1] != 1:
+        raise NotImplementedError("multi-character labels are not ported yet")
+
+    def put(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(arr), device=device).to(dtype)
+
+    tok = {
+        "kind": put(tokens.kind, torch.int64),
+        "piece_len": put(tokens.piece_len, torch.int64),
+        "raw_chars": put(tokens.raw_chars, torch.int64),
+        "raw_len": put(tokens.raw_len, torch.int64),
+        "right_bound": put(tokens.right_bound, torch.int32),
+        "seed_lo": as_lane(tokens.seed_hash_lo, device),
+        "seed_hi": as_lane(tokens.seed_hash_hi, device),
+    }
+    lm = device_lm.as_device(device) if device_lm is not None else None
+    return {"tok": tok, "lm": lm}
+
+
+def _params_dict(cfg: EngineConfig, params: np.ndarray) -> Dict[str, Any]:
+    """Unpack the f32 parameter vector into Python scalars.
+
+    Layout: ``[token_min_logp, beam_prune_logp, hot_weight, alpha, beta,
+    unk_offset, score_boundary]`` (the LM entries only with an LM). Values
+    pass through float32, so scalar arithmetic on f32 tensors matches the
+    reference's f32 parameter math.
+    """
+    p = [float(x) for x in np.asarray(params, dtype=np.float32)]
+    out: Dict[str, Any] = {"token_min_logp": p[0], "beam_prune_logp": p[1]}
+    if cfg.use_lm:
+        out["lm"] = {
+            "alpha": p[3],
+            "beta": p[4],
+            "unk_offset": p[5],
+            "score_boundary": p[6] > 0.5,
+        }
+    return out
+
+
+def _init_state(cfg: EngineConfig, start: Optional[Dict], n: int, device: torch.device) -> Dict:
+    """Initial beam state ``[N, B, ...]``.
+
+    ``start``: ``{"ctx": [ctx_w] int, "len": int, "bo": [ctx_w] f32}`` (the
+    LM start context, its length and its suffix backoffs), or None without
+    an LM.
+    """
+    b = cfg.beam_width
+    iota = torch.arange(b, device=device)
+
+    def zi(*extra: int) -> torch.Tensor:
+        return torch.zeros((n, b) + extra, dtype=torch.int64, device=device)
+
+    logit = torch.full((n, b), DEAD, dtype=torch.float32, device=device)
+    logit[:, 0] = 0.0
+    state = {
+        "text_lo": zi(),
+        "text_hi": zi(),
+        "p_lo": zi(),
+        "p_hi": zi(),
+        "p_len": zi(),
+        "last_tok": torch.where(iota == 0, -1, -2 - iota).expand(n, b).contiguous(),
+        "force": torch.zeros((n, b), dtype=torch.bool, device=device),
+        "logit": logit,
+        "fused": torch.zeros((n, b), dtype=torch.float32, device=device),
+        "ring_lo": zi(cfg.ring_width),
+        "ring_hi": zi(cfg.ring_width),
+        "n_words": zi(),
+    }
+    if cfg.use_lm:
+        w = cfg.ctx_w
+        ctx = torch.as_tensor(np.asarray(start["ctx"], dtype=np.int64), device=device)
+        bo = torch.as_tensor(np.asarray(start["bo"], dtype=np.float32), device=device)
+        state["p_node"] = zi()
+        state["p_flags"] = zi()  # packed entry bits of the current node
+        state["ctx"] = ctx.expand(n, b, w).contiguous()
+        state["ctx_len"] = torch.full((n, b), int(start["len"]), dtype=torch.int64, device=device)
+        state["ctx_bo"] = bo.expand(n, b, w).contiguous()
+    return state
+
+
+def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ctx_bo):
+    """Fused word score + new context for each beam's committed partial.
+
+    ``flags`` are the node's packed entry bits carried on the beam; the word
+    id and its order-1 probe ride the beam's trie row (last four columns).
+    """
+    in_model = (flags & _BIT_IN_VOCAB) != 0
+    wid = torch.where(in_model, trie_row[..., -1].to(torch.int64), lm["unk_id"])
+    unk = lm["uni_unk_row"]
+    f1 = torch.where(in_model, trie_row[..., -2] != 0, unk[2] > 0.5)
+    t_p = trie_row[..., -4].contiguous().view(torch.float32)
+    t_b = trie_row[..., -3].contiguous().view(torch.float32)
+    p1 = torch.where(f1, torch.where(in_model, t_p, unk[0]), 0.0)
+    b1 = torch.where(f1, torch.where(in_model, t_b, unk[1]), 0.0)
+    in_uni = (flags & _BIT_UNI_WORD) != 0
+    is_oov = ~in_model
+    if lm["has_unigrams"]:
+        is_oov = is_oov | ~in_uni
+    raw10, new_ctx, new_ctx_len, new_bo = lm_score_words(
+        lm, ctx, ctx_len, wid, ctx_bo, uni_probe=(f1, p1, b1)
+    )
+    raw10 = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
+    fused = lm_prm["alpha"] * raw10 * _LOG10 + lm_prm["beta"]
+    return fused, new_ctx, new_ctx_len, new_bo
+
+
+def _commit_quantities(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict,
+                       trie_rows: Optional[torch.Tensor]) -> Dict:
+    """Per-beam word-commit effects: text hash, fused word score, new context."""
+    commit = state["p_len"] > 0
+    t_lo, t_hi = hash_text_commit_t(
+        state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"]
+    )
+    out = {
+        "text_lo": torch.where(commit, t_lo, state["text_lo"]),
+        "text_hi": torch.where(commit, t_hi, state["text_hi"]),
+    }
+    if lm is None:
+        out["word_fused"] = torch.zeros_like(state["fused"])
+        return out
+    fused, new_ctx, new_ctx_len, new_bo = _member_word_score(
+        lm, prm["lm"], trie_rows, state["p_flags"], state["ctx"], state["ctx_len"],
+        state["ctx_bo"],
+    )
+    c2 = commit[..., None]
+    out["ctx"] = torch.where(c2, new_ctx, state["ctx"])
+    out["ctx_len"] = torch.where(commit, new_ctx_len, state["ctx_len"])
+    out["ctx_bo"] = torch.where(c2, new_bo, state["ctx_bo"])
+    out["word_fused"] = torch.where(commit, fused, 0.0)
+    return out
+
+
+def _decode_trie_cells(tp: Dict[str, int], fc, word, cid):
+    """Packed trie cell -> packed child entry (node id | ``BIT_*`` flags).
+
+    Children are stored as ``rank`` among the node's BFS-contiguous children
+    plus the child's 3 flag bits, ``cpw`` cells per i32 word (see
+    ``device_tables.trie_pack_params``): ``child = first_child + rank``; an
+    all-ones rank means no child and resolves to the dead node.
+    """
+    rb, cpw = tp["rb"], tp["cpw"]
+    bpc = rb + 3
+    shift = (cid % cpw) * bpc
+    cell = ((word.to(torch.int64) & M32) >> shift) & ((1 << bpc) - 1)
+    rank = cell & ((1 << rb) - 1)
+    flags3 = (cell >> rb) & 7
+    entry = (fc.to(torch.int64) + rank) | (flags3 << 28)
+    return torch.where(rank == (1 << rb) - 1, tp["dead"], entry)
+
+
+def _path_dtype(vocab_size: int) -> torch.dtype:
+    """Narrowest signed dtype for emitted token ids (+ -1/-2/-3 sentinels)."""
+    if vocab_size <= 120:
+        return torch.int8
+    if vocab_size <= 32_000:
+        return torch.int16
+    return torch.int32
+
+
+def _parent_dtype(beam_width: int) -> torch.dtype:
+    """Narrowest signed dtype for emitted parent (beam-slot) indices."""
+    if beam_width <= 127:
+        return torch.int8
+    if beam_width <= 32_767:
+        return torch.int16
+    return torch.int32
+
+
+def _top_b(scores: torch.Tensor, b: int):
+    """Top ``b`` per row, ties to the lowest position (``lax.top_k`` order)."""
+    srt = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return srt.values[:, :b], srt.indices[:, :b]
+
+
+def _partial_score(lm_prm: Optional[Dict], flags, plen):
+    """score_partial_token for in-progress words, from the packed flag bits.
+
+    Prefix of a known unigram: 0; otherwise the unknown-prefix penalty,
+    scaled up past ``AVG_TOKEN_LEN`` chars (ref language_model.py:326-336).
+    """
+    if lm_prm is None:
+        return torch.zeros(plen.shape, dtype=torch.float32, device=plen.device)
+    plen_f = plen.to(torch.float32)
+    is_pref = (flags & _BIT_UNI_PREFIX) != 0
+    punk = lm_prm["unk_offset"] * (~is_pref).to(torch.float32)
+    punk = torch.where(plen > AVG_TOKEN_LEN, punk * plen_f / AVG_TOKEN_LEN, punk)
+    return torch.where(plen > 0, punk, 0.0)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[n, idx[n, j], ...]`` for ``x`` ``[N, B, ...]`` and ``idx`` ``[N, B']``."""
+    if x.dim() == 2:
+        return x.gather(1, idx)
+    return x.gather(1, idx[..., None].expand(-1, -1, *x.shape[2:]))
+
+
+def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tensor):
+    """Build the per-frame step over ``[N, B]`` state planes."""
+    b, k, v = cfg.beam_width, cfg.k_tokens, cfg.vocab_size
+    tok_dev, lm = tables["tok"], tables["lm"]
+    device = n_frames.device
+    n = n_frames.shape[0]
+    iota_b = torch.arange(b, device=device)
+    iota_v = torch.arange(v, device=device)
+    sentinel = (-2 - iota_b).expand(n, b)
+    prune = torch.full((n,), prm["beam_prune_logp"], dtype=torch.float32, device=device)
+    lm_prm = prm.get("lm")
+    lower = torch.tril(torch.ones((b, b), dtype=torch.bool, device=device), diagonal=-1)
+
+    def step(state: Dict, logp_row: torch.Tensor, t: int):
+        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay."""
+        active = t < n_frames  # [N]
+        if k < v:
+            _, pre = _top_b(logp_row, k)
+            toks = torch.sort(pre, dim=-1).values
+            tok_logp = logp_row.gather(1, toks)
+        else:
+            toks = iota_v.expand(n, v).contiguous()
+            tok_logp = logp_row.contiguous()
+        argmax_tok = logp_row.argmax(dim=-1)
+        admit = (tok_logp >= prm["token_min_logp"]) | (toks == argmax_tok[:, None])
+
+        tok_kind = tok_dev["kind"][toks]  # [N, K]
+        tok_right = tok_dev["right_bound"][toks]
+        tok_plen = tok_dev["piece_len"][toks]
+        tok_rlen = tok_dev["raw_len"][toks]
+        cid = tok_dev["raw_chars"][toks, 0]
+        seed_lo_k = tok_dev["seed_lo"][toks]
+        seed_hi_k = tok_dev["seed_hi"][toks]
+        blank = tok_kind == KIND_BLANK
+        boundary_kind = tok_kind == KIND_BOUNDARY
+
+        trie_rows_b = None
+        if lm is not None:
+            trie_rows_b = trie_fetch_rows(lm["trie_rows"], lm["trie_pack"], state["p_node"])
+        cm = _commit_quantities(cfg, lm, prm, state, trie_rows_b)
+
+        # ---- transition classes [N, B, K]: the trie walk and the partial
+        # score need them here; the kernel re-derives the rest in registers
+        stay = blank[:, None, :] | (state["last_tok"][:, :, None] == toks[:, None, :])
+        as_boundary = ~stay & boundary_kind[:, None, :]
+        if lm is not None:
+            tp = lm["trie_pack"]
+            has = (cid >= 0)[:, None, :]
+            cid_safe = cid.clamp(min=0)
+            rows = trie_rows_b  # [N, B, W] (shared with commit scoring)
+            col = (1 + cid_safe // tp["cpw"])[:, None, :].expand(n, b, k)
+            word = rows.gather(2, col)
+            ent = _decode_trie_cells(tp, rows[..., 0:1], word, cid_safe[:, None, :])
+            cur = (state["p_node"] | state["p_flags"])[..., None]
+            seed_entry = lm["seed_node"][toks][:, None, :]
+            p_entry_n = torch.where(
+                stay, cur, torch.where(as_boundary, seed_entry, torch.where(has, ent, cur))
+            )
+            p_len = state["p_len"][..., None]
+            p_len_n = torch.where(
+                stay, p_len,
+                torch.where(as_boundary, tok_plen[:, None, :], p_len + tok_rlen[:, None, :]),
+            )
+            pscore = _partial_score(lm_prm, p_entry_n & ~_NODE_MASK, p_len_n)
+            pscore = pscore.transpose(1, 2).contiguous()  # [N, K, B]
+        else:
+            pscore = torch.zeros((n, k, b), dtype=torch.float32, device=device)
+
+        # ---- stages 2-3 on the kernel: [N, K, B] token-major candidates
+        beam = {
+            "text_lo": state["text_lo"],
+            "text_hi": state["text_hi"],
+            "cm_text_lo": cm["text_lo"],
+            "cm_text_hi": cm["text_hi"],
+            "p_lo": state["p_lo"],
+            "p_hi": state["p_hi"],
+            "force": state["force"].to(torch.int32),
+            "fused": state["fused"],
+            "wfused": cm["word_fused"],
+            "logit": state["logit"],
+            "last_tok": state["last_tok"].to(torch.int32),
+        }
+        tokp = {
+            "tok": toks.to(torch.int32),
+            "blank": blank.to(torch.int32),
+            "boundary": boundary_kind.to(torch.int32),
+            "right": tok_right,
+            "seed_lo": seed_lo_k,
+            "seed_hi": seed_hi_k,
+            "tok_logp": tok_logp,
+            "admit": admit.to(torch.int32),
+        }
+        sc, merged, src = expand_merge_prune(  # char alphabet: one cid plane, no BPE
+            beam, tokp, cid.to(torch.int32)[None], pscore, prune, False
+        )
+
+        # ---- top-B; positional fields by gather
+        top_scores, top_idx = _top_b(sc.reshape(n, k * b), b)
+        tok_col = top_idx // b
+        top_parent = top_idx % b
+        src_w = src.reshape(n, k * b).gather(1, top_idx).to(torch.int64)
+        top_logit = merged.reshape(n, k * b).gather(1, top_idx)
+        sel_alive = top_scores > DEAD_THRESH
+        parent = src_w % b  # newest-wins, backtrace only
+        new_state: Dict[str, torch.Tensor] = {}
+        if lm is not None:
+            ent_w = p_entry_n.reshape(n, b * k).gather(1, top_parent * k + tok_col)
+            new_state["p_node"] = ent_w & _NODE_MASK
+            new_state["p_flags"] = ent_w & ~_NODE_MASK
+
+        # ---- transition replay for the winners: every other field is a
+        # deterministic function of (parent beam, token)
+        bsel = {
+            key: _rows(state[key], top_parent)
+            for key in ("text_lo", "text_hi", "p_lo", "p_hi", "p_len", "last_tok",
+                        "force", "fused", "n_words", "ring_lo", "ring_hi")
+        }
+        m_wfused = _rows(cm["word_fused"], top_parent)
+        tok_w = toks.gather(1, tok_col)
+        blank_w = blank.gather(1, tok_col)
+        boundary_w = boundary_kind.gather(1, tok_col)
+        commit_w = bsel["p_len"] > 0
+        mt_lo, mt_hi = hash_text_commit_t(bsel["text_lo"], bsel["text_hi"], bsel["p_lo"], bsel["p_hi"])
+        stay_w = blank_w | (bsel["last_tok"] == tok_w)
+        bnd_w = ~stay_w & boundary_w
+        cid_w = cid.gather(1, tok_col)
+        ext_lo_w, ext_hi_w = hash_extend_char_t(bsel["p_lo"], bsel["p_hi"], cid_w.clamp(min=0))
+        ext_lo_w = torch.where(cid_w >= 0, ext_lo_w, bsel["p_lo"])
+        ext_hi_w = torch.where(cid_w >= 0, ext_hi_w, bsel["p_hi"])
+        new_state["p_lo"] = torch.where(
+            stay_w, bsel["p_lo"], torch.where(bnd_w, seed_lo_k.gather(1, tok_col), ext_lo_w)
+        )
+        new_state["p_hi"] = torch.where(
+            stay_w, bsel["p_hi"], torch.where(bnd_w, seed_hi_k.gather(1, tok_col), ext_hi_w)
+        )
+        new_state["p_len"] = torch.where(
+            stay_w,
+            bsel["p_len"],
+            torch.where(bnd_w, tok_plen.gather(1, tok_col), bsel["p_len"] + tok_rlen.gather(1, tok_col)),
+        )
+        m_text_lo = torch.where(commit_w, mt_lo, bsel["text_lo"])
+        m_text_hi = torch.where(commit_w, mt_hi, bsel["text_hi"])
+        new_state["text_lo"] = torch.where(bnd_w, m_text_lo, bsel["text_lo"])
+        new_state["text_hi"] = torch.where(bnd_w, m_text_hi, bsel["text_hi"])
+        new_state["fused"] = bsel["fused"] + torch.where(bnd_w, m_wfused, 0.0)
+        new_state["n_words"] = torch.where(bnd_w, bsel["n_words"] + commit_w.to(torch.int64), bsel["n_words"])
+        new_state["force"] = torch.where(bnd_w, tok_right.gather(1, tok_col) != 0, bsel["force"])
+        bnd2 = bnd_w[..., None]
+        c2 = (commit_w & bnd_w)[..., None]
+        new_state["ring_lo"] = torch.where(
+            c2, torch.cat([bsel["ring_lo"][..., 1:], bsel["p_lo"][..., None]], dim=-1), bsel["ring_lo"]
+        )
+        new_state["ring_hi"] = torch.where(
+            c2, torch.cat([bsel["ring_hi"][..., 1:], bsel["p_hi"][..., None]], dim=-1), bsel["ring_hi"]
+        )
+        if lm is not None:
+            for key in ("ctx", "ctx_len", "ctx_bo"):
+                c_val = _rows(state[key], top_parent)
+                m_val = _rows(cm[key], top_parent)
+                new_state[key] = torch.where(bnd2 if c_val.dim() == 3 else bnd_w, m_val, c_val)
+        token_sel = tok_w  # == toks[src // b] by construction
+        new_state["logit"] = torch.where(sel_alive, top_logit, DEAD)
+        new_state["last_tok"] = torch.where(sel_alive, tok_w, sentinel)
+
+        if cfg.prune_history:
+            # fold (partial, last token, word count, history ring) into two
+            # mixed 32-bit lanes; dedup B x B, the older beam survives
+            nw_cap = new_state["n_words"].clamp(max=cfg.ring_width)
+            nw_cap = nw_cap | (new_state["force"].to(torch.int64) << 16)
+            last_u = new_state["last_tok"] & M32
+            hk_lo = mix4_t(new_state["p_lo"], new_state["p_hi"], last_u, nw_cap)
+            hk_hi = mix4_t(new_state["p_hi"], new_state["p_lo"], nw_cap, last_u ^ 0x9E3779B9)
+            for i in range(cfg.ring_width):
+                hk_lo = mix4_t(hk_lo, new_state["ring_lo"][..., i], new_state["ring_hi"][..., i], 2 * i + 1)
+                hk_hi = mix4_t(hk_hi, new_state["ring_hi"][..., i], new_state["ring_lo"][..., i], 2 * i + 2)
+            eq = (hk_lo[:, :, None] == hk_lo[:, None, :]) & (hk_hi[:, :, None] == hk_hi[:, None, :])
+            dup_h = (eq & lower).any(dim=2)
+            new_state["logit"] = torch.where(dup_h, DEAD, new_state["logit"])
+            new_state["last_tok"] = torch.where(dup_h, sentinel, new_state["last_tok"])
+
+        # inactive (padded) frames pass state through untouched
+        out_state = {}
+        for key, old in state.items():
+            act = active.view((n,) + (1,) * (old.dim() - 1))
+            out_state[key] = torch.where(act, new_state[key], old)
+        parent = torch.where(active[:, None], parent, iota_b)
+        token_sel = torch.where(active[:, None], token_sel, -1)
+        return out_state, (parent, token_sel)
+
+    return step
+
+
+def _finalize(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict) -> Dict:
+    """End-of-utterance ranking (ref decoder.py:558-602).
+
+    Force-commits trailing partial words, scores the final word with
+    ``is_last_word`` semantics (``</s>`` credit when ``score_boundary``),
+    merges beams by committed text (the ``merge_prune`` kernel with K = 1,
+    extra 0 and no prune window; the donor's extra is added after, as the
+    reference does) and ranks with the window prune.
+    """
+    n, b = state["logit"].shape
+    device = state["logit"].device
+    alive = state["logit"] > DEAD_THRESH
+    commit = state["p_len"] > 0
+    t_lo, t_hi = hash_text_commit_t(state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"])
+    text_lo = torch.where(commit, t_lo, state["text_lo"])
+    text_hi = torch.where(commit, t_hi, state["text_hi"])
+    ctx_view = ctx_len_view = None
+    if lm is not None:
+        lm_prm = prm["lm"]
+        flags = state["p_flags"]
+        in_model = ((flags & _BIT_IN_VOCAB) != 0) & commit
+        wid = torch.where(in_model, lm["trie_word_id"][state["p_node"]], lm["unk_id"])
+        in_uni = ((flags & _BIT_UNI_WORD) != 0) & commit
+        is_oov = ~in_model
+        if lm["has_unigrams"]:
+            is_oov = is_oov | ~in_uni
+        raw10, ctx2, ctx2_len, ctx2_bo = lm_score_words(
+            lm, state["ctx"], state["ctx_len"], wid, state["ctx_bo"]
+        )
+        raw = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
+        if lm_prm["score_boundary"]:
+            eos = torch.full_like(wid, lm["eos_id"])
+            eos10, _, _, _ = lm_score_words(lm, ctx2, ctx2_len, eos, ctx2_bo)
+            raw = raw + eos10
+        word_fused = lm_prm["alpha"] * raw * _LOG10 + lm_prm["beta"]
+        fused_scored = state["fused"] + word_fused
+        ctx_view, ctx_len_view = ctx2, ctx2_len
+    else:
+        fused_scored = state["fused"]
+
+    # merge key: committed text only
+    kl = mix4_t(text_lo, 0, 1, 0)
+    kh = mix4_t(text_hi, 0, 1, 0)
+    logit_f = torch.where(alive, state["logit"], DEAD)
+    zeros = torch.zeros((n, 1, b), dtype=torch.float32, device=device)
+    no_window = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
+    merged_b, _, src_m = merge_prune(
+        kl[:, None].contiguous(), kh[:, None].contiguous(), alive.to(torch.int32)[:, None].contiguous(),
+        logit_f[:, None].contiguous(), zeros, no_window,
+    )
+    merged_b = merged_b[:, 0]  # group logsumexp at group-first beams, else DEAD
+    donor = src_m[:, 0].to(torch.int64)
+    live = merged_b > DEAD_THRESH
+    lm_score = torch.where(live, merged_b + fused_scored.gather(1, donor), DEAD)
+    # window prune relative to the best, then top-B (ref decoder.py:536-554)
+    mx = lm_score.amax(dim=1, keepdim=True)
+    sc = torch.where(lm_score >= mx + prm["beam_prune_logp"], lm_score, DEAD)
+    score, top_idx = _top_b(sc, b)
+    src = donor.gather(1, top_idx)
+    out = {"src": src, "logit": merged_b.gather(1, top_idx), "score": score}
+    if lm is not None:
+        out["ctx"] = _rows(ctx_view, src)
+        out["ctx_len"] = _rows(ctx_len_view, src)
+    return out
+
+
+def make_decode_fn(cfg: EngineConfig, tables: Dict):
+    """Build the batch decode function over uploaded ``tables``.
+
+    ``fn(logp [N, T, V] f32, n_frames [N] int64, params f32 vector, start)``
+    runs the frame loop and the finalization on ``logp``'s device and
+    returns the ranked beams (top ``emit_paths`` or all B) with their token
+    paths ``[N, R, T]`` (backtraced on the device; -1 at padded frames).
+    """
+
+    def decode(logp: torch.Tensor, n_frames: torch.Tensor, params: np.ndarray,
+               start: Optional[Dict]) -> Dict[str, torch.Tensor]:
+        n, t_max, _ = logp.shape
+        prm = _params_dict(cfg, params)
+        state = _init_state(cfg, start, n, logp.device)
+        step = _make_step(cfg, tables, prm, n_frames)
+        parents: List[torch.Tensor] = []
+        trace: List[torch.Tensor] = []
+        for t in range(t_max):
+            state, (par, tok) = step(state, logp[:, t], t)
+            parents.append(par.to(_parent_dtype(cfg.beam_width)))
+            trace.append(tok.to(_path_dtype(cfg.vocab_size)))
+        fin = _finalize(cfg, tables["lm"], prm, state)
+        r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
+        cur = fin["src"][:, :r]
+        paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=logp.device)
+        for t in range(t_max - 1, -1, -1):
+            paths[:, :, t] = trace[t].gather(1, cur)
+            cur = parents[t].gather(1, cur).to(torch.int64)
+        out = {
+            "beam_src": fin["src"][:, :r],
+            "logit": fin["logit"][:, :r],
+            "lm_score": fin["score"][:, :r],
+            "paths": paths,
+        }
+        if "ctx" in fin:
+            out["ctx"] = fin["ctx"][:, :r]
+            out["ctx_len"] = fin["ctx_len"][:, :r]
+        return out
+
+    return decode

@@ -1,0 +1,158 @@
+"""Shallow-fusion language model wrapper.
+
+Parity surface: ref ``language_model.py:230-360``. :class:`LanguageModel`
+wraps this package's own n-gram runtime (``models/ngram.py``), applying the
+fused-score formula
+
+``alpha * (raw_log10 + unk_offset*[oov] + eos_log10) * ln(10) + beta``
+
+per committed word (ref ``language_model.py:338-360``), the OOV rule
+(unigram-set miss when a unigram set exists, OR model-vocab miss), and the
+partial-word scoring (prefix-trie miss penalty, length-scaled past
+``AVG_TOKEN_LEN``; ref ``language_model.py:326-336``). The device engine
+reads ``alpha``, ``beta``, ``unk_score_offset`` and ``score_boundary`` per
+decode call; the host scoring methods document the same rules.
+"""
+from __future__ import annotations
+
+import logging
+from typing import Any, Collection, Dict, Optional, Set, Tuple
+
+from ..constants import (
+    AVG_TOKEN_LEN,
+    DEFAULT_ALPHA,
+    DEFAULT_BETA,
+    DEFAULT_SCORE_LM_BOUNDARY,
+    DEFAULT_UNK_LOGP_OFFSET,
+    LOG_BASE_CHANGE_FACTOR,
+)
+from ..utils.trie import CharTrie
+from .base import AbstractLanguageModel, AbstractLMState, NGramLMState
+from .ngram import NGramModel
+
+logger = logging.getLogger(__name__)
+
+
+def _prepare_unigram_set(unigrams: Collection[str], model: NGramModel) -> Set[str]:
+    """Keep only unigrams known to the n-gram model's vocabulary."""
+    if len(unigrams) < 1000:
+        logger.warning(
+            "the supplied vocabulary has just %s unigrams; real models "
+            "usually ship far more (toy/test data?)",
+            len(unigrams),
+        )
+    unigram_set = {t for t in set(unigrams) if t in model}
+    retained = 1.0 if len(unigrams) == 0 else len(unigram_set) / len(unigrams)
+    if retained < 0.1:
+        logger.warning(
+            "the n-gram model recognizes only %s%% of the supplied unigrams; "
+            "the vocabulary and the LM probably come from different sources",
+            round(retained * 100, 1),
+        )
+    return unigram_set
+
+
+class LanguageModel(AbstractLanguageModel):
+    """n-gram LM with shallow-fusion weighting for beam-search decoding."""
+
+    def __init__(
+        self,
+        ngram_model: NGramModel,
+        unigrams: Optional[Collection[str]] = None,
+        alpha: float = DEFAULT_ALPHA,
+        beta: float = DEFAULT_BETA,
+        unk_score_offset: float = DEFAULT_UNK_LOGP_OFFSET,
+        score_boundary: bool = DEFAULT_SCORE_LM_BOUNDARY,
+    ) -> None:
+        self._model = ngram_model
+        if unigrams is None:
+            logger.warning(
+                "decoding without a known-word vocabulary: every partial word "
+                "is scored as unknown, which usually costs accuracy"
+            )
+            unigram_set: Set[str] = set()
+            char_trie = None
+        else:
+            unigram_set = _prepare_unigram_set(unigrams, ngram_model)
+            char_trie = CharTrie.fromkeys(unigram_set)
+        self._unigram_set = unigram_set
+        self._char_trie = char_trie
+        self.alpha = alpha
+        self.beta = beta
+        self.unk_score_offset = unk_score_offset
+        self.score_boundary = score_boundary
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def ngram_model(self) -> NGramModel:
+        return self._model
+
+    @property
+    def unigram_set(self) -> Set[str]:
+        return set(self._unigram_set)
+
+    @property
+    def order(self) -> int:
+        return self._model.order
+
+    # tunable knob -> required type (live-retunable without reloading tables)
+    _TUNABLE = {
+        "alpha": float,
+        "beta": float,
+        "unk_score_offset": float,
+        "score_boundary": bool,
+    }
+
+    def reset_params(self, **params: Dict[str, Any]) -> None:
+        """Re-tune alpha/beta/unk_score_offset/score_boundary in place."""
+        for name, required in self._TUNABLE.items():
+            value = params.get(name)
+            if value is None:
+                continue
+            if not isinstance(value, required):
+                raise ValueError(
+                    f"{name} accepts {required.__name__} values only; "
+                    f"received {type(value).__name__}"
+                )
+            setattr(self, name, value)
+
+    # -- scoring --------------------------------------------------------------
+    def get_start_state(self) -> NGramLMState:
+        """<s>-conditioned state when score_boundary, else empty context."""
+        if self.score_boundary:
+            return NGramLMState(self._model.begin_sentence_state())
+        return NGramLMState(self._model.null_context_state())
+
+    def score_partial_token(self, partial_token: str) -> float:
+        """Prefix-membership penalty for an in-progress word (ref lm.py:326-336)."""
+        if self._char_trie is None:
+            is_oov = 1.0
+        else:
+            is_oov = float(not self._char_trie.has_prefix(partial_token))
+        unk_score = self.unk_score_offset * is_oov
+        if len(partial_token) > AVG_TOKEN_LEN:
+            unk_score = unk_score * len(partial_token) / AVG_TOKEN_LEN
+        return unk_score
+
+    def _is_oov(self, word: str) -> bool:
+        return (len(self._unigram_set) > 0 and word not in self._unigram_set) or (
+            word not in self._model
+        )
+
+    def score(
+        self, prev_state: AbstractLMState, word: str, is_last_word: bool = False
+    ) -> Tuple[float, NGramLMState]:
+        """Fused shallow-fusion score of one word (ref language_model.py:338-360)."""
+        if not isinstance(prev_state, NGramLMState):
+            raise AssertionError(
+                f"LanguageModel.score needs an NGramLMState; "
+                f"received {type(prev_state).__name__}"
+            )
+        raw, end_context = self._model.raw_score_word(prev_state.context, word)
+        if self._is_oov(word):
+            raw += self.unk_score_offset
+        if is_last_word and self.score_boundary:
+            # end-of-sentence credit; the returned state stays extendable
+            raw += self._model.raw_end_score(end_context)
+        fused = self.alpha * raw * LOG_BASE_CHANGE_FACTOR + self.beta
+        return fused, NGramLMState(end_context)

@@ -1,0 +1,173 @@
+"""Port device tables vs the JAX package's, on one small synthetic 3-gram.
+
+* the port's numpy builders give bit-equal planes (fingerprint buckets,
+  seeds, unigrams, trie arrays, the packed trie plane, start context);
+* ``DeviceLM.from_numpy`` round-trips the JAX package's tables;
+* the torch probes (``probe_fp``, ``lm_score_words``, ``trie_fetch_rows``)
+  equal the JAX ``jnp`` functions on the same tables and queries.
+"""
+import dataclasses
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyctcdecode_torch.alphabet import Alphabet as TAlphabet
+from pyctcdecode_torch.evaluation import make_parity_arpa
+from pyctcdecode_torch.models import device_tables as tdt
+from pyctcdecode_torch.models.language_model import LanguageModel as TLanguageModel
+from pyctcdecode_torch.models.ngram import load_unigram_set_from_arpa as t_unigrams
+from pyctcdecode_torch.models.ngram import open_ngram_file
+from pyctcdecode_torch.ops.tokens import build_token_arrays as t_tokens
+from pyctcdecode_tpu.alphabet import Alphabet as JAlphabet
+from pyctcdecode_tpu.models import device_tables as jdt
+from pyctcdecode_tpu.models.language_model import LanguageModel as JLanguageModel
+from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
+from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
+
+LABELS = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["'", ""]
+
+
+@pytest.fixture(scope="module")
+def tables(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("lm") / "small3.arpa")
+    make_parity_arpa(path, n_vocab=400, n_bigrams=3000, n_trigrams=2000)
+    unigrams = sorted(t_unigrams(path))
+    jlm = JLanguageModel(JNGramModel.from_file(path), unigrams)
+    tlm = TLanguageModel(open_ngram_file(path), unigrams)
+    jdlm = jdt.build_device_lm(jlm, j_tokens(JAlphabet.build_alphabet(LABELS)))
+    tdlm = tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(LABELS)))
+    present = [np.array(list(d.keys()), dtype=np.int32) for d in tlm.ngram_model.tables.ngrams]
+    return jdlm, tdlm, present
+
+
+def jax_fields(jdlm):
+    """The JAX DeviceLM's numpy fields, as DeviceLM.from_numpy takes them."""
+    return dict(
+        order=jdlm.order,
+        unk_id=jdlm.unk_id,
+        eos_id=jdlm.eos_id,
+        unk_prob10=jdlm.unk_prob10,
+        start_ctx=jdlm.start_ctx,
+        start_ctx_len=jdlm.start_ctx_len,
+        start_ctx_backoffs=jdlm.start_ctx_backoffs,
+        uni=jdlm.uni,
+        fp_tables=[dataclasses.asdict(t) for t in jdlm.fp_tables],
+        trie=dataclasses.asdict(jdlm.trie),
+        seed_node=jdlm.seed_node,
+        has_unigrams=jdlm.has_unigrams,
+    )
+
+
+def _assert_same_lm(jdlm, tdlm):
+    for name in ("order", "unk_id", "eos_id", "unk_prob10", "start_ctx_len", "has_unigrams"):
+        assert getattr(jdlm, name) == getattr(tdlm, name), name
+    for name in ("start_ctx", "start_ctx_backoffs", "uni", "seed_node"):
+        np.testing.assert_array_equal(getattr(jdlm, name), getattr(tdlm, name), err_msg=name)
+    assert len(jdlm.fp_tables) == len(tdlm.fp_tables)
+    for jt, tt in zip(jdlm.fp_tables, tdlm.fp_tables):
+        assert (jt.n, jt.size, jt.seed_lo, jt.seed_hi, jt.hash_mode) == (
+            tt.n, tt.size, tt.seed_lo, tt.seed_hi, tt.hash_mode
+        )
+        np.testing.assert_array_equal(jt.bucket, tt.bucket)
+    for name in ("next", "word_id", "is_uni_word", "is_uni_prefix", "min_completion"):
+        np.testing.assert_array_equal(getattr(jdlm.trie, name), getattr(tdlm.trie, name), err_msg=name)
+    assert jdlm.trie.dead == tdlm.trie.dead
+    assert jdlm.trie_pack == tdlm.trie_pack
+
+
+def test_built_planes_bit_equal(tables):
+    jdlm, tdlm, _ = tables
+    _assert_same_lm(jdlm, tdlm)
+    jplane = np.asarray(jdlm.as_device()["trie_rows"])
+    np.testing.assert_array_equal(jplane, tdlm.trie_plane())
+    np.testing.assert_array_equal(
+        np.asarray(jdlm.as_device()["seed_node"]), tdlm.seed_entries()
+    )
+
+
+def test_from_numpy_round_trips(tables):
+    jdlm, tdlm, _ = tables
+    rebuilt = tdt.DeviceLM.from_numpy(**jax_fields(jdlm))
+    _assert_same_lm(jdlm, rebuilt)
+    a, b = rebuilt.as_device("cpu"), tdlm.as_device("cpu")
+    for name in ("uni", "trie_rows", "trie_word_id", "uni_unk_row", "seed_node"):
+        assert torch.equal(a[name], b[name]), name
+    for ta, tb in zip(a["fp"], b["fp"]):
+        assert torch.equal(ta["bucket"], tb["bucket"])
+        assert (ta["seed_lo"], ta["seed_hi"], ta["size"]) == (tb["seed_lo"], tb["seed_hi"], tb["size"])
+
+
+def _queries(tdlm, rng, q, n):
+    """Random id keys, a quarter of them led by the -1 context pad."""
+    vocab = tdlm.uni.shape[0]
+    keys = rng.randint(0, vocab, size=(q, n)).astype(np.int32)
+    keys[: q // 4, 0] = -1
+    return keys
+
+
+def test_probe_fp_matches_jax(tables):
+    jdlm, tdlm, present = tables
+    rng = np.random.RandomState(0)
+    jdev = jdlm.as_device()
+    tdev = tdlm.as_device("cpu")
+    for order_idx, table in enumerate(tdlm.fp_tables):
+        n = table.n
+        hits = present[n - 1][rng.permutation(len(present[n - 1]))[:150]]
+        keys = np.concatenate([_queries(tdlm, rng, 200, n), hits], axis=0)
+        valid = rng.rand(keys.shape[0]) < 0.9
+        jtab = dict(jdev["fp"][order_idx], hash_mode="fnv")
+        jf, jp, jb = jdt.probe_fp_jnp(jtab, jnp.asarray(keys), jnp.asarray(valid))
+        tf, tp, tb = tdt.probe_fp(tdev["fp"][order_idx], torch.as_tensor(keys), torch.as_tensor(valid))
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        assert tf.numpy()[200:].sum() >= 100  # the present keys hit
+
+
+def test_lm_score_words_matches_jax(tables):
+    jdlm, tdlm, _ = tables
+    rng = np.random.RandomState(1)
+    q = 300
+    order = tdlm.order
+    width = order - 1
+    vocab = tdlm.uni.shape[0]
+    ctx_len = rng.randint(0, width + 1, size=q).astype(np.int32)
+    ctx = rng.randint(0, vocab, size=(q, width)).astype(np.int32)
+    for i in range(q):
+        ctx[i, : width - ctx_len[i]] = -1
+    bo = np.stack([tdt.context_suffix_backoffs(tdlm, ctx[i, width - ctx_len[i]:]) for i in range(q)])
+    wid = rng.randint(0, vocab, size=q).astype(np.int32)
+    jdev = dict(jdlm.as_device())
+    jdev["fp"] = [dict(t, hash_mode="fnv") for t in jdev["fp"]]
+    want = jdt.lm_score_words_jnp(
+        jdev, order, np.float32(jdlm.unk_prob10), jnp.asarray(ctx), jnp.asarray(ctx_len),
+        jnp.asarray(wid), jnp.asarray(bo),
+    )
+    got = tdt.lm_score_words(
+        tdlm.as_device("cpu"), torch.as_tensor(ctx).long(), torch.as_tensor(ctx_len).long(),
+        torch.as_tensor(wid), torch.as_tensor(bo),
+    )
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
+
+
+def test_trie_fetch_rows_matches_jax(tables):
+    jdlm, tdlm, _ = tables
+    rng = np.random.RandomState(2)
+    nodes = rng.randint(0, tdlm.trie.n_nodes, size=(7, 13)).astype(np.int32)
+    jrows = jdlm.as_device()["trie_rows"]
+    want = jdt.trie_fetch_rows(jnp, jrows, jdlm.trie_pack, jnp.asarray(nodes))
+    tdev = tdlm.as_device("cpu")
+    got = tdt.trie_fetch_rows(tdev["trie_rows"], tdev["trie_pack"], torch.as_tensor(nodes))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_only_arpa_models_load(tmp_path):
+    path = os.path.join(tmp_path, "model.bin")
+    with open(path, "wb") as fh:
+        fh.write(b"mmap lm http://kheafield.com/code format version 5\n")
+    with pytest.raises(NotImplementedError, match="ARPA"):
+        open_ngram_file(path)

@@ -1,0 +1,118 @@
+"""Merge kernels: plain PyTorch versions vs the Pallas kernels (interpret mode).
+
+``merge_prune_ref`` / ``expand_merge_prune_ref`` must compute what the JAX
+package's ``merge_score_pallas`` / ``expand_merge_score_pallas`` compute,
+single and under ``jax.vmap`` (the batched-grid rule), for char and BPE-like
+shapes. Tolerance: ``atol 1e-5`` on scores (the group logsumexp sums its
+exponentials in another order), ``src`` exact at live entries. The CUDA
+kernels themselves are held against the same plain versions on the card
+(``test_torch_kernels_cuda.py`` and ``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyctcdecode_torch.ops import merge as tm
+from pyctcdecode_tpu.ops import pallas_merge as pm
+
+from .torch_cases import assert_outputs, expand_inputs, merge_inputs, torch_merge_args, torch_planes
+
+
+@pytest.mark.parametrize("n,k,b,seed", [(1, 6, 16, 3), (1, 1, 24, 4), (3, 5, 12, 5)])
+def test_merge_prune_ref_matches_pallas(n, k, b, seed):
+    kl, kh, valid, logit, extra, prune = merge_inputs(np.random.RandomState(seed), n, k, b)
+    got = tm.merge_prune_ref(*torch_merge_args(kl, kh, valid, logit, extra, prune))
+    if n == 1:
+        want = pm.merge_score_pallas(
+            jnp.asarray(kl[0]), jnp.asarray(kh[0]), jnp.asarray(valid[0].astype(np.int32)),
+            jnp.asarray(logit[0]), jnp.asarray(extra[0]), jnp.float32(prune[0]),
+            interpret=True,
+        )
+        want = tuple(np.asarray(x)[None] for x in want)
+    else:
+        want = jax.vmap(
+            lambda a, bb, c, d, e, f: pm.merge_score_pallas(a, bb, c, d, e, f, interpret=True)
+        )(
+            jnp.asarray(kl), jnp.asarray(kh), jnp.asarray(valid.astype(np.int32)),
+            jnp.asarray(logit), jnp.asarray(extra), jnp.asarray(prune),
+        )
+    assert_outputs(got, want)
+
+
+@pytest.mark.parametrize(
+    "n,lmax,is_bpe,seed",
+    [(1, 1, False, 11), (3, 1, False, 12), (1, 3, True, 13), (3, 3, True, 14)],
+)
+def test_expand_merge_prune_ref_matches_pallas(n, lmax, is_bpe, seed):
+    k, b = 5, 12
+    beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(seed), n, k, b, lmax)
+    got = tm.expand_merge_prune_ref(
+        torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+        torch.as_tensor(pscore), torch.as_tensor(prune), is_bpe,
+    )
+
+    def one(beam_1, tok_1, cids_1, pscore_1, prune_1):
+        return pm.expand_merge_score_pallas(
+            beam_1, tok_1, list(cids_1), pscore_1, prune_1, is_bpe, interpret=True
+        )
+
+    jbeam = {key: jnp.asarray(val) for key, val in beam.items()}
+    jtok = {key: jnp.asarray(val) for key, val in tok.items()}
+    if n == 1:
+        want = one(
+            {key: val[0] for key, val in jbeam.items()},
+            {key: val[0] for key, val in jtok.items()},
+            jnp.asarray(cids[:, 0]), jnp.asarray(pscore[0]), jnp.float32(prune[0]),
+        )
+        want = tuple(np.asarray(x)[None] for x in want)
+    else:
+        want = jax.vmap(one, in_axes=(0, 0, 1, 0, 0))(
+            jbeam, jtok, jnp.asarray(cids), jnp.asarray(pscore), jnp.asarray(prune)
+        )
+    assert_outputs(got, want)
+
+
+def test_cpu_wrappers_run_plain_version_and_count_nothing():
+    kl, kh, valid, logit, extra, prune = merge_inputs(np.random.RandomState(2), 2, 3, 8)
+    args = torch_merge_args(kl, kh, valid, logit, extra, prune)
+    before = tm.merge_prune.launches
+    got = tm.merge_prune(*args)
+    want = tm.merge_prune_ref(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tm.merge_prune.launches == before
+
+    beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(3), 2, 4, 8, 1)
+    eargs = (torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+             torch.as_tensor(pscore), torch.as_tensor(prune), False)
+    before = tm.expand_merge_prune.launches
+    for g, w in zip(tm.expand_merge_prune(*eargs), tm.expand_merge_prune_ref(*eargs)):
+        assert torch.equal(g, w)
+    assert tm.expand_merge_prune.launches == before
+
+
+def test_wrappers_check_dtype_shape_and_contiguity():
+    kl, kh, valid, logit, extra, prune = merge_inputs(np.random.RandomState(4), 2, 3, 8)
+    args = list(torch_merge_args(kl, kh, valid, logit, extra, prune))
+    bad = list(args)
+    bad[0] = bad[0].to(torch.int32)
+    with pytest.raises(TypeError, match="kl"):
+        tm.merge_prune(*bad)
+    bad = list(args)
+    bad[4] = bad[4][:, :, :4]
+    with pytest.raises(ValueError, match="extra"):
+        tm.merge_prune(*bad)
+    bad = list(args)
+    bad[3] = bad[3].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tm.merge_prune(*bad)
+    beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(5), 2, 4, 8, 1)
+    tplanes = torch_planes(tok)
+    tplanes["seed_lo"] = tplanes["seed_lo"].to(torch.int32)
+    with pytest.raises(TypeError, match="seed_lo"):
+        tm.expand_merge_prune(
+            torch_planes(beam), tplanes, torch.as_tensor(cids),
+            torch.as_tensor(pscore), torch.as_tensor(prune), False,
+        )

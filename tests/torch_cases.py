@@ -1,0 +1,129 @@
+"""Shared cases for the port's tests: merge-kernel inputs and a tiny 3-gram.
+
+Imports numpy and torch only, so the card tests (``test_torch_kernels_cuda``)
+can use it on a machine without JAX.
+"""
+import numpy as np
+import torch
+
+ATOL = 1e-5
+DEAD = -1.0e30
+
+# A self-authored 3-gram over words spellable with the bugs/bunny alphabet
+# (" bgnsuy"), with backoff paths at every order and a non-unigram vocab word.
+ARPA = """\\data\\
+ngram 1=12
+ngram 2=9
+ngram 3=4
+
+\\1-grams:
+-1.6\t<unk>\t0
+-99\t<s>\t-0.6
+-1.3\t</s>\t0
+-0.8\tbugs\t-0.3
+-0.9\tbunny\t-0.4
+-1.4\tbun\t-0.2
+-1.5\tbuns\t-0.25
+-1.1\tsun\t-0.35
+-1.2\tsunny\t-0.3
+-1.7\tgun\t-0.1
+-1.9\tguns\t-0.15
+-2.0\tnun\t0
+
+\\2-grams:
+-0.3\t<s> bugs\t-0.2
+-0.6\t<s> bunny\t-0.1
+-0.2\tbugs bunny\t-0.3
+-0.9\tbunny bunny\t0
+-0.5\tbunny </s>\t0
+-0.7\tbugs </s>\t0
+-0.4\tsunny bun\t-0.2
+-0.8\tsun guns\t0
+-0.6\tbun buns\t0
+
+\\3-grams:
+-0.1\t<s> bugs bunny
+-0.2\tbugs bunny </s>
+-0.3\tsunny bun buns
+-0.25\t<s> bunny bunny
+
+\\end\\
+"""
+UNIGRAMS = ["bugs", "bunny", "bun", "buns", "sun", "sunny", "gun", "nun"]  # "guns" left out
+
+
+def merge_inputs(rng, n, k, b):
+    kl = rng.randint(0, 5, size=(n, k, b)).astype(np.uint32)
+    kh = kl * np.uint32(2654435761)
+    valid = rng.rand(n, k, b) < 0.7
+    logit = np.where(valid, rng.randn(n, k, b), DEAD).astype(np.float32)
+    extra = rng.randn(n, k, b).astype(np.float32)
+    prune = np.full(n, -1.5, dtype=np.float32)
+    return kl, kh, valid, logit, extra, prune
+
+
+def assert_outputs(got, want):
+    score, merged, src = (x.numpy() for x in got)
+    w_score, w_merged, w_src = (np.asarray(x) for x in want)
+    np.testing.assert_allclose(score, w_score, atol=ATOL, rtol=0)
+    finite = np.isfinite(w_merged)
+    np.testing.assert_array_equal(np.isfinite(merged), finite)
+    np.testing.assert_allclose(merged[finite], w_merged[finite], atol=ATOL, rtol=0)
+    live = w_score > -1e29
+    assert live.any()
+    np.testing.assert_array_equal(src[live], w_src[live])
+
+
+def torch_merge_args(kl, kh, valid, logit, extra, prune):
+    return (
+        torch.as_tensor(kl.astype(np.int64)), torch.as_tensor(kh.astype(np.int64)),
+        torch.as_tensor(valid.astype(np.int32)), torch.as_tensor(logit),
+        torch.as_tensor(extra), torch.as_tensor(prune),
+    )
+
+
+def expand_inputs(rng, n, k, b, lmax):
+    """Random parents/tokens with small hash ranges so candidates collide."""
+    beam = {
+        "text_lo": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "text_hi": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "cm_text_lo": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "cm_text_hi": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "p_lo": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "p_hi": rng.randint(0, 3, (n, b)).astype(np.uint32),
+        "force": rng.randint(0, 2, (n, b)).astype(np.int32),
+        "fused": rng.randn(n, b).astype(np.float32),
+        "wfused": rng.randn(n, b).astype(np.float32),
+        "logit": np.where(rng.rand(n, b) < 0.8, rng.randn(n, b) - 2.0, DEAD).astype(np.float32),
+        "last_tok": rng.randint(-3, k, (n, b)).astype(np.int32),
+    }
+    tok = {
+        "tok": np.tile(np.arange(k, dtype=np.int32), (n, 1)),
+        "blank": (rng.rand(n, k) < 0.2).astype(np.int32),
+        "boundary": (rng.rand(n, k) < 0.3).astype(np.int32),
+        "right": (rng.rand(n, k) < 0.3).astype(np.int32),
+        "seed_lo": rng.randint(0, 3, (n, k)).astype(np.uint32),
+        "seed_hi": rng.randint(0, 3, (n, k)).astype(np.uint32),
+        "tok_logp": (-rng.rand(n, k) * 4).astype(np.float32),
+        "admit": (rng.rand(n, k) < 0.8).astype(np.int32),
+    }
+    cids = rng.randint(-1, 30, (lmax, n, k)).astype(np.int32)
+    pscore = (rng.randn(n, k, b) * 0.5).astype(np.float32)
+    prune = np.full(n, -3.0, dtype=np.float32)
+    return beam, tok, cids, pscore, prune
+
+
+def torch_planes(planes):
+    return {
+        name: torch.as_tensor(arr.astype(np.int64) if arr.dtype == np.uint32 else arr)
+        for name, arr in planes.items()
+    }
+
+
+def word_logits(seed, t):
+    """Noisy peaked logits over the 8-label bugs/bunny alphabet (a word-like path)."""
+    rng = np.random.RandomState(seed)
+    path = rng.choice([1, 2, 3, 4, 5, 6, 0, 7, 7], size=t)
+    mat = rng.randn(t, 8).astype(np.float32) * 1.3
+    mat[np.arange(t), path] += 3.0
+    return mat
