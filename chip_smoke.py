@@ -1,4 +1,4 @@
-"""Chip smoke test: build the CUDA kernels, check them, drive the port's main path.
+"""Chip smoke test: build the CUDA kernels, check them, drive the port's main paths.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -7,25 +7,50 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failed check exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``nvcc`` compiles every ``pyctcdecode_torch/csrc/*.cu`` for sm_90a;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   on random inputs made with numpy from fixed seeds, at the main path's
-   shapes (N = 32 utterances, K = 29 tokens, B = 100 beams; K = 1 for the
-   final text merge). Tolerances: scores and merged logits within atol 1e-5
-   + rtol 1e-6 (the kernel sums exponentials in another order); ``src``
+2. build: ``nvcc`` compiles every ``pyctcdecode_torch/csrc/*.cu`` for sm_90a,
+   all sources at once;
+3. merge kernels: each CUDA kernel against its plain PyTorch version on the
+   card, on random inputs made with numpy from fixed seeds, at the main
+   paths' shapes (B = 100 beams; the dense path's N = 32 utterances with
+   K = 29 tokens for its step and K = 1 for its final text merge, with and
+   without the window; the serving path's length groups of N = 16 with K = 5
+   per-utterance chunk token planes with empty slots and the window off for
+   its step, and K = 1 with the window off for its final merge; the chunk
+   step at N = 32 as well). Tolerances: scores and merged logits within atol
+   1e-5 + rtol 1e-6 (the kernel sums exponentials in another order); ``src``
    exact at live entries; the pruned (DEAD) sets equal except within that
-   tolerance of the window threshold. Times are CUDA-event medians of 30
-   launches;
-4. main path: the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M
+   tolerance of the window threshold. Times are per-call device times over
+   30 launches;
+4. gather kernel: ``gather_rows`` against ``table[idx]``, bit-exact, at the
+   shape of the reference's gather probe (int32 [524288, 64] table, 38 400
+   queries, seeded alike), at the bucket rows' width (128 words), on the
+   parity LM's own trie plane and bucket tables with the indices of a real
+   step of the dense decode ([32, 100]) and of a serving decode's length
+   group ([16, 100]; many repeats), and at ragged query counts; timed beside
+   the plain version and ``torch.index_select`` (the library call, used
+   nowhere in the package);
+5. dense path: the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M
    trigrams, written from a seed under ``build/``) behind
    ``pyctcdecode_torch.build_ctcdecoder``; ``decode_batch`` of 32 synthetic
    dev-other utterances at beam 100 with every token expanded (K = 29). The
-   kernels' launch counters must show one ``expand_merge_prune`` launch per
-   frame step and one ``merge_prune`` launch per finalization. The first 4
-   utterances decode again with a ``device="cpu"`` decoder (the plain
-   versions): identical texts, lm_score within 1e-3;
-5. profile: one more decode under ``torch.profiler`` (device time by kernel,
-   device idle share).
+   launch counters must show one ``expand_merge_prune`` launch per frame
+   step, one ``merge_prune`` launch per finalization, and for the 3-gram
+   three ``gather_rows`` launches per step (trie rows, bigram and trigram
+   bucket rows) plus four per finalization. The first 4 utterances decode
+   again with a ``device="cpu"`` decoder (the plain versions): identical
+   texts, lm_score within 1e-3;
+6. serving path: the same utterances through ``decode_batch(...,
+   token_chunking=True, blank_collapse=True, length_bucketing=16)`` (two
+   length groups) and through ``decode_beams_batches`` over 3 batches. Texts
+   equal the dense path's, lm_score within 1e-3 of it, the first 4 utterances
+   identical on the CPU, the pipelined generator gives ``decode_beams_batch``'s
+   results batch by batch, and the launch counters equal the virtual steps
+   that the host prep implies. One more batch is launched and collected in
+   separate timed stages (host prep, enqueue, wait, copy and assembly), and
+   the output copy through the decoder's pinned buffer is timed beside a
+   plain ``.cpu()`` of the same tensors;
+7. profile: one more decode of each path under ``torch.profiler`` (device
+   time by kernel, device idle share).
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -44,21 +69,34 @@ import numpy as np
 
 LIBRI_LABELS = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["'", ""]
 N_UTTS = 32
+GROUP_ROWS = 16  # rows of one length group of the serving call
 BEAM = 100
 K_TOKENS = len(LIBRI_LABELS)
 ATOL, RTOL = 1e-5, 1e-6
 CPU_CHECK = 4
 LM_SCORE_TOL = 1e-3
+RERUN_TOL = 1e-4  # the same decode again on the same card
+SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
+CHUNK = 5  # token_chunking=True
+OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel")
+PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # (non-tensor-core) operations/s; the kernels' scalar int32/f32 work is
 # counted against the latter
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 REPS = 30
+PROFILE_TRIES = 4
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a progress line, stamped with the seconds since the script started."""
+    print(f"{time.perf_counter() - _T0:7.1f}s {msg}", flush=True)
 
 
 class CheckFailed(RuntimeError):
@@ -89,25 +127,52 @@ def _device_us(ev) -> float:
     return float(us or 0.0)
 
 
-def time_call(torch, fn, reps: int = REPS):
+def time_call(torch, fn, reps: int = REPS, flush=None):
     """(device ms, call ms) per call of ``fn``.
 
     Device ms: the summed CUPTI durations of the kernels (and memsets) the
     call runs, per call, over ``reps`` calls under ``torch.profiler`` — the
     card's own time, free of Python overhead. Call ms: median CUDA-event
     time around single calls, which includes the launch gaps a caller pays.
+    ``flush`` (a fill of a buffer larger than the L2 cache) runs before every
+    profiled call, so that ``fn`` finds the cache cold; the fill kernels'
+    own rows are left out of the sum. Where the profiler keeps returning
+    empty traces, device ms is instead the CUDA-event time of ``reps`` calls
+    issued back to back, per call (launch gaps included; not available with
+    ``flush``, where it is NaN), and the log says so.
     """
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    dev_us = 0.0
+    for attempt in range(PROFILE_TRIES):  # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        dev_us = sum(_device_us(ev) for ev in prof.key_averages()
+                     if _is_device_row(ev) and not (flush is not None and FLUSH_KERNEL in ev.key))
+        if dev_us > 0:
+            break
+        log(f"[profiler] empty trace (attempt {attempt + 1} of {PROFILE_TRIES})")
+        time.sleep(attempt + 1.0)
+    if dev_us <= 0 and flush is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    dev_us = sum(_device_us(ev) for ev in prof.key_averages() if _is_device_row(ev))
-    check(dev_us > 0, "the profiler recorded no device time")
+        end.record()
+        end.synchronize()
+        dev_us = start.elapsed_time(end) * 1e3
+        log("[profiler] no trace: device ms below is the event time of back-to-back calls, launch gaps included")
+    elif dev_us <= 0:
+        dev_us = float("nan")
+        log("[profiler] no trace: the L2-flushed time below is not measured")
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -164,17 +229,17 @@ def compare(name: str, got, want, prune) -> float:
     return err
 
 
-def merge_inputs(torch, dev, rng, n, k, b):
+def merge_inputs(torch, dev, rng, n, k, b, window=True):
     kl = rng.randint(0, 6, size=(n, k, b)).astype(np.int64)
     kh = (kl * 2654435761) & 0xFFFFFFFF
     valid = (rng.rand(n, k, b) < 0.7).astype(np.int32)
     logit = np.where(valid, rng.randn(n, k, b) - 5.0, -1e30).astype(np.float32)
     extra = (rng.randn(n, k, b) * 2).astype(np.float32)
-    prune = np.full(n, -10.0, dtype=np.float32)
+    prune = np.full(n, -10.0 if window else -np.inf, dtype=np.float32)
     return [torch.as_tensor(a).to(dev) for a in (kl, kh, valid, logit, extra, prune)]
 
 
-def expand_inputs(torch, dev, rng, n, k, b, lmax):
+def expand_inputs(torch, dev, rng, n, k, b, lmax, chunk=False):
     def lanes(shape):
         return torch.as_tensor(rng.randint(0, 4, size=shape).astype(np.int64)).to(dev)
 
@@ -199,39 +264,63 @@ def expand_inputs(torch, dev, rng, n, k, b, lmax):
         "tok_logp": torch.as_tensor((-rng.rand(n, k) * 8).astype(np.float32)).to(dev),
         "admit": torch.as_tensor((rng.rand(n, k) < 0.6).astype(np.int32)).to(dev),
     }
+    if chunk:
+        # one timeline chunk per utterance: distinct ascending ids that differ
+        # from row to row, ending in empty slots (id -1: clamped to 0 for
+        # lookups, not admitted), as the serving step feeds the kernel
+        ids = np.stack([np.sort(rng.choice(K_TOKENS, size=k, replace=False)) for _ in range(n)])
+        holes = np.arange(k)[None, :] >= rng.randint(1, k + 1, size=(n, 1))
+        tok["tok"] = torch.as_tensor(np.where(holes, 0, ids).astype(np.int32)).to(dev)
+        tok["admit"] = torch.as_tensor((~holes).astype(np.int32)).to(dev)
+        beam["logit"][-1] = -1e30  # an utterance with no live beam
     cids = torch.as_tensor(rng.randint(-1, 31, (lmax, n, k)).astype(np.int32)).to(dev)
     pscore = torch.as_tensor((rng.randn(n, k, b) * 0.5).astype(np.float32)).to(dev)
-    prune = torch.full((n,), -10.0, dtype=torch.float32, device=dev)
+    prune = torch.full((n,), float("-inf") if chunk else -10.0, dtype=torch.float32, device=dev)
     return beam, tok, cids, pscore, prune
 
 
 def kernel_phases(torch, merge) -> dict:
-    """Each kernel vs its plain version on the card; times; bounds."""
+    """Each merge kernel vs its plain version on the card; times; bounds."""
     dev = torch.device("cuda")
     rec = {}
-    for k in (K_TOKENS, 1):
-        args = merge_inputs(torch, dev, np.random.RandomState(100 + k), N_UTTS, k, BEAM)
+    # (N, K, window): the batched form, the finalize's shape, and the finalize
+    # as it runs (no window: prune = -inf) on the dense batch and on one
+    # length group of the serving call
+    for n, k, window in ((N_UTTS, K_TOKENS, True), (N_UTTS, 1, True), (N_UTTS, 1, False),
+                         (GROUP_ROWS, 1, False)):
+        args = merge_inputs(torch, dev, np.random.RandomState(100 + k + (n != N_UTTS) * 1000), n, k, BEAM, window)
         got = merge.merge_prune(*args)
         torch.cuda.synchronize()
-        err = compare(f"merge_prune[{N_UTTS},{k},{BEAM}]", got, merge.merge_prune_ref(*args), args[5])
+        label = f"merge_prune[{n},{k},{BEAM}]" + ("" if window else " window off")
+        check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
+        err = compare(label, got, merge.merge_prune_ref(*args), args[5])
         ms, call = time_call(torch, lambda: merge.merge_prune(*args))
         plain, plain_call = time_call(torch, lambda: merge.merge_prune_ref(*args))
         n_valid = int(args[2].sum())
         b_ms, b_by = bound_ms(nbytes(args) + nbytes(got), 3.0 * BEAM * n_valid)
-        log(f"merge_prune [{N_UTTS},{k},{BEAM}]: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
+        log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
             f"(call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
             f"bound {b_ms:.5f} ms ({b_by})")
-        rec[("merge_prune", k)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                       max_abs_err=err, shape=[N_UTTS, k, BEAM],
-                                       call_ms=call, plain_call_ms=plain_call)
-    for lmax, is_bpe in ((1, False), (3, True)):
+        rec[("merge_prune", f"n={n},k={k}" + ("" if window else ",window off"))] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=[n, k, BEAM], call_ms=call, plain_call_ms=plain_call)
+    # (N, K, lmax, BPE, chunk): the dense step, the BPE-like walk, the serving
+    # chunk step at the dense batch's rows and at a length group's
+    for n, k, lmax, is_bpe, chunk in ((N_UTTS, K_TOKENS, 1, False, False), (N_UTTS, K_TOKENS, 3, True, False),
+                                      (N_UTTS, CHUNK, 1, False, True), (GROUP_ROWS, CHUNK, 1, False, True)):
         beam, tok, cids, pscore, prune = expand_inputs(
-            torch, dev, np.random.RandomState(200 + lmax), N_UTTS, K_TOKENS, BEAM, lmax
+            torch, dev, np.random.RandomState((300 if chunk else 200 + lmax) + (n != N_UTTS) * 1000), n, k, BEAM, lmax, chunk
         )
         eargs = (beam, tok, cids, pscore, prune, is_bpe)
         got = merge.expand_merge_prune(*eargs)
         torch.cuda.synchronize()
-        label = f"expand_merge_prune[{N_UTTS},{K_TOKENS},{BEAM}] lmax={lmax} bpe={is_bpe}"
+        label = f"expand_merge_prune[{n},{k},{BEAM}] lmax={lmax} bpe={is_bpe}"
+        if chunk:
+            label += " chunk planes, window off"
+            check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
+            check(bool((got[0][-1] == -1e30).all()), f"{label}: a dead utterance has live candidates")
+            dead_in = ~((beam["logit"] > -1e29)[:, None, :] & (tok["admit"] != 0)[:, :, None])
+            check(bool((got[0][dead_in] == -1e30).all()), f"{label}: a DEAD member got through")
         err = compare(label, got, merge.expand_merge_prune_ref(*eargs), prune)
         ms, call = time_call(torch, lambda: merge.expand_merge_prune(*eargs))
         plain, plain_call = time_call(torch, lambda: merge.expand_merge_prune_ref(*eargs))
@@ -239,13 +328,109 @@ def kernel_phases(torch, merge) -> dict:
         alive = beam["logit"] > -1e29
         n_valid = int((alive[:, None, :] & (tok["admit"][:, :, None] != 0)).sum())
         # pairwise key tests + ~30 scalar ops per candidate to build it
-        ops = 3.0 * BEAM * n_valid + 30.0 * N_UTTS * K_TOKENS * BEAM
+        ops = 3.0 * BEAM * n_valid + 30.0 * n * k * BEAM
         b_ms, b_by = bound_ms(nbytes(ins) + nbytes(got), ops)
         log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (call {call:.4f}), "
             f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by})")
-        rec[("expand_merge_prune", lmax)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                                 max_abs_err=err, shape=[N_UTTS, K_TOKENS, BEAM],
-                                                 call_ms=call, plain_call_ms=plain_call)
+        rec[("expand_merge_prune", f"n={n},k={k},lmax={lmax}" + (",chunk,window off" if chunk else ""))] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            shape=[n, k, BEAM], call_ms=call, plain_call_ms=plain_call)
+    return rec
+
+
+def record_step_gathers(torch, decoder, logits, step: int, **decode_kw):
+    """The ``(table, idx)`` pairs ``gather_rows`` gets in one real decode step.
+
+    Decodes ``logits`` (``decode_batch`` with ``decode_kw``) with a recorder
+    in place of the wrapper inside ``device_tables``; with a 3-gram every
+    step asks for trie rows, bigram bucket rows and trigram bucket rows, in
+    that order. ``step`` counts from the start of the call's first decode
+    (the first length group's, where the call splits).
+    """
+    from pyctcdecode_torch.models import device_tables
+    from pyctcdecode_torch.ops.gather import gather_rows
+
+    calls = []
+
+    def recorder(table, idx):
+        calls.append((table, idx.clone()))
+        return gather_rows(table, idx)
+
+    device_tables.gather_rows = recorder
+    try:
+        decoder.decode_batch(logits, beam_width=BEAM, **decode_kw)
+    finally:
+        device_tables.gather_rows = gather_rows
+    torch.cuda.synchronize()
+    per_step = decoder.language_model.order
+    check(len(calls) >= per_step * (step + 1), "fewer gathers than steps were recorded")
+    return calls[per_step * step : per_step * (step + 1)]
+
+
+def gather_phases(torch, gather, step_calls: dict) -> dict:
+    """``gather_rows`` vs ``table[idx]`` (bit-exact) and ``torch.index_select``; times; bounds."""
+    dev = torch.device("cuda")
+    rec = {}
+
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device=dev)
+
+    def flush():
+        scratch.fill_(1)
+
+    def one(label, table, idx, timed=True, cold=False):
+        got = gather.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and tuple(got.shape) == (*idx.shape, table.shape[1]),
+              f"gather_rows {label}: bad output shape or dtype")
+        want = gather.gather_rows_ref(table, idx)
+        err = float((got.long() - want.long()).abs().max())
+        check(torch.equal(got, want), f"gather_rows {label}: differs from table[idx] by up to {err}")
+        if not timed:
+            log(f"gather_rows {label}: equal to table[idx]")
+            return
+        flat = idx.reshape(-1)
+        check(torch.equal(got.reshape(-1, table.shape[1]), torch.index_select(table, 0, flat)),
+              f"gather_rows {label}: differs from index_select")
+        ms, call = time_call(torch, lambda: gather.gather_rows(table, idx))
+        plain, plain_call = time_call(torch, lambda: gather.gather_rows_ref(table, idx))
+        lib, lib_call = time_call(torch, lambda: torch.index_select(table, 0, flat))
+        # each distinct row read once, each output row and each index once
+        row_bytes = table.shape[1] * table.element_size()
+        moved = (int(flat.unique().numel()) + flat.numel()) * row_bytes + flat.numel() * idx.element_size()
+        b_ms, b_by = bound_ms(moved, 0.0)
+        log(f"gather_rows {label}: table {list(table.shape)}, idx {list(idx.shape)} "
+            f"({int(flat.unique().numel())} distinct): exact; kernel {ms:.4f} ms (call {call:.4f}), "
+            f"plain {plain:.4f} ms (call {plain_call:.4f}), index_select {lib:.4f} ms "
+            f"(call {lib_call:.4f}), bound {b_ms:.5f} ms ({b_by})")
+        rec[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, shape=[list(table.shape), list(idx.shape)],
+                          call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call)
+        if cold:
+            # the same calls with the L2 cache flushed before each: the bound is
+            # a device-memory bound, and repeated calls on one index set would
+            # otherwise find their rows in the cache
+            c_ms, _ = time_call(torch, lambda: gather.gather_rows(table, idx), flush=flush)
+            c_plain, _ = time_call(torch, lambda: gather.gather_rows_ref(table, idx), flush=flush)
+            c_lib, _ = time_call(torch, lambda: torch.index_select(table, 0, flat), flush=flush)
+            log(f"gather_rows {label}, L2 flushed before each call: kernel {c_ms:.4f} ms, "
+                f"plain {c_plain:.4f} ms, index_select {c_lib:.4f} ms")
+            rec[label].update(cold_ms=c_ms, cold_plain_ms=c_plain, cold_library_ms=c_lib)
+
+    rng = np.random.RandomState(0)  # the probe's seed, table and queries
+    tab = torch.as_tensor(rng.randint(0, 1 << 30, size=(PROBE_ROWS, PROBE_WIDTH), dtype=np.int32)).to(dev)
+    idx = torch.as_tensor(rng.randint(0, PROBE_ROWS, size=PROBE_QUERIES).astype(np.int64)).to(dev)
+    one("probe", tab, idx, cold=True)
+    wide = tab.reshape(PROBE_ROWS // 2, 2 * PROBE_WIDTH)
+    one("probe, 128-word rows", wide, idx % wide.shape[0], cold=True)
+    one("one query", tab, idx[:1], timed=False)
+    one("ragged count", tab, idx[:1001], timed=False)
+    one("2-D idx", tab, idx[: 7 * 33].reshape(7, 33).contiguous(), timed=False)
+    del tab, wide
+    for path, (rows, calls) in step_calls.items():
+        for what, (table, step_idx) in zip(("trie rows", "bigram bucket rows", "trigram bucket rows"), calls):
+            label = f"{path} step: {what}"
+            check(tuple(step_idx.shape) == (rows, BEAM), f"gather_rows {label}: idx is not [{rows}, {BEAM}]")
+            one(label, table, step_idx, cold=True)
     return rec
 
 
@@ -274,26 +459,134 @@ def parity_lm(build_dir: str):
     return path, vocab
 
 
-def device_profile(torch, decoder, logits, steps: int, latency_s: float) -> dict:
-    """Device time by kernel over one profiled decode_batch.
+def device_profile(torch, run, steps: int, latency_s: float) -> dict:
+    """Device time by kernel over one profiled call of ``run``.
 
     Only device rows (kernels, memsets, copies) are summed. The profiler
     slows the host a lot, so the idle share is taken against the
-    unprofiled batch latency: 1 - device busy / latency.
+    unprofiled batch latency: 1 - device busy / latency. ``None`` when
+    the profiler returns no device rows in any of its tries.
     """
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        decoder.decode_batch(logits, beam_width=BEAM)
-        torch.cuda.synchronize()
-    rows = [(ev.key, _device_us(ev), int(ev.count)) for ev in prof.key_averages()
-            if _is_device_row(ev) and _device_us(ev) > 0]
+    rows = []
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(ev.key, _device_us(ev), int(ev.count)) for ev in prof.key_averages()
+                if _is_device_row(ev) and _device_us(ev) > 0]
+        if rows:
+            break
+        log(f"[profiler] empty trace (attempt {attempt + 1} of {PROFILE_TRIES})")
+        time.sleep(attempt + 1.0)
+    if not rows:
+        return None
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
     launches = sum(r[2] for r in rows)
+    own = {}  # the package's own kernels on this decode's data: (device ms, launches)
+    for kernel in OWN_KERNELS:
+        hit = [r for r in rows if f"::{kernel}(" in r[0] or r[0].startswith(f"{kernel}(")]
+        own[kernel] = (sum(r[1] for r in hit) / 1e3, sum(r[2] for r in hit))
     return {"device_busy_s": busy_s, "idle_share": 1.0 - busy_s / latency_s,
-            "device_ops_per_step": launches / steps, "top": rows[:15]}
+            "device_ops_per_step": launches / steps, "top": rows[:15], "own": own}
+
+
+def log_profile(tag: str, prof, latency: float, card: str) -> None:
+    if prof is None:
+        log(f"[{tag}] not measured: the profiler returned no device rows")
+        return
+    log(f"[{tag}] device busy {prof['device_busy_s']:.3f} s of the {latency:.3f} s batch: "
+        f"idle share {prof['idle_share']:.3f}; {prof['device_ops_per_step']:.0f} device ops per "
+        f"step [{card}]")
+    for kernel, (ms, count) in prof["own"].items():
+        check(count > 0, f"{tag}: {kernel} is not in the profile")
+        log(f"[{tag}]   {kernel}: {ms:.3f} ms over {count} launches, {ms / count:.5f} ms each")
+    for key, us, count in prof["top"]:
+        log(f"[{tag}]   {us / 1e3:9.2f} ms  x{count:6d}  {key[:100]}")
+
+
+def counters(merge, gather) -> dict:
+    return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
+            "gather_rows": gather.gather_rows}
+
+
+def reset_counts(wrappers: dict) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(wrappers: dict) -> dict:
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def expected_counts(lm, steps: int, finalizes: int) -> dict:
+    """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
+
+    Every step launches ``expand_merge_prune`` once and ``gather_rows`` once
+    for the beams' trie rows and once per n-gram order >= 2 (the bucket
+    probes of ``lm_score_words``). A finalization launches ``merge_prune``
+    once and probes every order >= 2 for the last word and, when the LM
+    scores the sentence boundary, again for ``</s>``.
+    """
+    probes = lm.order - 1
+    return {
+        "expand_merge_prune": steps,
+        "merge_prune": finalizes,
+        "gather_rows": steps * (1 + probes) + finalizes * probes * (2 if lm.score_boundary else 1),
+    }
+
+
+def serving_plan(decoder, logits, blank_id: int, token_min_logp: float) -> dict:
+    """What the serving call's host prep makes of ``logits``: frames kept by the
+    blank collapse, the length groups, and each group's virtual steps (its
+    longest chunk timeline), from the package's host functions and the
+    decoder's own grouping rule, to hold the launch counters against; and
+    the seconds this prep takes on the host.
+    """
+    from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
+
+    t0 = time.perf_counter()
+    mats, _, _ = normalize_collapse_batch(logits, blank_id, token_min_logp)
+    lens = [max(m.shape[0], 1) for m in mats]
+    groups = decoder._length_groups(mats, target_rows=SERVING["length_bucketing"])
+    steps = []
+    for idx in groups:
+        _, vlens = token_timeline_batch([mats[i] for i in idx], token_min_logp, CHUNK)
+        steps.append(max(int(max(vlens)), 1))
+    prep_s = time.perf_counter() - t0
+    return {"frames_in": int(sum(m.shape[0] for m in logits)),
+            "frames_kept": int(sum(m.shape[0] for m in mats)),
+            "longest_kept": max(lens), "groups": [len(g) for g in groups], "group_steps": steps,
+            "steps": int(sum(steps)), "prep_s": prep_s}
+
+
+def check_counts(tag: str, got: dict, want: dict) -> None:
+    log(f"[{tag}] launches {got}, implied by the code {want}")
+    for name, n in want.items():
+        check(got[name] == n, f"{tag}: {name} launched {got[name]} times, expected {n}")
+        check(got[name] > 0, f"{tag}: {name} was never launched")
+
+
+def top_texts(beams) -> list:
+    return [b[0].text if b else "" for b in beams]
+
+
+def check_same_results(tag: str, want, got, tol: float) -> float:
+    """Ranked beam lists per utterance: same texts and frames, scores within ``tol``."""
+    check(len(want) == len(got), f"{tag}: {len(got)} results for {len(want)} utterances")
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        check(len(w) == len(g) and len(w) > 0, f"{tag}: utterance {i}: beam counts differ")
+        for wb, gb in zip(w, g):
+            check(wb.text == gb.text, f"{tag}: utterance {i}: texts differ")
+            check(wb.text_frames == gb.text_frames, f"{tag}: utterance {i}: text_frames differ")
+            d = abs(wb.lm_score - gb.lm_score)
+            worst = max(worst, d)
+            check(d <= tol, f"{tag}: utterance {i}: lm_score differs by {d}")
+    return worst
 
 
 def main() -> int:
@@ -308,9 +601,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     import pyctcdecode_torch as P
+    from pyctcdecode_torch.constants import (
+        DEFAULT_HOTWORD_WEIGHT,
+        DEFAULT_MIN_TOKEN_LOGP,
+        DEFAULT_PRUNE_LOGP,
+    )
     from pyctcdecode_torch.csrc.build import BUILD_DIR, build
     from pyctcdecode_torch.evaluation import DEV_OTHER_DIFFICULTY, FRAME_SEC, TRANSCRIPT, synthesize_corpus
-    from pyctcdecode_torch.ops import merge
+    from pyctcdecode_torch.ops import gather, merge
     from pyctcdecode_torch.utils.metrics import word_error_rate
 
     smi = nvidia_smi_line()
@@ -327,14 +625,16 @@ def main() -> int:
 
     rec = kernel_phases(torch, merge)
 
-    # ---- main path
+    # ---- the decoder and the utterances of both paths
     t0 = time.perf_counter()
     arpa, vocab = parity_lm(str(BUILD_DIR))
     log(f"[main] parity ARPA ready in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     decoder = P.build_ctcdecoder(LIBRI_LABELS, arpa)
+    lm = decoder.language_model
     log(f"[main] build_ctcdecoder (parse + device tables) in {time.perf_counter() - t0:.1f} s")
     check(decoder.device.type == "cuda", "decoder is not on CUDA")
+    check(lm.order == 3, "the parity LM is not a 3-gram")
     rng = np.random.RandomState(11)
     corpus_vocab = [vocab[i] for i in rng.randint(0, len(vocab), 6000)] + TRANSCRIPT.split()
     corpus = synthesize_corpus(LIBRI_LABELS, corpus_vocab, n_utterances=N_UTTS, seed=3,
@@ -345,29 +645,40 @@ def main() -> int:
     log(f"[main] corpus: {N_UTTS} utterances, {audio_s:.2f} audio-s, frames "
         f"{min(m.shape[0] for m in logits)}..{t_max}")
 
+    # ---- gather kernel, also on the tables and indices of a real step of
+    # each path (these short decodes are the first use of the libraries as well)
     t0 = time.perf_counter()
-    decoder.decode_batch(logits[:2], beam_width=BEAM)  # first-use set-up (library load)
-    log(f"[main] warm-up decode of 2 utterances in {time.perf_counter() - t0:.2f} s")
+    blank_id = LIBRI_LABELS.index("")
+    head = [m[:61] for m in logits]
+    step_calls = {"dense": (N_UTTS, record_step_gathers(torch, decoder, head, step=60))}
+    head_plan = serving_plan(decoder, head, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    check(head_plan["groups"][0] == GROUP_ROWS, f"the first length group has not {GROUP_ROWS} rows")
+    step_calls["serving"] = (GROUP_ROWS, record_step_gathers(
+        torch, decoder, head, step=head_plan["group_steps"][0] // 2, **SERVING))
+    log(f"[main] warm-up decodes of 61 frames (dense, and serving: groups with {head_plan['group_steps']} "
+        f"virtual steps), recording one step's gathers of each, in {time.perf_counter() - t0:.2f} s")
+    gather_rec = gather_phases(torch, gather, step_calls)
+    del step_calls
 
-    merge.merge_prune.launches = 0
-    merge.expand_merge_prune.launches = 0
+    # ---- dense path
+    wrappers = counters(merge, gather)
+    dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
+    beams_kw = dict(prune_history=True, top_n=1)  # what decode_batch asks of decode_beams_batch
+    reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    texts = decoder.decode_batch(logits, beam_width=BEAM, max_tokens_per_frame=None)
+    texts = decoder.decode_batch(logits, **dense_kw)
     latencies = [time.perf_counter() - t0]
-    launches = {"merge_prune": merge.merge_prune.launches,
-                "expand_merge_prune": merge.expand_merge_prune.launches}
+    launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("dense", launches, expected_counts(lm, t_max, 1))
     for _ in range(2):
         t0 = time.perf_counter()
-        again = decoder.decode_batch(logits, beam_width=BEAM, max_tokens_per_frame=None)
+        dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
         latencies.append(time.perf_counter() - t0)
-        check(again == texts, "repeated decode_batch gave other texts")
+        check(top_texts(dense_beams) == texts, "repeated dense decode gave other texts")
     latency = statistics.median(latencies)
-    log(f"[main] launches in the main-path run: {launches} (frame steps {t_max})")
-    check(launches["expand_merge_prune"] == t_max, "expand_merge_prune: not one launch per frame step")
-    check(launches["merge_prune"] == 1, "merge_prune: not one launch per finalization")
     wer = word_error_rate(corpus.references, texts)
     greedy = []
     for m in logits:
@@ -375,59 +686,151 @@ def main() -> int:
         keep = np.concatenate([[True], ids[1:] != ids[:-1]])
         greedy.append(" ".join("".join(LIBRI_LABELS[i] for i in ids[keep]).split()))
     wer_greedy = word_error_rate(corpus.references, greedy)
-    log(f"[main] decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}: latency median {latency:.3f} s "
+    log(f"[dense] decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}: latency median {latency:.3f} s "
         f"of {', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} audio-s/s, "
-        f"{latency / t_max * 1e3:.2f} ms per frame step, peak device memory {peak_gb:.3f} GB, "
-        f"WER {wer:.4f} (greedy {wer_greedy:.4f}) [{card}]")
+        f"{t_max} frame steps, {latency / t_max * 1e3:.2f} ms per frame step, peak device memory "
+        f"{peak_gb:.3f} GB, WER {wer:.4f} (greedy {wer_greedy:.4f}) [{card}]")
     check(all(isinstance(t, str) for t in texts) and len(texts) == N_UTTS, "bad decode_batch output")
 
-    # ---- CPU cross-check of the first utterances (plain versions)
+    # ---- serving path: chunk timeline + blank collapse + two length groups
+    plan = serving_plan(decoder, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    log(f"[serving] host prep: {plan['frames_in']} frames in, {plan['frames_kept']} after the blank "
+        f"collapse (longest {plan['longest_kept']}); groups of {plan['groups']} utterances with "
+        f"{plan['group_steps']} virtual steps of {CHUNK}-token chunks: {plan['steps']} steps "
+        f"(dense: {t_max} frame steps)")
+    check(len(plan["groups"]) == 2, "the serving batch did not split into two length groups")
+    serve_kw = dict(beam_width=BEAM, **SERVING)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_texts = decoder.decode_batch(logits, **serve_kw)
+    s_latencies = [time.perf_counter() - t0]
+    s_launches = read_counts(wrappers)
+    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("serving", s_launches, expected_counts(lm, plan["steps"], len(plan["groups"])))
+    check(s_texts == texts, "the serving decode's texts differ from the dense decode's")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
+        s_latencies.append(time.perf_counter() - t0)
+    d_score = check_same_results("serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
+    s_latency = statistics.median(s_latencies)
+    log(f"[serving] decode_batch {N_UTTS} x beam {BEAM}, chunks of {CHUNK}, collapse, 2 groups: texts "
+        f"and text_frames equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
+        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, "
+        f"{audio_s / s_latency:.1f} audio-s/s, {plan['steps']} virtual steps, "
+        f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
+
+    # the pipelined entry point over 3 batches, held against decode_beams_batch
+    stream = [logits, logits[8:] + logits[:8], logits[::-1]]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    piped = list(decoder.decode_beams_batches(stream, pipeline_depth=1, **serve_kw, **beams_kw))
+    piped_s = time.perf_counter() - t0
+    piped_launches = read_counts(wrappers)
+    check(len(piped) == len(stream), "decode_beams_batches: not one result per batch")
+    plans = [plan] + [serving_plan(decoder, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream[1:]]
+    check_counts("pipelined", piped_launches, expected_counts(
+        lm, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
+    check_same_results("pipelined batch 0", serve_beams, piped[0], RERUN_TOL)
+    for i in (1, 2):
+        check_same_results(f"pipelined batch {i}", decoder.decode_beams_batch(stream[i], **serve_kw, **beams_kw),
+                           piped[i], RERUN_TOL)
+    log(f"[serving] decode_beams_batches, 3 batches at pipeline_depth 1: decode_beams_batch's results "
+        f"batch by batch; {piped_s:.3f} s, {3 * audio_s / piped_s:.1f} audio-s/s [{card}]")
+
+    # one more batch in separately timed stages, and the output copy both ways
+    dispatch_kw = dict(
+        beam_width=BEAM, beam_prune_logp=DEFAULT_PRUNE_LOGP, token_min_logp=DEFAULT_MIN_TOKEN_LOGP,
+        prune_history=True, hotwords=None, hotword_weight=DEFAULT_HOTWORD_WEIGHT,
+        max_tokens_per_frame=None, batch_pad=8, top_n=1, collect_stats=False,
+        blank_collapse=True, token_chunking=True,
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = decoder._launch_batch(logits, dispatch_kw, SERVING["length_bucketing"])
+    launch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wait_s = time.perf_counter() - t0 - launch_s
+    fetch_ms = {"pinned": [], "plain": []}
+    for _ in range(20):
+        for _, handle in handles:
+            t1 = time.perf_counter()
+            decoder._fetch(handle["out"], handle["n"])
+            fetch_ms["pinned"].append((time.perf_counter() - t1) * 1e3)
+            t1 = time.perf_counter()
+            plain_host = {key: val[: handle["n"]].cpu().numpy() for key, val in handle["out"].items()}
+            fetch_ms["plain"].append((time.perf_counter() - t1) * 1e3)
+    out_bytes = sum(v.nbytes for v in plain_host.values())
+    t0 = time.perf_counter()
+    staged = decoder._collect_bucketed(handles, N_UTTS)
+    collect_s = time.perf_counter() - t0
+    check_same_results("staged serving batch", serve_beams, staged, RERUN_TOL)
+    stages = {"prep_s": plan["prep_s"], "launch_s": launch_s, "wait_s": wait_s, "collect_s": collect_s,
+              "fetch_pinned_ms": statistics.median(fetch_ms["pinned"]),
+              "fetch_plain_ms": statistics.median(fetch_ms["plain"]), "fetch_bytes": out_bytes}
+    log(f"[serving] stages of one batch: launch {launch_s:.3f} s (host prep {plan['prep_s']:.3f} s of it, the "
+        f"rest uploads and the step loop's enqueues), wait for the device {wait_s:.4f} s, collect (copy + "
+        f"replay + OutputBeams) {collect_s:.4f} s; output copy of one group ({out_bytes} bytes): pinned "
+        f"buffer {stages['fetch_pinned_ms']:.4f} ms, plain .cpu() {stages['fetch_plain_ms']:.4f} ms "
+        f"(medians of {len(fetch_ms['plain'])}) [{card}]")
+
+    # ---- CPU cross-check of the first utterances (plain versions), both paths
     t0 = time.perf_counter()
     cpu_dec = P.TorchBeamSearchDecoderCTC(
-        P.Alphabet.build_alphabet(LIBRI_LABELS), decoder.language_model, device="cpu"
+        P.Alphabet.build_alphabet(LIBRI_LABELS), lm, device="cpu"
     )
     sub = logits[:CPU_CHECK]
-    kw = dict(beam_width=BEAM, prune_history=True, top_n=1, batch_pad=1)
-    gpu_beams = decoder.decode_beams_batch(sub, **kw)
-    cpu_beams = cpu_dec.decode_beams_batch(sub, **kw)
-    for i, (g, c) in enumerate(zip(gpu_beams, cpu_beams)):
-        check(g[0].text == c[0].text, f"utterance {i}: GPU and CPU texts differ")
-        check(g[0].text == texts[i], f"utterance {i}: batch-of-{N_UTTS} text differs")
-        d = abs(g[0].lm_score - c[0].lm_score)
-        check(d <= LM_SCORE_TOL, f"utterance {i}: lm_score differs by {d}")
-    max_d = max(abs(g[0].lm_score - c[0].lm_score) for g, c in zip(gpu_beams, cpu_beams))
-    log(f"[check] first {CPU_CHECK} utterances identical on CPU (max lm_score diff {max_d:.3g}) "
-        f"in {time.perf_counter() - t0:.1f} s")
+    for tag, kw in (("dense", dict(dense_kw, batch_pad=1)), ("serving", dict(serve_kw, batch_pad=1))):
+        gpu_beams = decoder.decode_beams_batch(sub, **kw, **beams_kw)
+        cpu_beams = cpu_dec.decode_beams_batch(sub, **kw, **beams_kw)
+        max_d = check_same_results(f"{tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
+        check(top_texts(gpu_beams) == texts[:CPU_CHECK], f"{tag}: batch-of-{N_UTTS} texts differ")
+        log(f"[check] {tag}: first {CPU_CHECK} utterances identical on CPU (max lm_score diff "
+            f"{max_d:.3g}), {time.perf_counter() - t0:.1f} s so far")
 
     # ---- where the device time goes
-    prof = device_profile(torch, decoder, logits, t_max, latency)
-    log(f"[profile] device busy {prof['device_busy_s']:.3f} s of the {latency:.3f} s batch: "
-        f"idle share {prof['idle_share']:.3f}; {prof['device_ops_per_step']:.0f} device ops per "
-        f"frame step [{card}]")
-    for key, us, count in prof["top"]:
-        log(f"[profile]   {us / 1e3:9.2f} ms  x{count:6d}  {key[:100]}")
+    prof = device_profile(torch, lambda: decoder.decode_batch(logits, **dense_kw), t_max, latency)
+    log_profile("profile dense", prof, latency, card)
+    s_prof = device_profile(torch, lambda: decoder.decode_batch(logits, **serve_kw), plan["steps"], s_latency)
+    log_profile("profile serving", s_prof, s_latency, card)
 
     kernels = []
-    for kname, key, source_line in (
-        ("merge_prune", ("merge_prune", 1), reference_site("ops/pallas_merge.py", 213)),
-        ("expand_merge_prune", ("expand_merge_prune", 1), reference_site("ops/pallas_merge.py", 393)),
+    for kname, src_file, r, r_serving, site in (
+        ("merge_prune", "merge.cu", rec[("merge_prune", f"n={N_UTTS},k=1,window off")],
+         rec[("merge_prune", f"n={GROUP_ROWS},k=1,window off")], reference_site("ops/pallas_merge.py", 213)),
+        ("expand_merge_prune", "merge.cu", rec[("expand_merge_prune", f"n={N_UTTS},k={K_TOKENS},lmax=1")],
+         rec[("expand_merge_prune", f"n={GROUP_ROWS},k={CHUNK},lmax=1,chunk,window off")],
+         reference_site("ops/pallas_merge.py", 393)),
+        ("gather_rows", "gather.cu", gather_rec["dense step: trie rows"], gather_rec["serving step: trie rows"],
+         reference_site("pallas_gather_probe.py", 65)),
     ):
-        r = rec[key]
-        errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname]
+        errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname] or \
+            [v["max_abs_err"] for v in gather_rec.values()]
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
         kernels.append({
-            "name": kname, "route": "cuda", "source": "pyctcdecode_torch/csrc/merge.cu",
-            "replaces": source_line, "launches": launches[kname], "max_abs_err": max(errs),
+            "name": kname, "route": "cuda", "source": f"pyctcdecode_torch/csrc/{src_file}",
+            "replaces": site, "launches": launches[kname], "max_abs_err": max(errs),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "shape": r["shape"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "shape": r["shape"],
+            "launches_serving": s_launches[kname],
+            "serving": {key: r_serving.get(key) for key in keys},
         })
     record = {
         "kernels": kernels,
-        "phases": {f"{a}[k={b}]" if a == "merge_prune" else f"{a}[lmax={b}]": v for (a, b), v in rec.items()},
+        "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
+        "gather_phases": gather_rec,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,
                  "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
                  "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb,
-                 "wer": wer, "wer_greedy": wer_greedy, "frame_sec": FRAME_SEC},
-        "profile": prof, "card": smi, "seconds": time.perf_counter() - t_start,
+                 "wer": wer, "wer_greedy": wer_greedy, "frame_sec": FRAME_SEC, "launches": launches},
+        "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
+                        audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
+                        launches=s_launches, pipelined_s=piped_s, pipelined_launches=piped_launches,
+                        max_lm_score_diff_vs_dense=d_score, stages=stages),
+        "profile": prof, "profile_serving": s_prof, "card": smi,
+        "seconds": time.perf_counter() - t_start,
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

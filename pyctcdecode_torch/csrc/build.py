@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parents[1] / "build"
-SOURCES = ("merge.cu",)
+SOURCES = ("merge.cu", "gather.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 

@@ -32,8 +32,16 @@ of dead beams' last token. TPU lowering workarounds of the reference (one-hot
 matmul selection, one-hot token lookups, optimization barriers, layout
 transposes) are plain indexing and ``gather`` here.
 
-This slice covers the dense (non-timeline) step of a char alphabet with at
-most one n-gram LM.
+Two step inputs share the step function. Dense: one log-prob row per frame,
+all (or the top K) tokens expanded. Timeline (``EngineConfig.token_timeline``,
+the serving configuration): the host splits each frame's exactly-admitted
+token set into K-wide chunks (``utils.logits.token_timeline``); one step
+expands one chunk against the frozen beam set, merges in-chunk with the
+window off, ranks pool U chunk into a carried top-B candidate pool, and on
+the frame's last chunk applies the window and promotes the pool to the new
+beam set. Non-final steps emit identity backpointers with token ``-3``.
+
+The engine covers a char alphabet with at most one n-gram LM.
 """
 from __future__ import annotations
 
@@ -68,6 +76,13 @@ class EngineConfig:
     prune_history: bool
     # backtrace only the top-N beams (None: all B)
     emit_paths: Optional[int] = None
+    # decode host-built token timelines: each step is one K-wide chunk of a
+    # frame's admitted tokens against a carried candidate pool, promoted to
+    # the beam set on the frame's last chunk. Output-exact for any k_tokens
+    # (merges are confined to one token column, so chunks never split a
+    # merge group, and iterated top-B over pool U chunk equals the frame's
+    # top-B).
+    token_timeline: bool = False
 
     @property
     def ring_width(self) -> int:
@@ -159,6 +174,17 @@ def _init_state(cfg: EngineConfig, start: Optional[Dict], n: int, device: torch.
         state["ctx"] = ctx.expand(n, b, w).contiguous()
         state["ctx_len"] = torch.full((n, b), int(start["len"]), dtype=torch.int64, device=device)
         state["ctx_bo"] = bo.expand(n, b, w).contiguous()
+    if cfg.token_timeline:
+        # carried candidate pool: the running top-B of the current frame's
+        # merged candidates across its token chunks (see _make_step)
+        dead = torch.full((n, b), DEAD, dtype=torch.float32, device=device)
+        state["pool_score"] = dead
+        state["pool_logit"] = dead.clone()
+        state["pool_pf"] = iota.expand(n, b).contiguous()  # first-member parent (replay)
+        state["pool_pd"] = iota.expand(n, b).contiguous()  # newest-member parent (backtrace)
+        state["pool_tok"] = torch.full((n, b), -1, dtype=torch.int64, device=device)
+        if cfg.use_lm:
+            state["pool_ent"] = zi()  # packed trie entry of the candidate
     return state
 
 
@@ -279,30 +305,47 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tensor):
-    """Build the per-frame step over ``[N, B]`` state planes."""
+    """Build the per-frame (timeline: per-chunk) step over ``[N, B]`` state planes."""
     b, k, v = cfg.beam_width, cfg.k_tokens, cfg.vocab_size
+    tl = cfg.token_timeline
     tok_dev, lm = tables["tok"], tables["lm"]
     device = n_frames.device
     n = n_frames.shape[0]
     iota_b = torch.arange(b, device=device)
     iota_v = torch.arange(v, device=device)
     sentinel = (-2 - iota_b).expand(n, b)
-    prune = torch.full((n,), prm["beam_prune_logp"], dtype=torch.float32, device=device)
+    # timeline chunks merge with the window off: the frame's max is only
+    # known at its last chunk, where the pooled top-1 is that max
+    prune = torch.full((n,), float("-inf") if tl else prm["beam_prune_logp"],
+                       dtype=torch.float32, device=device)
     lm_prm = prm.get("lm")
     lower = torch.tril(torch.ones((b, b), dtype=torch.bool, device=device), diagonal=-1)
 
-    def step(state: Dict, logp_row: torch.Tensor, t: int):
-        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay."""
+    def step(state: Dict, xs, t: int):
+        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay.
+
+        ``xs`` is the frame's log-prob row ``[N, V]``, or with
+        ``cfg.token_timeline`` one chunk ``(toks [N, K] (-1: empty slot),
+        tok_logp [N, K], is_final [N])`` per utterance.
+        """
         active = t < n_frames  # [N]
-        if k < v:
-            _, pre = _top_b(logp_row, k)
-            toks = torch.sort(pre, dim=-1).values
-            tok_logp = logp_row.gather(1, toks)
+        if tl:
+            toks_in, tok_logp, fin = xs
+            is_final = fin != 0  # [N]
+            admit = toks_in >= 0
+            toks = toks_in.clamp(min=0).to(torch.int64)  # clamped for lookups only
+            tok_logp = tok_logp.contiguous()
         else:
-            toks = iota_v.expand(n, v).contiguous()
-            tok_logp = logp_row.contiguous()
-        argmax_tok = logp_row.argmax(dim=-1)
-        admit = (tok_logp >= prm["token_min_logp"]) | (toks == argmax_tok[:, None])
+            logp_row = xs
+            if k < v:
+                _, pre = _top_b(logp_row, k)
+                toks = torch.sort(pre, dim=-1).values
+                tok_logp = logp_row.gather(1, toks)
+            else:
+                toks = iota_v.expand(n, v).contiguous()
+                tok_logp = logp_row.contiguous()
+            argmax_tok = logp_row.argmax(dim=-1)
+            admit = (tok_logp >= prm["token_min_logp"]) | (toks == argmax_tok[:, None])
 
         tok_kind = tok_dev["kind"][toks]  # [N, K]
         tok_right = tok_dev["right_bound"][toks]
@@ -374,17 +417,52 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
             beam, tokp, cid.to(torch.int32)[None], pscore, prune, False
         )
 
-        # ---- top-B; positional fields by gather
-        top_scores, top_idx = _top_b(sc.reshape(n, k * b), b)
-        tok_col = top_idx // b
-        top_parent = top_idx % b
-        src_w = src.reshape(n, k * b).gather(1, top_idx).to(torch.int64)
-        top_logit = merged.reshape(n, k * b).gather(1, top_idx)
-        sel_alive = top_scores > DEAD_THRESH
-        parent = src_w % b  # newest-wins, backtrace only
         new_state: Dict[str, torch.Tensor] = {}
+        if tl:
+            # ---- pool U chunk ranking. Ranking key = (score desc,
+            # frame-local enumeration rank asc). One stable descending sort
+            # over concat([pool, chunk]) realizes it: ties go to the lowest
+            # position; pool entries precede chunk candidates and come from
+            # earlier chunks of the frame; chunk candidates sit in
+            # enumeration order; and the pool is itself a previous top-B, so
+            # its equal-score members are already in rank order.
+            def pooled(pool_key: str, chunk: torch.Tensor) -> torch.Tensor:
+                return torch.cat([state[pool_key], chunk.reshape(n, k * b)], dim=1)
+
+            top_scores, top_src = _top_b(pooled("pool_score", sc), b)
+            # the window, over the whole frame's best, on its last chunk only
+            win = top_scores[:, :1] + prm["beam_prune_logp"]
+            top_scores = torch.where(is_final[:, None] & (top_scores < win), DEAD, top_scores)
+            top_parent = pooled("pool_pf", iota_b.expand(n, k, b)).gather(1, top_src)
+            parent = pooled("pool_pd", src.to(torch.int64) % b).gather(1, top_src)
+            sel_tok = pooled("pool_tok", toks[:, :, None].expand(n, k, b)).gather(1, top_src)
+            top_logit = pooled("pool_logit", merged).gather(1, top_src)
+            sel_alive = top_scores > DEAD_THRESH
+            # dead lanes keep pool_tok's -1 sentinel
+            sel_tok = torch.where(sel_alive, sel_tok, -1)
+            fin2 = is_final[:, None]
+            pool_new = {
+                "pool_score": torch.where(fin2, DEAD, top_scores),
+                "pool_logit": torch.where(fin2, DEAD, top_logit),
+                "pool_pf": torch.where(fin2, iota_b, top_parent),
+                "pool_pd": torch.where(fin2, iota_b, parent),
+                "pool_tok": torch.where(fin2, -1, sel_tok),
+            }
+            if lm is not None:
+                ent_w = pooled("pool_ent", p_entry_n.transpose(1, 2)).gather(1, top_src)
+                pool_new["pool_ent"] = torch.where(fin2, 0, ent_w)
+        else:
+            # ---- top-B; positional fields by gather
+            top_scores, top_idx = _top_b(sc.reshape(n, k * b), b)
+            tok_col = top_idx // b
+            top_parent = top_idx % b
+            src_w = src.reshape(n, k * b).gather(1, top_idx).to(torch.int64)
+            top_logit = merged.reshape(n, k * b).gather(1, top_idx)
+            sel_alive = top_scores > DEAD_THRESH
+            parent = src_w % b  # newest-wins, backtrace only
+            if lm is not None:
+                ent_w = p_entry_n.reshape(n, b * k).gather(1, top_parent * k + tok_col)
         if lm is not None:
-            ent_w = p_entry_n.reshape(n, b * k).gather(1, top_parent * k + tok_col)
             new_state["p_node"] = ent_w & _NODE_MASK
             new_state["p_flags"] = ent_w & ~_NODE_MASK
 
@@ -396,27 +474,46 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
                         "force", "fused", "n_words", "ring_lo", "ring_hi")
         }
         m_wfused = _rows(cm["word_fused"], top_parent)
-        tok_w = toks.gather(1, tok_col)
-        blank_w = blank.gather(1, tok_col)
-        boundary_w = boundary_kind.gather(1, tok_col)
+        if tl:
+            # winners may carry tokens from earlier chunks of the frame (pool
+            # entries): token planes resolve by full-vocabulary token id
+            tok_w = sel_tok.clamp(min=0)
+            kind_w = tok_dev["kind"][tok_w]
+            blank_w = kind_w == KIND_BLANK
+            boundary_w = kind_w == KIND_BOUNDARY
+            cid_w = tok_dev["raw_chars"][tok_w, 0]
+            seed_lo_w = tok_dev["seed_lo"][tok_w]
+            seed_hi_w = tok_dev["seed_hi"][tok_w]
+            plen_w = tok_dev["piece_len"][tok_w]
+            rlen_w = tok_dev["raw_len"][tok_w]
+            right_w = tok_dev["right_bound"][tok_w]
+        else:
+            tok_w = toks.gather(1, tok_col)
+            blank_w = blank.gather(1, tok_col)
+            boundary_w = boundary_kind.gather(1, tok_col)
+            cid_w = cid.gather(1, tok_col)
+            seed_lo_w = seed_lo_k.gather(1, tok_col)
+            seed_hi_w = seed_hi_k.gather(1, tok_col)
+            plen_w = tok_plen.gather(1, tok_col)
+            rlen_w = tok_rlen.gather(1, tok_col)
+            right_w = tok_right.gather(1, tok_col)
         commit_w = bsel["p_len"] > 0
         mt_lo, mt_hi = hash_text_commit_t(bsel["text_lo"], bsel["text_hi"], bsel["p_lo"], bsel["p_hi"])
         stay_w = blank_w | (bsel["last_tok"] == tok_w)
         bnd_w = ~stay_w & boundary_w
-        cid_w = cid.gather(1, tok_col)
         ext_lo_w, ext_hi_w = hash_extend_char_t(bsel["p_lo"], bsel["p_hi"], cid_w.clamp(min=0))
         ext_lo_w = torch.where(cid_w >= 0, ext_lo_w, bsel["p_lo"])
         ext_hi_w = torch.where(cid_w >= 0, ext_hi_w, bsel["p_hi"])
         new_state["p_lo"] = torch.where(
-            stay_w, bsel["p_lo"], torch.where(bnd_w, seed_lo_k.gather(1, tok_col), ext_lo_w)
+            stay_w, bsel["p_lo"], torch.where(bnd_w, seed_lo_w, ext_lo_w)
         )
         new_state["p_hi"] = torch.where(
-            stay_w, bsel["p_hi"], torch.where(bnd_w, seed_hi_k.gather(1, tok_col), ext_hi_w)
+            stay_w, bsel["p_hi"], torch.where(bnd_w, seed_hi_w, ext_hi_w)
         )
         new_state["p_len"] = torch.where(
             stay_w,
             bsel["p_len"],
-            torch.where(bnd_w, tok_plen.gather(1, tok_col), bsel["p_len"] + tok_rlen.gather(1, tok_col)),
+            torch.where(bnd_w, plen_w, bsel["p_len"] + rlen_w),
         )
         m_text_lo = torch.where(commit_w, mt_lo, bsel["text_lo"])
         m_text_hi = torch.where(commit_w, mt_hi, bsel["text_hi"])
@@ -424,7 +521,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
         new_state["text_hi"] = torch.where(bnd_w, m_text_hi, bsel["text_hi"])
         new_state["fused"] = bsel["fused"] + torch.where(bnd_w, m_wfused, 0.0)
         new_state["n_words"] = torch.where(bnd_w, bsel["n_words"] + commit_w.to(torch.int64), bsel["n_words"])
-        new_state["force"] = torch.where(bnd_w, tok_right.gather(1, tok_col) != 0, bsel["force"])
+        new_state["force"] = torch.where(bnd_w, right_w != 0, bsel["force"])
         bnd2 = bnd_w[..., None]
         c2 = (commit_w & bnd_w)[..., None]
         new_state["ring_lo"] = torch.where(
@@ -457,6 +554,24 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
             dup_h = (eq & lower).any(dim=2)
             new_state["logit"] = torch.where(dup_h, DEAD, new_state["logit"])
             new_state["last_tok"] = torch.where(dup_h, sentinel, new_state["last_tok"])
+
+        if tl:
+            # beam lanes advance only on the frame's last chunk, pool lanes on
+            # every active step. Non-final steps emit identity backpointers
+            # with token -3 (carry marker): the backtrace composes through
+            # them unchanged and the host path replay skips them.
+            promote = active & is_final
+            out_state = {}
+            for key, old in state.items():
+                if key.startswith("pool_"):
+                    out_state[key] = torch.where(active[:, None], pool_new[key], old)
+                else:
+                    gate = promote.view((n,) + (1,) * (old.dim() - 1))
+                    out_state[key] = torch.where(gate, new_state[key], old)
+            parent = torch.where(promote[:, None], parent, iota_b)
+            token_sel = torch.where(promote[:, None], token_sel, -3)
+            token_sel = torch.where(active[:, None], token_sel, -1)
+            return out_state, (parent, token_sel)
 
         # inactive (padded) frames pass state through untouched
         out_state = {}
@@ -543,24 +658,35 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
     runs the frame loop and the finalization on ``logp``'s device and
     returns the ranked beams (top ``emit_paths`` or all B) with their token
     paths ``[N, R, T]`` (backtraced on the device; -1 at padded frames).
+
+    With ``cfg.token_timeline``, ``logp`` is the host-built timeline tuple
+    ``(toks [N, Tv, K] int, tlogp [N, Tv, K] f32, is_final [N, Tv] int)``,
+    ``n_frames`` counts virtual steps, and the paths are ``[N, R, Tv]`` with
+    -3 at a frame's non-final chunks.
     """
 
-    def decode(logp: torch.Tensor, n_frames: torch.Tensor, params: np.ndarray,
+    def decode(logp, n_frames: torch.Tensor, params: np.ndarray,
                start: Optional[Dict]) -> Dict[str, torch.Tensor]:
-        n, t_max, _ = logp.shape
+        device = n_frames.device
+        if cfg.token_timeline:
+            toks, tlogp, fin = logp
+            n, t_max = fin.shape
+        else:
+            n, t_max, _ = logp.shape
         prm = _params_dict(cfg, params)
-        state = _init_state(cfg, start, n, logp.device)
+        state = _init_state(cfg, start, n, device)
         step = _make_step(cfg, tables, prm, n_frames)
         parents: List[torch.Tensor] = []
         trace: List[torch.Tensor] = []
         for t in range(t_max):
-            state, (par, tok) = step(state, logp[:, t], t)
+            xs = (toks[:, t], tlogp[:, t], fin[:, t]) if cfg.token_timeline else logp[:, t]
+            state, (par, tok) = step(state, xs, t)
             parents.append(par.to(_parent_dtype(cfg.beam_width)))
             trace.append(tok.to(_path_dtype(cfg.vocab_size)))
         fin = _finalize(cfg, tables["lm"], prm, state)
         r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
         cur = fin["src"][:, :r]
-        paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=logp.device)
+        paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=device)
         for t in range(t_max - 1, -1, -1):
             paths[:, :, t] = trace[t].gather(1, cur)
             cur = parents[t].gather(1, cur).to(torch.int64)

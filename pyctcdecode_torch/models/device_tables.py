@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.gather import gather_rows
 from ..ops.hashing import M32, fnv1a, fnv1a_seeded, fnv1a_seeded_t, fnv1a_t
 from ..ops.tokens import TokenArrays
 from .language_model import LanguageModel
@@ -799,7 +800,7 @@ def probe_fp(tab_dev: Dict, query: torch.Tensor, valid: torch.Tensor) -> Tuple[t
     ``[...]``. Returns ``(found, prob, backoff)``.
     """
     h, lo, hi = _query_hashes(tab_dev, query)
-    rows = tab_dev["bucket"][h % tab_dev["size"]]  # [..., _BUCKET_WIDTH]
+    rows = gather_rows(tab_dev["bucket"], (h % tab_dev["size"]).contiguous())  # [..., _BUCKET_WIDTH]
     return _bucket_readout(rows, lo, hi, valid)
 
 
@@ -835,7 +836,7 @@ def trie_fetch_rows(trie_rows: torch.Tensor, tp: Dict[str, int], nodes: torch.Te
     """
     pack, stride, w = tp["pack"], tp["stride"], tp["width"]
     nodes = nodes.to(torch.int64)
-    packed = trie_rows[nodes // pack].reshape(*nodes.shape, pack, stride)
+    packed = gather_rows(trie_rows, (nodes // pack).contiguous()).reshape(*nodes.shape, pack, stride)
     sub = (nodes % pack)[..., None, None].expand(*nodes.shape, 1, stride)
     return packed.gather(-2, sub).squeeze(-2)[..., :w]
 

@@ -88,7 +88,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
 def _launch_device(device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(
-            f"merge kernels run on CUDA tensors (or their plain version on CPU "
+            f"the kernels run on CUDA tensors (or their plain version on CPU "
             f"tensors); got {device}"
         )
 

@@ -2,10 +2,18 @@
 
 :class:`TorchBeamSearchDecoderCTC` mirrors the public API of the JAX
 reference's ``TPUBeamSearchDecoderCTC`` (``decode``, ``decode_beams``,
-``decode_batch``, ``decode_beams_batch``) and runs the per-frame pipeline of
-:mod:`pyctcdecode_torch.engine` on one device. The host side normalizes
-logits, and replays the device's token paths into words and word-level frame
-spans (ref output semantics, decoder.py:604-667).
+``decode_batch``, ``decode_beams_batch``, ``decode_beams_batches``) and runs
+the per-frame pipeline of :mod:`pyctcdecode_torch.engine` on one device. The
+host side normalizes logits, and replays the device's token paths into words
+and word-level frame spans (ref output semantics, decoder.py:604-667).
+
+Batch decoding is split into launch and collect: ``_dispatch_batch`` prepares
+one batch on the host (normalization, optional blank collapse, optional token
+timeline), uploads it and enqueues the whole decode on the device without
+waiting for it; ``_collect_batch`` copies the (small) outputs back and builds
+the ``OutputBeam`` lists. ``length_bucketing`` launches one decode per length
+group, and ``decode_beams_batches`` keeps several batches launched before it
+collects the oldest.
 
 The device is explicit: ``device=None`` means CUDA and raises when no CUDA
 device is present; ``device="cpu"`` runs the same engine with every kernel's
@@ -27,13 +35,17 @@ from .constants import (
     DEFAULT_PRUNE_BEAMS,
     DEFAULT_PRUNE_LOGP,
 )
-from .decoder import NULL_FRAMES, OutputBeam, collapse_spaces
+from .decoder import NULL_FRAMES, OutputBeam
 from .engine import EngineConfig, build_table_args, make_decode_fn
 from .models.base import AbstractLMState, NGramLMState
 from .models.device_tables import build_device_lm, context_suffix_backoffs
 from .models.language_model import LanguageModel
 from .ops.tokens import build_token_arrays
-from .utils.logits import normalize_batch, normalize_to_logp
+from .utils.logits import (
+    normalize_batch,
+    normalize_collapse_batch,
+    token_timeline_batch,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -64,8 +76,8 @@ def replay_token_path(
     """Rebuild (words, word frame spans, trailing partial) from a token path.
 
     Applies the exact reference transition rules (ref decoder.py:452-534)
-    to a single beam's chosen-token sequence; entries < 0 are padded frames
-    and are skipped. The trailing partial word is force-committed by the
+    to a single beam's chosen-token sequence; entries < 0 (the -1 pad, the -3
+    timeline carry marker) are skipped. The trailing partial word is force-committed by the
     caller when appropriate (finalization semantics, ref decoder.py:558-577).
     """
     words: List[str] = []
@@ -123,57 +135,92 @@ def replay_token_path(
     return words, frames, (partial, partial_frames)
 
 
-def replay_token_path_np(
-    token_path: np.ndarray,
+def replay_token_paths_batch(
+    toks: np.ndarray,
     labels: Sequence[str],
     blank_id: int,
     space_id: int,
     frame_ids: Optional[np.ndarray] = None,
-    frame_offset: int = 0,
-) -> Tuple[List[str], List[Tuple[int, int]]]:
-    """Vectorized non-BPE :func:`replay_token_path` with the partial folded.
+) -> List[Tuple[List[str], List[Tuple[int, int]]]]:
+    """Vectorized non-BPE :func:`replay_token_path` with the trailing partial
+    folded in (finalization semantics): one numpy pass over ALL rows.
 
-    Equivalent to ``replay_token_path(...)`` followed by appending the
-    trailing partial (finalization semantics). Only for char alphabets
-    without ``-2`` force-commit markers. Returns ``(words, word_frames)``.
+    ``toks``: ``[R, T]`` chosen-token paths (entries < 0 skipped — the
+    -1 pad and -3 timeline carry markers); ``frame_ids``: optional
+    ``[R, T]`` original frame index per position (blank-collapse /
+    timeline mapping). Only for char alphabets without ``-2``
+    force-commit markers. Returns one ``(words, word_frames)`` pair per row.
+
+    Flattening all rows into one event stream replaces hundreds of small
+    per-utterance numpy calls with ~15 numpy passes. Row boundaries join
+    the word-segmentation key, so no word or repeat-run can straddle
+    rows. Fuzz-pinned against the per-row replay in tests.
     """
-    toks = np.asarray(token_path)
-    idx = np.flatnonzero(toks >= 0)
-    if idx.size == 0:
-        return [], []
-    seq = toks[idx]
+    r_rows, t_pad = toks.shape
+    out: List[Tuple[List[str], List[Tuple[int, int]]]] = [
+        ([], []) for _ in range(r_rows)
+    ]
+    flat = toks.reshape(-1)
+    keep = flat >= 0
+    if not keep.any():
+        return out
+    pos = np.flatnonzero(keep)
+    seq = flat[pos].astype(np.int64)
+    row = pos // t_pad
     if frame_ids is not None:
-        t = np.asarray(frame_ids)[idx]
+        t = np.asarray(frame_ids).reshape(-1)[pos].astype(np.int64)
     else:
-        t = frame_offset + idx
+        t = (pos % t_pad).astype(np.int64)
+    first_of_row = np.empty(seq.shape, dtype=bool)
+    first_of_row[0] = True
+    first_of_row[1:] = row[1:] != row[:-1]
     prev = np.empty_like(seq)
-    prev[0] = -1  # no predecessor: first real token is always "new"
+    prev[0] = -1
     prev[1:] = seq[:-1]
-    new = seq != prev
+    new = (seq != prev) | first_of_row
     letters = (seq != blank_id) & (seq != space_id)
     emit_letter = letters & new
     if not emit_letter.any():
-        return [], []
+        return out
     emit_space = (seq == space_id) & new
-    word_of = np.cumsum(emit_space)  # word index per event position
+    # global segment id: increments at every space emit AND at row starts,
+    # so segments (words) never merge across rows
+    word_of = np.cumsum(emit_space | first_of_row)
     wl = word_of[emit_letter]
     first = np.flatnonzero(np.diff(wl, prepend=wl[0] - 1))
     last_plus = np.append(first[1:], wl.size)
-    chars = [labels[c] for c in seq[emit_letter]]
+    # width set by the longest label: a fixed U1 would silently truncate
+    # multi-char labels, which non-BPE alphabets may technically carry
+    # (the blank's empty string is fine — blanks never reach emit_letter)
+    lab_w = max(1, max(len(lab) for lab in labels))
+    lab_arr = np.array(list(labels), dtype=f"U{lab_w}")
+    chars = lab_arr[seq[emit_letter]]
     words = ["".join(chars[a:b]) for a, b in zip(first, last_plus)]
-    # spans: start = first letter EMIT of the word; end = last letter
+    # spans: start = the word's first letter EMIT; end = its last letter
     # event (emit or repeat both extend the span, ref decoder.py:453-461,
-    # 519-523) + 1. Letter repeats never straddle a word boundary (a space
-    # or blank in between resets `last`), so grouping repeats by the
-    # word of their position is exact.
+    # 519-523) + 1. A letter repeat shares its word's segment id (a
+    # space/blank in between would break the repeat), so grouping by
+    # segment id is exact.
     ws = word_of[letters]
     t_letters = t[letters]
     first_ws = np.flatnonzero(np.diff(ws, prepend=ws[0] - 1))
     last_ws = np.append(first_ws[1:], ws.size) - 1
     starts = t[emit_letter][first]
     ends = t_letters[last_ws] + 1
-    frames = list(zip(starts.tolist(), ends.tolist()))
-    return words, frames
+    row_of_word = row[emit_letter][first]
+    # regroup flat words into rows (row_of_word is non-decreasing)
+    bounds = np.searchsorted(row_of_word, np.arange(r_rows + 1))
+    starts_l = starts.tolist()
+    ends_l = ends.tolist()
+    for i in range(r_rows):
+        a, b = bounds[i], bounds[i + 1]
+        if a == b:
+            continue
+        out[i] = (
+            words[a:b],
+            list(zip(starts_l[a:b], ends_l[a:b])),
+        )
+    return out
 
 
 def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -220,6 +267,7 @@ class TorchBeamSearchDecoderCTC:
         )
         # tables are uploaded once here and reused by every decode call
         self._tabs = build_table_args(self._tokens, self._device_lm, self._device)
+        self._pinned: Optional[torch.Tensor] = None  # host staging of the outputs, see _fetch
 
     # -- configuration ---------------------------------------------------
     @property
@@ -236,7 +284,8 @@ class TorchBeamSearchDecoderCTC:
             self._lm.reset_params(**kwargs)
 
     def _engine_cfg(self, beam_width: int, k: int, prune_history: bool,
-                    emit_paths: Optional[int] = None) -> EngineConfig:
+                    emit_paths: Optional[int] = None,
+                    token_timeline: bool = False) -> EngineConfig:
         order = self._lm.order if self._lm is not None else 1
         return EngineConfig(
             beam_width=beam_width,
@@ -246,6 +295,7 @@ class TorchBeamSearchDecoderCTC:
             order=order,
             prune_history=prune_history,
             emit_paths=emit_paths,
+            token_timeline=token_timeline,
         )
 
     # -- call-time parameters ------------------------------------------------
@@ -277,73 +327,62 @@ class TorchBeamSearchDecoderCTC:
         bo = context_suffix_backoffs(self._device_lm, words)
         return {"ctx": ctx, "len": len(words), "bo": bo}
 
-    # -- output assembly -----------------------------------------------------
-    def _build_outputs(self, out: Dict[str, np.ndarray], n_frames: int,
-                       top_n: Optional[int] = None) -> List[OutputBeam]:
-        beam_src = out["beam_src"]
-        logit = out["logit"]
-        lm_score = out["lm_score"]
-        paths = out["paths"]  # [R, T] device-backtraced
-        limit = len(beam_src) if top_n is None else min(top_n, len(beam_src))
-        limit = min(limit, paths.shape[0])
-        n_live = 0
-        while n_live < limit and lm_score[n_live] > -1.0e29:
-            n_live += 1
-        toks_all = paths[:n_live].T.astype(np.int64)
-        space_id = self._labels.index(" ") if " " in self._labels else -100
-        fast_replay = not self._alphabet.is_bpe and not (
-            (toks_all[:n_frames] == -2).any() if n_live else False
-        )
-        results: List[OutputBeam] = []
-        for rank in range(n_live):
-            toks = toks_all[:n_frames, rank]
-            if fast_replay:
-                words, frames = replay_token_path_np(
-                    toks, self._labels, self._blank_id, space_id
-                )
-            else:
-                words, frames, (partial, pframes) = replay_token_path(
-                    toks, self._labels, self._alphabet.is_bpe
-                )
-                if partial:
-                    words.append(partial)
-                    frames.append(pframes)
-            if self._lm is None:
-                last_state: Optional[AbstractLMState] = None
-            else:
-                n_ctx = int(out["ctx_len"][rank])
-                ctx = out["ctx"][rank]
-                width = ctx.shape[0]
-                last_state = NGramLMState(
-                    tuple(int(w) for w in ctx[width - n_ctx:]) if n_ctx else ()
-                )
-            results.append(
-                OutputBeam(
-                    text=collapse_spaces(" ".join(words)),
-                    last_lm_state=last_state,
-                    text_frames=list(zip(words, frames)),
-                    logit_score=float(logit[rank]),
-                    lm_score=float(lm_score[rank]),
-                )
-            )
-        return results
+    # -- device launch and fetch ---------------------------------------------
+    def _launch(self, inputs: Any, n_frames: np.ndarray, k: int, beam_width: int,
+                beam_prune_logp: float, token_min_logp: float, prune_history: bool,
+                top_n: Optional[int], lm_start_state: Optional[AbstractLMState],
+                token_timeline: bool = False) -> Dict[str, torch.Tensor]:
+        """Upload and enqueue one decode; returns its outputs as device tensors.
 
-    def _run(self, logp: np.ndarray, n_frames: np.ndarray, k: int, beam_width: int,
-             beam_prune_logp: float, token_min_logp: float, prune_history: bool,
-             top_n: Optional[int], lm_start_state: Optional[AbstractLMState]) -> Dict[str, np.ndarray]:
-        """Upload, decode on the device, fetch the (small) outputs to numpy."""
+        ``inputs``: log-probs ``[N, T, V]``, or with ``token_timeline`` the
+        tuple ``(toks, tlogp, is_final)``. Nothing here waits for the device.
+        """
         emit_paths = min(top_n, beam_width) if top_n is not None else None
-        cfg = self._engine_cfg(beam_width, k, prune_history, emit_paths)
+        cfg = self._engine_cfg(beam_width, k, prune_history, emit_paths, token_timeline)
         fn = make_decode_fn(cfg, self._tabs)
         params = self._params_vector(token_min_logp, beam_prune_logp)
+        dev = self._device
         with torch.inference_mode():
-            out = fn(
-                torch.as_tensor(logp, device=self._device),
-                torch.as_tensor(n_frames, dtype=torch.int64, device=self._device),
+            if token_timeline:
+                toks, tlogp, fin = inputs
+                dev_in: Any = (
+                    torch.as_tensor(toks, device=dev).to(torch.int64),  # widened once here
+                    torch.as_tensor(tlogp, device=dev),
+                    torch.as_tensor(fin, device=dev),
+                )
+            else:
+                dev_in = torch.as_tensor(inputs, device=dev)
+            return fn(
+                dev_in,
+                torch.as_tensor(n_frames, dtype=torch.int64, device=dev),
                 params,
                 self._start_ctx(lm_start_state),
             )
-            return {key: val.cpu().numpy() for key, val in out.items()}
+
+    def _fetch(self, out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
+        """Copy the first ``n`` rows of every output to the host.
+
+        On CUDA the copies go without blocking into views of one pinned
+        buffer, which the decoder keeps and grows as needed, and one stream
+        synchronize waits for the decode and all of them. The arrays
+        returned are views of that buffer: the next fetch overwrites them.
+        """
+        if self._device.type != "cuda":
+            return {key: val[:n].numpy() for key, val in out.items()}
+        sizes = {key: -(-val[:n].numel() * val.element_size() // 16) * 16 for key, val in out.items()}
+        total = sum(sizes.values())
+        if self._pinned is None or self._pinned.numel() < total:
+            self._pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        host, start = {}, 0
+        for key, val in out.items():
+            rows = val[:n]
+            nbytes = rows.numel() * rows.element_size()
+            buf = self._pinned[start : start + nbytes].view(rows.dtype).view(rows.shape)
+            buf.copy_(rows, non_blocking=True)
+            host[key] = buf
+            start += sizes[key]
+        torch.cuda.current_stream(self._device).synchronize()
+        return {key: buf.numpy() for key, buf in host.items()}
 
     # -- public API ------------------------------------------------------------
     def decode_beams(
@@ -360,7 +399,7 @@ class TorchBeamSearchDecoderCTC:
         top_n: Optional[int] = None,
         blank_collapse: bool = False,
     ) -> List[OutputBeam]:
-        """Decode one utterance on the device; returns ranked OutputBeams.
+        """Decode one utterance on the device (a batch of one); returns ranked OutputBeams.
 
         ``max_tokens_per_frame``: ``None`` expands every vocabulary token
         per frame (always exact); an integer caps the per-frame top-K
@@ -368,27 +407,25 @@ class TorchBeamSearchDecoderCTC:
         ``token_min_logp``); ``"auto"`` measures this call's admission and
         picks the smallest sufficient bucketed K. ``top_n`` limits text
         reconstruction to the best N beams (search is unaffected).
+        ``blank_collapse`` drops blank-certain frames before decoding
+        (exactness-preserving at this call's ``token_min_logp``; see
+        :func:`~pyctcdecode_torch.utils.logits.blank_collapse`).
         """
-        if hotwords is not None:
-            raise _not_ported("hotwords")
-        if blank_collapse:
-            raise _not_ported("blank_collapse")
-        if logits.ndim != 2 or logits.shape[1] != len(self._labels):
-            raise ValueError(
-                f"Input logits of shape {logits.shape}, but vocabulary is "
-                f"size {len(self._labels)}"
-            )
-        v = len(self._labels)
-        logp = normalize_to_logp(np.asarray(logits)).astype(np.float32)
-        k = self._pick_k(max_tokens_per_frame, (logp >= token_min_logp).sum(-1), v)
-        t = logp.shape[0]
-        out = self._run(
-            logp[None], np.array([t]), k, beam_width, beam_prune_logp,
-            token_min_logp, prune_history, top_n, lm_start_state,
+        handle = self._dispatch_batch(
+            [np.asarray(logits)],
+            beam_width=beam_width,
+            beam_prune_logp=beam_prune_logp,
+            token_min_logp=token_min_logp,
+            prune_history=prune_history,
+            hotwords=hotwords,
+            hotword_weight=hotword_weight,
+            max_tokens_per_frame=max_tokens_per_frame,
+            batch_pad=1,
+            top_n=top_n,
+            blank_collapse=blank_collapse,
+            lm_start_state=lm_start_state,
         )
-        return self._build_outputs(
-            {key: val[0] for key, val in out.items()}, n_frames=t, top_n=top_n
-        )
+        return self._collect_batch(handle)[0]
 
     @staticmethod
     def _pick_k(max_tokens_per_frame: Optional[Union[int, str]], counts: np.ndarray, v: int) -> int:
@@ -463,8 +500,8 @@ class TorchBeamSearchDecoderCTC:
         top_n: Optional[int] = None,
         collect_stats: bool = False,
         blank_collapse: bool = False,
-        length_bucketing: bool = False,
-        token_chunking: Optional[int] = None,
+        length_bucketing: Union[bool, int] = False,
+        token_chunking: Union[None, bool, int] = None,
     ) -> List[List[OutputBeam]]:
         """Batched decode: all utterances in one ``[N, B]`` device program.
 
@@ -472,47 +509,385 @@ class TorchBeamSearchDecoderCTC:
         utterance's state. The batch is padded to a multiple of
         ``batch_pad`` rows (the reference's shape-reuse rule, kept so both
         packages decode the same padded batch).
+
+        ``length_bucketing`` (``True``, or a per-group row target; ``True``
+        means 384) sorts the utterances by length into equal-count groups
+        and launches one decode per group, all before any is collected, so a
+        mixed-length batch stops paying the longest utterance's step count
+        for every row. Results come back in input order; with the auto
+        preselect each group measures its own K.
+
+        ``blank_collapse`` drops blank-certain frames per utterance before
+        decoding: exactness-preserving at this call's ``token_min_logp``
+        (text, ranking, frame spans and, after the score offset is added
+        back, scores match the full decode; see
+        :func:`~pyctcdecode_torch.utils.logits.blank_collapse`).
+
+        ``token_chunking`` (``True`` for width 5, or a chunk width) switches
+        to token-timeline decoding, the serving configuration: the host
+        splits each frame's exactly-admitted token set into chunks and the
+        engine pools candidates across a frame's chunks, so a step's work
+        follows the mean admitted count instead of the batch's worst frame.
+        Output-exact for any width (see
+        :func:`~pyctcdecode_torch.utils.logits.token_timeline`);
+        ``max_tokens_per_frame`` is ignored on this path.
+
+        ``hotwords`` and ``collect_stats`` are not ported yet and raise.
         """
         logits_list = self._without_pool_arg(logits_list, _pool_compat)
-        for option, value in (
-            ("hotwords", hotwords is not None),
-            ("collect_stats", collect_stats),
-            ("blank_collapse", blank_collapse),
-            ("length_bucketing", length_bucketing),
-            ("token_chunking", token_chunking),
-        ):
-            if value:
-                raise _not_ported(option)
+        dispatch_kw = dict(
+            beam_width=beam_width,
+            beam_prune_logp=beam_prune_logp,
+            token_min_logp=token_min_logp,
+            prune_history=prune_history,
+            hotwords=hotwords,
+            hotword_weight=hotword_weight,
+            max_tokens_per_frame=max_tokens_per_frame,
+            batch_pad=batch_pad,
+            top_n=top_n,
+            collect_stats=collect_stats,
+            blank_collapse=blank_collapse,
+            token_chunking=token_chunking,
+        )
+        handles = self._launch_batch(logits_list, dispatch_kw, length_bucketing)
+        return self._collect_bucketed(handles, len(logits_list))
+
+    def _launch_batch(
+        self,
+        logits_list: Sequence[np.ndarray],
+        dispatch_kw: Dict[str, Any],
+        bucketing: Union[bool, int],
+    ) -> List[Tuple[List[int], Optional[Dict[str, Any]]]]:
+        """Launch one batch without waiting for it, bucketed by length if asked.
+
+        With ``blank_collapse`` + bucketing the collapse runs batch-wide
+        first, so the groups reflect the frame counts the device will
+        actually step through, not the raw input lengths. Returns
+        ``(indices, handle)`` pairs for :meth:`_collect_bucketed`.
+        """
+        kw = dict(dispatch_kw)
+        pre = None
+        if bucketing and len(logits_list) > 1:
+            if kw.get("blank_collapse"):
+                pre = self._collapse_all(logits_list, kw["token_min_logp"])
+                logits_list = pre[0]
+                kw["blank_collapse"] = False
+            target = 384 if bucketing is True else max(1, int(bucketing))
+            groups = self._length_groups(logits_list, target_rows=target)
+            if len(groups) > 1:
+                return self._dispatch_bucketed(logits_list, groups, kw, pre)
+            if pre is not None:
+                kw["precollapsed"] = pre
+        return [(
+            list(range(len(logits_list))),
+            self._dispatch_batch(logits_list, **kw),
+        )]
+
+    def _dispatch_bucketed(
+        self,
+        logits_list: Sequence[np.ndarray],
+        groups: List[List[int]],
+        dispatch_kw: Dict[str, Any],
+        pre: Optional[Tuple[List[np.ndarray], List[np.ndarray], List[float]]] = None,
+    ) -> List[Tuple[List[int], Optional[Dict[str, Any]]]]:
+        """Launch one decode per length group; nothing is collected.
+
+        ``pre`` carries batch-level blank-collapse output (collapsed
+        log-probs, kept-frame ids, score offsets); each group receives its
+        slice so the collapse isn't recomputed per group. Every group is
+        padded to the same row count (the largest group's, rounded to the
+        ``batch_pad`` grid), as the reference does, so both packages decode
+        the same padded groups.
+        """
+        handles = []
+        size = max(len(idx) for idx in groups)
+        pad = max(int(dispatch_kw.get("batch_pad", 8)), 1)
+        shared_pad = ((size + pad - 1) // pad) * pad
+        for idx in groups:
+            kw = dict(dispatch_kw, batch_pad=shared_pad)
+            if pre is not None:
+                kw["precollapsed"] = (
+                    [pre[0][i] for i in idx],
+                    [pre[1][i] for i in idx],
+                    [pre[2][i] for i in idx],
+                )
+            handles.append((idx, self._dispatch_batch(
+                [logits_list[i] for i in idx], **kw
+            )))
+        return handles
+
+    def _collect_bucketed(
+        self,
+        handles: List[Tuple[List[int], Optional[Dict[str, Any]]]],
+        n: int,
+    ) -> List[List[OutputBeam]]:
+        """Wait for the launched groups; reassemble results in input order."""
+        results: List[Any] = [None] * n
+        for idx, handle in handles:
+            group_res = self._collect_batch(handle)
+            for j, i in enumerate(idx):
+                results[i] = group_res[j]
+        return results
+
+    @staticmethod
+    def _length_groups(
+        logits_list: Sequence[np.ndarray], target_rows: int = 384
+    ) -> List[List[int]]:
+        """Balanced length bucketing: equal-count groups of sorted lengths.
+
+        Equal group sizes mean every group pads to the same row count and
+        no tiny straggler group is left with a poor share of the device.
+        ``target_rows`` is the row count aimed at per group.
+        """
+        lens = [max(m.shape[0], 1) for m in logits_list]
+        order = sorted(range(len(lens)), key=lens.__getitem__)
+        n = len(lens)
+        n_groups = max(1, -(-n // target_rows))
+        size = -(-n // n_groups)
+        return [order[i : i + size] for i in range(0, n, size)]
+
+    def _collapse_all(
+        self, logits_list: Sequence[np.ndarray], token_min_logp: float
+    ) -> Tuple[List[np.ndarray], List[np.ndarray], List[float]]:
+        """Normalize and blank-collapse every utterance in a batch.
+
+        Returns (collapsed log-prob matrices, kept original frame indices,
+        per-utterance score offsets to restore full-decode scores).
+        """
+        return normalize_collapse_batch(logits_list, self._blank_id, token_min_logp)
+
+    def _dispatch_batch(
+        self,
+        logits_list: Sequence[np.ndarray],
+        beam_width: int,
+        beam_prune_logp: float,
+        token_min_logp: float,
+        prune_history: bool,
+        hotwords: Optional[Iterable[str]],
+        hotword_weight: float,
+        max_tokens_per_frame: Optional[Union[int, str]],
+        batch_pad: int,
+        top_n: Optional[int],
+        collect_stats: bool = False,
+        blank_collapse: bool = False,
+        token_chunking: Union[None, bool, int] = None,
+        precollapsed: Optional[
+            Tuple[List[np.ndarray], List[np.ndarray], List[float]]
+        ] = None,
+        lm_start_state: Optional[AbstractLMState] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """Normalize, upload and launch one batch; returns a result handle.
+
+        The launch does not wait for the device, so a caller can prepare the
+        next batch while this one runs (see :meth:`decode_beams_batches`).
+        The handle holds the decode's outputs as device tensors.
+        ``precollapsed`` supplies already-normalized, blank-collapsed
+        matrices (from :meth:`_collapse_all`, computed batch-wide before
+        length bucketing). ``lm_start_state`` (the single-utterance call's)
+        seeds every row's LM context on the dense path.
+        """
+        if hotwords is not None:
+            raise _not_ported("hotwords")
+        if collect_stats:
+            raise _not_ported("collect_stats")
         if not logits_list:
-            return []
+            return None
         v = len(self._labels)
+        n = len(logits_list)
+        n_pad = ((n + batch_pad - 1) // batch_pad) * batch_pad
         for mat in logits_list:
             if mat.ndim != 2 or mat.shape[1] != v:
                 raise ValueError(
                     f"Input logits of shape {mat.shape}, but vocabulary is size {v}"
                 )
-        n = len(logits_list)
-        n_pad = ((n + batch_pad - 1) // batch_pad) * batch_pad
-        lens = [m.shape[0] for m in logits_list]
+        frame_ids_list: Optional[List[np.ndarray]] = None
+        offsets: Optional[List[float]] = None
+        mats: Optional[List[np.ndarray]] = None
+        if precollapsed is not None:
+            mats, frame_ids_list, offsets = precollapsed
+        elif blank_collapse:
+            mats, frame_ids_list, offsets = self._collapse_all(logits_list, token_min_logp)
+        if mats is None:
+            mats = normalize_batch(logits_list)
+        if token_chunking:
+            return self._dispatch_timeline(
+                mats, frame_ids_list, offsets,
+                beam_width=beam_width, beam_prune_logp=beam_prune_logp,
+                token_min_logp=token_min_logp, prune_history=prune_history,
+                k_chunk=5 if token_chunking is True else int(token_chunking),
+                n_pad=n_pad, top_n=top_n,
+            )
+        lens = [m.shape[0] for m in mats]
         t_max = max(max(lens), 1)
         logp = np.zeros((n_pad, t_max, v), dtype=np.float32)
-        for i, out in enumerate(normalize_batch(logits_list)):
-            logp[i, : lens[i]] = out
+        for i, mat in enumerate(mats):
+            logp[i, : lens[i]] = mat
         n_frames = np.zeros(n_pad, dtype=np.int64)
         n_frames[:n] = lens
         valid = np.arange(t_max)[None, :] < n_frames[:, None]
         counts = np.where(valid, (logp >= token_min_logp).sum(-1), 1)
         k = self._pick_k(max_tokens_per_frame, counts, v)
-        out = self._run(
+        out = self._launch(
             logp, n_frames, k, beam_width, beam_prune_logp, token_min_logp,
-            prune_history, top_n, None,
+            prune_history, top_n, lm_start_state,
         )
-        return [
-            self._build_outputs(
-                {key: val[i] for key, val in out.items()}, n_frames=lens[i], top_n=top_n
+        return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
+                "frame_ids": frame_ids_list, "offsets": offsets}
+
+    def _dispatch_timeline(
+        self,
+        mats: List[np.ndarray],
+        frame_ids_list: Optional[List[np.ndarray]],
+        offsets: Optional[List[float]],
+        *,
+        beam_width: int,
+        beam_prune_logp: float,
+        token_min_logp: float,
+        prune_history: bool,
+        k_chunk: int,
+        n_pad: int,
+        top_n: Optional[int],
+    ) -> Dict[str, Any]:
+        """Launch one batch of normalized matrices through the token-timeline engine.
+
+        The host splits every frame's exactly-admitted token set into
+        ``k_chunk``-wide chunks
+        (:func:`~pyctcdecode_torch.utils.logits.token_timeline`); the device
+        steps through the chunk timeline with a carried candidate pool, so a
+        step's work follows the mean admitted count, not the batch's worst
+        frame. Output-exact for any ``k_chunk``. ``frame_ids_list`` (blank
+        collapse) composes with the timeline's own step-to-frame map, so the
+        handle's frame ids are original frame indices per virtual step.
+        """
+        n = len(mats)
+        tls, vlens = token_timeline_batch(mats, token_min_logp, k_chunk)
+        lens = [int(x) for x in vlens]
+        t_max = max(max(lens), 1)
+        toks = np.full((n_pad, t_max, k_chunk), -1, dtype=np.int32)
+        tlogp = np.zeros((n_pad, t_max, k_chunk), dtype=np.float32)
+        fin = np.zeros((n_pad, t_max), dtype=np.int8)
+        step_frames = []  # original frame of every virtual step
+        for i, (tk, tp, fi, _, fids) in enumerate(tls):
+            toks[i, : lens[i]] = tk
+            tlogp[i, : lens[i]] = tp
+            fin[i, : lens[i]] = fi
+            step_frames.append(
+                np.asarray(frame_ids_list[i])[fids] if frame_ids_list is not None
+                else fids.astype(np.int64)
             )
-            for i in range(n)
-        ]
+        n_frames = np.zeros(n_pad, dtype=np.int64)
+        n_frames[:n] = lens
+        out = self._launch(
+            (toks, tlogp, fin), n_frames, k_chunk, beam_width, beam_prune_logp,
+            token_min_logp, prune_history, top_n, None, token_timeline=True,
+        )
+        return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
+                "frame_ids": step_frames, "offsets": offsets}
+
+    def _collect_batch(self, handle: Optional[Dict[str, Any]]) -> List[List[OutputBeam]]:
+        """Wait for a launched batch, copy its outputs to the host and build
+        its OutputBeam lists.
+
+        One :func:`replay_token_paths_batch` pass covers every (utterance,
+        rank) row: the engine backtraces on the device, the alphabet is a
+        char alphabet and no path carries a ``-2`` force-commit marker
+        (streaming is not ported).
+        """
+        if handle is None:
+            return []
+        host = self._fetch(handle["out"], handle["n"])
+        n = handle["n"]
+        paths = host["paths"]  # [n, R, T]
+        lm_score = host["lm_score"]
+        logit = host["logit"]
+        limit = paths.shape[1]
+        if handle["top_n"] is not None:
+            limit = min(limit, handle["top_n"])
+        live = np.cumprod(lm_score[:, :limit] > -1.0e29, axis=1).astype(bool)
+        ui, ri = np.nonzero(live)  # utterance-major, rank ascending
+        results: List[List[OutputBeam]] = [[] for _ in range(n)]
+        if ui.size == 0:
+            return results
+        toks_flat = paths[ui, ri]  # [rows, T]
+        frame_ids_list = handle["frame_ids"]
+        fid = None
+        if frame_ids_list is not None:
+            per_utt = np.zeros((n, toks_flat.shape[1]), dtype=np.int64)
+            for u, fi in enumerate(frame_ids_list):
+                per_utt[u, : len(fi)] = fi
+            fid = per_utt[ui]
+        space_id = self._labels.index(" ") if " " in self._labels else -100
+        pairs = replay_token_paths_batch(
+            toks_flat, self._labels, self._blank_id, space_id, frame_ids=fid
+        )
+        offsets = handle["offsets"]
+        for row, (u, r) in enumerate(zip(ui.tolist(), ri.tolist())):
+            words, frames = pairs[row]
+            off = float(offsets[u]) if offsets is not None else 0.0
+            last_state = None
+            if self._lm is not None:
+                n_ctx = int(host["ctx_len"][u, r])
+                ctx = host["ctx"][u, r]
+                last_state = NGramLMState(tuple(int(w) for w in ctx[len(ctx) - n_ctx:]) if n_ctx else ())
+            results[u].append(
+                OutputBeam(
+                    text=" ".join(words),
+                    last_lm_state=last_state,
+                    text_frames=list(zip(words, frames)),
+                    logit_score=float(logit[u, r]) + off,
+                    lm_score=float(lm_score[u, r]) + off,
+                )
+            )
+        return results
+
+    def decode_beams_batches(
+        self,
+        batches: Iterable[Sequence[np.ndarray]],
+        pipeline_depth: int = 1,
+        **kwargs: Any,
+    ) -> Iterable[List[List[OutputBeam]]]:
+        """Pipelined decoding of a stream of batches (the serving path).
+
+        Keeps ``pipeline_depth`` batches launched: while the device runs
+        batch ``i``, the host prepares and launches the next batches, and
+        builds the outputs of earlier ones. Accepts the keyword arguments of
+        :meth:`decode_beams_batch` (``length_bucketing`` included, which
+        splits each batch into per-group decodes) except ``collect_stats``;
+        yields one result list per batch, in order.
+        """
+        pipeline_depth = max(int(pipeline_depth), 1)
+        pending: List[Tuple[List[Tuple[List[int], Optional[Dict[str, Any]]]], int]] = []
+        defaults = dict(
+            beam_width=kwargs.pop("beam_width", DEFAULT_BEAM_WIDTH),
+            beam_prune_logp=kwargs.pop("beam_prune_logp", DEFAULT_PRUNE_LOGP),
+            token_min_logp=kwargs.pop("token_min_logp", DEFAULT_MIN_TOKEN_LOGP),
+            prune_history=kwargs.pop("prune_history", DEFAULT_PRUNE_BEAMS),
+            hotwords=kwargs.pop("hotwords", None),
+            hotword_weight=kwargs.pop("hotword_weight", DEFAULT_HOTWORD_WEIGHT),
+            max_tokens_per_frame=kwargs.pop("max_tokens_per_frame", None),
+            batch_pad=kwargs.pop("batch_pad", 8),
+            top_n=kwargs.pop("top_n", None),
+            collect_stats=False,
+            blank_collapse=kwargs.pop("blank_collapse", False),
+            token_chunking=kwargs.pop("token_chunking", None),
+        )
+        bucketing = kwargs.pop("length_bucketing", False)
+        if kwargs.pop("collect_stats", False):
+            raise ValueError(
+                "collect_stats is not supported on the pipelined "
+                "decode_beams_batches path; use decode_beams_batch"
+            )
+        if kwargs:
+            raise TypeError(f"unknown decode arguments: {sorted(kwargs)}")
+        for logits_list in batches:
+            handles = self._launch_batch(logits_list, defaults, bucketing)
+            pending.append((handles, len(logits_list)))
+            if len(pending) > pipeline_depth:
+                prev_handles, prev_n = pending.pop(0)
+                yield self._collect_bucketed(prev_handles, prev_n)
+        while pending:
+            prev_handles, prev_n = pending.pop(0)
+            yield self._collect_bucketed(prev_handles, prev_n)
 
     def decode_batch(
         self,
@@ -525,8 +900,8 @@ class TorchBeamSearchDecoderCTC:
         hotword_weight: float = DEFAULT_HOTWORD_WEIGHT,
         max_tokens_per_frame: Optional[Union[int, str]] = None,
         blank_collapse: bool = False,
-        length_bucketing: bool = False,
-        token_chunking: Optional[int] = None,
+        length_bucketing: Union[bool, int] = False,
+        token_chunking: Union[None, bool, int] = None,
     ) -> List[str]:
         """Batch top-1 transcripts (leading pool argument accepted, unused)."""
         logits_list = self._without_pool_arg(logits_list, _pool_compat)

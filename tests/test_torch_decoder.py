@@ -18,9 +18,8 @@ from pyctcdecode_tpu import LanguageModel as JLanguageModel
 from pyctcdecode_tpu import TPUBeamSearchDecoderCTC
 from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
-from .torch_cases import ARPA, UNIGRAMS, word_logits
+from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
 
-SCORE_TOL = 1e-4
 
 @pytest.fixture(scope="module")
 def arpa_path(tmp_path_factory):
@@ -44,21 +43,6 @@ def decoders(arpa_path):
             P.TorchBeamSearchDecoderCTC(pa, plm, device="cpu"),
         ),
     }
-
-
-def _state(beam):
-    return None if beam.last_lm_state is None else beam.last_lm_state.context
-
-
-def assert_same_beams(jbeams, pbeams):
-    assert len(pbeams) == len(jbeams)
-    assert len(jbeams) > 0
-    for jb, pb in zip(jbeams, pbeams):
-        assert pb.text == jb.text
-        assert pb.text_frames == jb.text_frames
-        assert _state(pb) == _state(jb)
-        assert abs(pb.logit_score - jb.logit_score) <= SCORE_TOL
-        assert abs(pb.lm_score - jb.lm_score) <= SCORE_TOL
 
 
 @pytest.mark.parametrize(
@@ -140,9 +124,19 @@ def test_reset_params_retunes_without_rebuild(decoders):
     ],
 )
 def test_unported_options_raise(decoders, option):
-    _, pdec = decoders["none"]
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        pdec.decode_beams_batch([word_logits(0, 5)], **option)
+    """Options still to port raise by name; the serving options decode as the reference."""
+    jdec, pdec = decoders["none"]
+    name = next(iter(option))
+    if name in ("hotwords", "collect_stats"):
+        with pytest.raises(NotImplementedError, match=name):
+            pdec.decode_beams_batch([word_logits(0, 5)], **option)
+        return
+    batch = [word_logits(0, 5), word_logits(1, 9)]
+    jres = jdec.decode_beams_batch(batch, beam_width=4, **option)
+    pres = pdec.decode_beams_batch(batch, beam_width=4, **option)
+    assert len(pres) == len(batch)
+    for jb, pb in zip(jres, pres):
+        assert_same_beams(jb, pb)
 
 
 def test_unported_engines_and_formats_raise(arpa_path, tmp_path):

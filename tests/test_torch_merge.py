@@ -17,7 +17,15 @@ import torch
 from pyctcdecode_torch.ops import merge as tm
 from pyctcdecode_tpu.ops import pallas_merge as pm
 
-from .torch_cases import assert_outputs, expand_inputs, merge_inputs, torch_merge_args, torch_planes
+from .torch_cases import (
+    DEAD,
+    assert_outputs,
+    chunk_token_planes,
+    expand_inputs,
+    merge_inputs,
+    torch_merge_args,
+    torch_planes,
+)
 
 
 @pytest.mark.parametrize("n,k,b,seed", [(1, 6, 16, 3), (1, 1, 24, 4), (3, 5, 12, 5)])
@@ -72,6 +80,58 @@ def test_expand_merge_prune_ref_matches_pallas(n, lmax, is_bpe, seed):
             jbeam, jtok, jnp.asarray(cids), jnp.asarray(pscore), jnp.asarray(prune)
         )
     assert_outputs(got, want)
+
+
+@pytest.mark.parametrize("n,k,b,seed", [(1, 4, 16, 21), (3, 5, 12, 22)])
+def test_window_off_chunk_step_matches_pallas(n, k, b, seed):
+    """The timeline chunk step: window off (``prune = -inf``), per-utterance token planes.
+
+    ``DEAD + -inf`` must give no NaN and let no DEAD member through: every
+    live group-first member keeps its score, everything else stays DEAD.
+    """
+    rng = np.random.RandomState(seed)
+    beam, tok, cids, pscore, _ = expand_inputs(rng, n, k, b, 1)
+    tok = chunk_token_planes(rng, tok, 29)
+    if n > 1:
+        beam["logit"][-1] = DEAD  # an utterance with no live beam: max + prune = DEAD - inf
+    prune = np.full(n, -np.inf, dtype=np.float32)
+    got = tm.expand_merge_prune_ref(
+        torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+        torch.as_tensor(pscore), torch.as_tensor(prune), False,
+    )
+    score, merged, _ = (x.numpy() for x in got)
+    assert not np.isnan(score).any() and not np.isnan(merged).any()
+    valid = (beam["logit"][:, None, :] > -1e29) & (tok["admit"][:, :, None] != 0)
+    assert (score[~valid] == DEAD).all()
+    assert (score[valid] > -1e29).sum() > 0
+    windowed = tm.expand_merge_prune_ref(
+        torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+        torch.as_tensor(pscore), torch.full((n,), -1.0), False,
+    )[0].numpy()
+    assert ((score > -1e29) | (windowed == DEAD)).all()  # the window only removes
+    assert (score > -1e29).sum() > (windowed > -1e29).sum()
+
+    def one(beam_1, tok_1, cids_1, pscore_1, prune_1):
+        return pm.expand_merge_score_pallas(
+            beam_1, tok_1, list(cids_1), pscore_1, prune_1, False, interpret=True
+        )
+
+    jbeam = {key: jnp.asarray(val) for key, val in beam.items()}
+    jtok = {key: jnp.asarray(val) for key, val in tok.items()}
+    want = jax.vmap(one, in_axes=(0, 0, 1, 0, 0))(
+        jbeam, jtok, jnp.asarray(cids), jnp.asarray(pscore), jnp.asarray(prune)
+    )
+    if n > 1:
+        assert_outputs([g[:-1] for g in got], [np.asarray(w)[:-1] for w in want])
+        np.testing.assert_array_equal(score[-1], np.asarray(want[0])[-1])  # all DEAD
+    else:
+        assert_outputs(got, want)
+
+    # the pre-keyed merge with the window off, as the finalize runs it
+    kl, kh, mvalid, logit, extra, _ = merge_inputs(rng, n, 1, b)
+    margs = torch_merge_args(kl, kh, mvalid, logit, np.zeros_like(extra), prune)
+    mscore = tm.merge_prune_ref(*margs)[0].numpy()
+    assert not np.isnan(mscore).any() and (mscore[~mvalid] == DEAD).all()
 
 
 def test_cpu_wrappers_run_plain_version_and_count_nothing():

@@ -1,4 +1,4 @@
-"""Shared cases for the port's tests: merge-kernel inputs and a tiny 3-gram.
+"""Shared cases for the port's tests: merge-kernel inputs, a tiny 3-gram, beam checks.
 
 Imports numpy and torch only, so the card tests (``test_torch_kernels_cuda``)
 can use it on a machine without JAX.
@@ -8,6 +8,9 @@ import torch
 
 ATOL = 1e-5
 DEAD = -1.0e30
+# both engines score in float32; the group logsumexp and exp/log round
+# differently in the two frameworks and scores accumulate over the frames
+SCORE_TOL = 1e-4
 
 # A self-authored 3-gram over words spellable with the bugs/bunny alphabet
 # (" bgnsuy"), with backoff paths at every order and a non-unigram vocab word.
@@ -113,6 +116,23 @@ def expand_inputs(rng, n, k, b, lmax):
     return beam, tok, cids, pscore, prune
 
 
+def chunk_token_planes(rng, tok, vocab):
+    """``tok`` planes as one timeline chunk: per-row-distinct ids, ``-1`` holes clamped.
+
+    Each utterance's chunk holds different, ascending token ids drawn from
+    ``vocab`` and ends in a random number of empty slots; an empty slot
+    carries id 0 for lookups and is not admitted, as the engine feeds it.
+    """
+    n, k = tok["tok"].shape
+    ids = np.stack([np.sort(rng.choice(vocab, size=k, replace=False)) for _ in range(n)])
+    holes = np.arange(k)[None, :] >= rng.randint(1, k + 1, size=(n, 1))
+    holes[0] = False  # one full chunk
+    out = dict(tok)
+    out["tok"] = np.where(holes, 0, ids).astype(np.int32)
+    out["admit"] = (~holes).astype(np.int32)
+    return out
+
+
 def torch_planes(planes):
     return {
         name: torch.as_tensor(arr.astype(np.int64) if arr.dtype == np.uint32 else arr)
@@ -127,3 +147,17 @@ def word_logits(seed, t):
     mat = rng.randn(t, 8).astype(np.float32) * 1.3
     mat[np.arange(t), path] += 3.0
     return mat
+
+
+def assert_same_beams(want, got, tol=SCORE_TOL):
+    """Two ranked OutputBeam lists: texts, frames, LM states identical; scores within ``tol``."""
+    assert len(got) == len(want)
+    assert len(want) > 0
+    for wb, gb in zip(want, got):
+        assert gb.text == wb.text
+        assert gb.text_frames == wb.text_frames
+        w_state = None if wb.last_lm_state is None else wb.last_lm_state.context
+        g_state = None if gb.last_lm_state is None else gb.last_lm_state.context
+        assert g_state == w_state
+        assert abs(gb.logit_score - wb.logit_score) <= tol
+        assert abs(gb.lm_score - wb.lm_score) <= tol
