@@ -16,27 +16,31 @@ Phases (any failed check exits non-zero and prints no result line):
    without the window; the serving path's length groups of N = 16 with K = 5
    per-utterance chunk token planes with empty slots and the window off for
    its step, and K = 1 with the window off for its final merge; the chunk
-   step at N = 32 as well). Tolerances: scores and merged logits within atol
+   step at N = 32 as well), at B = 1024, and at every cluster size (blocks
+   per utterance) beside the one the kernel picks from K. Tolerances: scores and merged logits within atol
    1e-5 + rtol 1e-6 (the kernel sums exponentials in another order); ``src``
    exact at live entries; the pruned (DEAD) sets equal except within that
    tolerance of the window threshold. Times are per-call device times over
    30 launches;
-4. gather kernel: ``gather_rows`` against ``table[idx]``, bit-exact, at the
+4. gather kernels: ``gather_rows`` against ``table[idx]``, bit-exact, at the
    shape of the reference's gather probe (int32 [524288, 64] table, 38 400
-   queries, seeded alike), at the bucket rows' width (128 words), on the
-   parity LM's own trie plane and bucket tables with the indices of a real
-   step of the dense decode ([32, 100]) and of a serving decode's length
-   group ([16, 100]; many repeats), and at ragged query counts; timed beside
+   queries, seeded alike), at the bucket rows' width (128 words), at ragged
+   query counts, and with its slot select on the parity LM's own trie plane
+   with the nodes of a real step of the dense decode ([32, 100]) and of a
+   serving decode's length group ([16, 100]; many repeats); timed beside
    the plain version and ``torch.index_select`` (the library call, used
-   nowhere in the package);
+   nowhere in the package). ``probe_rows`` (the hashes, bucket-row reads and
+   fingerprint readout of every n-gram order >= 2 in one launch) against its
+   plain version, bit-exact, on the queries of the same two real steps, warm
+   and with the L2 cache flushed;
 5. dense path: the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M
    trigrams, written from a seed under ``build/``) behind
    ``pyctcdecode_torch.build_ctcdecoder``; ``decode_batch`` of 32 synthetic
    dev-other utterances at beam 100 with every token expanded (K = 29). The
-   launch counters must show one ``expand_merge_prune`` launch per frame
-   step, one ``merge_prune`` launch per finalization, and for the 3-gram
-   three ``gather_rows`` launches per step (trie rows, bigram and trigram
-   bucket rows) plus four per finalization. The first 4 utterances decode
+   launch counters must show one ``expand_merge_prune``, one ``gather_rows``
+   (trie rows) and one ``probe_rows`` launch per frame step, and per
+   finalization one ``merge_prune`` launch and two ``probe_rows`` launches
+   (the last word and ``</s>``). The first 4 utterances decode
    again with a ``device="cpu"`` decoder (the plain versions): identical
    texts, lm_score within 1e-3;
 6. serving path: the same utterances through ``decode_batch(...,
@@ -58,6 +62,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -78,7 +83,10 @@ LM_SCORE_TOL = 1e-3
 RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
 CHUNK = 5  # token_chunking=True
-OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel")
+OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel",
+               "probe_rows_kernel")
+WIDE_BEAM, WIDE_ROWS = 1024, 8  # the widest beam the merge kernels take, on a smaller batch
+CLUSTERS = (1, 2, 4, 8)  # blocks per utterance the merge kernels can be forced to
 PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # (non-tensor-core) operations/s; the kernels' scalar int32/f32 work is
@@ -279,139 +287,187 @@ def expand_inputs(torch, dev, rng, n, k, b, lmax, chunk=False):
     return beam, tok, cids, pscore, prune
 
 
+def by_cluster(torch, label: str, fn, want, prune, picked_ms: float) -> dict:
+    """The kernel forced to each cluster size: held against ``want``, timed (device ms)."""
+    out = {}
+    for cluster in CLUSTERS:
+        got = fn(cluster)
+        torch.cuda.synchronize()
+        compare(f"{label} cluster={cluster}", got, want, prune)
+        out[cluster] = time_call(torch, lambda: fn(cluster))[0]
+    log(f"{label}: blocks per utterance forced to " +
+        ", ".join(f"{c}: {ms:.4f} ms" for c, ms in out.items()) + f"; picked from K: {picked_ms:.4f} ms")
+    return out
+
+
 def kernel_phases(torch, merge) -> dict:
     """Each merge kernel vs its plain version on the card; times; bounds."""
     dev = torch.device("cuda")
     rec = {}
-    # (N, K, window): the batched form, the finalize's shape, and the finalize
+    # (N, K, B, window): the batched form, the finalize's shape, and the finalize
     # as it runs (no window: prune = -inf) on the dense batch and on one
-    # length group of the serving call
-    for n, k, window in ((N_UTTS, K_TOKENS, True), (N_UTTS, 1, True), (N_UTTS, 1, False),
-                         (GROUP_ROWS, 1, False)):
-        args = merge_inputs(torch, dev, np.random.RandomState(100 + k + (n != N_UTTS) * 1000), n, k, BEAM, window)
+    # length group of the serving call; then the widest beam
+    for n, k, b, window in ((N_UTTS, K_TOKENS, BEAM, True), (N_UTTS, 1, BEAM, True), (N_UTTS, 1, BEAM, False),
+                            (GROUP_ROWS, 1, BEAM, False), (WIDE_ROWS, 1, WIDE_BEAM, False),
+                            (WIDE_ROWS, K_TOKENS, WIDE_BEAM, True)):
+        args = merge_inputs(torch, dev, np.random.RandomState(100 + k + (n != N_UTTS) * 1000), n, k, b, window)
         got = merge.merge_prune(*args)
         torch.cuda.synchronize()
-        label = f"merge_prune[{n},{k},{BEAM}]" + ("" if window else " window off")
+        label = f"merge_prune[{n},{k},{b}]" + ("" if window else " window off")
         check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
-        err = compare(label, got, merge.merge_prune_ref(*args), args[5])
+        want = merge.merge_prune_ref(*args)
+        err = compare(label, got, want, args[5])
         ms, call = time_call(torch, lambda: merge.merge_prune(*args))
         plain, plain_call = time_call(torch, lambda: merge.merge_prune_ref(*args))
         n_valid = int(args[2].sum())
-        b_ms, b_by = bound_ms(nbytes(args) + nbytes(got), 3.0 * BEAM * n_valid)
+        b_ms, b_by = bound_ms(nbytes(args) + nbytes(got), 3.0 * b * n_valid)
         log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
             f"(call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
             f"bound {b_ms:.5f} ms ({b_by})")
-        rec[("merge_prune", f"n={n},k={k}" + ("" if window else ",window off"))] = dict(
+        key = f"n={n},k={k}" + ("" if b == BEAM else f",b={b}") + ("" if window else ",window off")
+        rec[("merge_prune", key)] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=[n, k, BEAM], call_ms=call, plain_call_ms=plain_call)
-    # (N, K, lmax, BPE, chunk): the dense step, the BPE-like walk, the serving
-    # chunk step at the dense batch's rows and at a length group's
-    for n, k, lmax, is_bpe, chunk in ((N_UTTS, K_TOKENS, 1, False, False), (N_UTTS, K_TOKENS, 3, True, False),
-                                      (N_UTTS, CHUNK, 1, False, True), (GROUP_ROWS, CHUNK, 1, False, True)):
+            shape=[n, k, b], call_ms=call, plain_call_ms=plain_call)
+        if k > 1:
+            rec[("merge_prune", key)]["ms_by_cluster"] = by_cluster(
+                torch, label, lambda c: merge.merge_prune(*args, cluster=c), want, args[5], ms)
+        del args, got, want
+    # (N, K, B, lmax, BPE, chunk): the dense step, the BPE-like walk, the serving
+    # chunk step at the dense batch's rows and at a length group's, the widest beam
+    for n, k, b, lmax, is_bpe, chunk in (
+            (N_UTTS, K_TOKENS, BEAM, 1, False, False), (N_UTTS, K_TOKENS, BEAM, 3, True, False),
+            (N_UTTS, CHUNK, BEAM, 1, False, True), (GROUP_ROWS, CHUNK, BEAM, 1, False, True),
+            (WIDE_ROWS, K_TOKENS, WIDE_BEAM, 1, False, False), (WIDE_ROWS, CHUNK, WIDE_BEAM, 1, False, True)):
         beam, tok, cids, pscore, prune = expand_inputs(
-            torch, dev, np.random.RandomState((300 if chunk else 200 + lmax) + (n != N_UTTS) * 1000), n, k, BEAM, lmax, chunk
+            torch, dev, np.random.RandomState((300 if chunk else 200 + lmax) + (n != N_UTTS) * 1000), n, k, b, lmax, chunk
         )
         eargs = (beam, tok, cids, pscore, prune, is_bpe)
         got = merge.expand_merge_prune(*eargs)
         torch.cuda.synchronize()
-        label = f"expand_merge_prune[{n},{k},{BEAM}] lmax={lmax} bpe={is_bpe}"
+        label = f"expand_merge_prune[{n},{k},{b}] lmax={lmax} bpe={is_bpe}"
         if chunk:
             label += " chunk planes, window off"
             check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
             check(bool((got[0][-1] == -1e30).all()), f"{label}: a dead utterance has live candidates")
             dead_in = ~((beam["logit"] > -1e29)[:, None, :] & (tok["admit"] != 0)[:, :, None])
             check(bool((got[0][dead_in] == -1e30).all()), f"{label}: a DEAD member got through")
-        err = compare(label, got, merge.expand_merge_prune_ref(*eargs), prune)
+        want = merge.expand_merge_prune_ref(*eargs)
+        err = compare(label, got, want, prune)
         ms, call = time_call(torch, lambda: merge.expand_merge_prune(*eargs))
         plain, plain_call = time_call(torch, lambda: merge.expand_merge_prune_ref(*eargs))
         ins = list(beam.values()) + list(tok.values()) + [cids, pscore, prune]
         alive = beam["logit"] > -1e29
         n_valid = int((alive[:, None, :] & (tok["admit"][:, :, None] != 0)).sum())
         # pairwise key tests + ~30 scalar ops per candidate to build it
-        ops = 3.0 * BEAM * n_valid + 30.0 * n * k * BEAM
+        ops = 3.0 * b * n_valid + 30.0 * n * k * b
         b_ms, b_by = bound_ms(nbytes(ins) + nbytes(got), ops)
         log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (call {call:.4f}), "
             f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by})")
-        rec[("expand_merge_prune", f"n={n},k={k},lmax={lmax}" + (",chunk,window off" if chunk else ""))] = dict(
+        key = f"n={n},k={k},lmax={lmax}" + ("" if b == BEAM else f",b={b}") + (",chunk,window off" if chunk else "")
+        rec[("expand_merge_prune", key)] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=[n, k, BEAM], call_ms=call, plain_call_ms=plain_call)
+            shape=[n, k, b], call_ms=call, plain_call_ms=plain_call)
+        if lmax == 1:
+            rec[("expand_merge_prune", key)]["ms_by_cluster"] = by_cluster(
+                torch, label, lambda c: merge.expand_merge_prune(*eargs, cluster=c), want, prune, ms)
+        del eargs, got, want, beam, tok, cids, pscore
+    torch.cuda.empty_cache()
     return rec
 
 
-def record_step_gathers(torch, decoder, logits, step: int, **decode_kw):
-    """The ``(table, idx)`` pairs ``gather_rows`` gets in one real decode step.
+def record_step_reads(torch, decoder, logits, step: int, **decode_kw):
+    """The arguments ``gather_rows`` and ``probe_rows`` get in one real decode step.
 
-    Decodes ``logits`` (``decode_batch`` with ``decode_kw``) with a recorder
-    in place of the wrapper inside ``device_tables``; with a 3-gram every
-    step asks for trie rows, bigram bucket rows and trigram bucket rows, in
-    that order. ``step`` counts from the start of the call's first decode
-    (the first length group's, where the call splits).
+    Decodes ``logits`` (``decode_batch`` with ``decode_kw``) with recorders
+    in place of the two wrappers inside ``device_tables``: every step fetches
+    its beams' trie rows (one ``gather_rows`` call with a slot) and probes
+    every n-gram order >= 2 (one ``probe_rows`` call). ``step`` counts from
+    the start of the call's first decode (the first length group's, where
+    the call splits). Returns ``{"gather": args, "probe": args}``.
     """
     from pyctcdecode_torch.models import device_tables
-    from pyctcdecode_torch.ops.gather import gather_rows
+    from pyctcdecode_torch.ops.gather import gather_rows, probe_rows
 
-    calls = []
+    calls = {"gather": [], "probe": []}
 
-    def recorder(table, idx):
-        calls.append((table, idx.clone()))
-        return gather_rows(table, idx)
+    def keep(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) and a.dim() and a.dtype == torch.int64 else a
+                     for a in args)
 
-    device_tables.gather_rows = recorder
+    def gather_recorder(*args):
+        calls["gather"].append(keep(args))
+        return gather_rows(*args)
+
+    def probe_recorder(*args):
+        calls["probe"].append(keep(args))
+        return probe_rows(*args)
+
+    device_tables.gather_rows, device_tables.probe_rows = gather_recorder, probe_recorder
     try:
         decoder.decode_batch(logits, beam_width=BEAM, **decode_kw)
     finally:
-        device_tables.gather_rows = gather_rows
+        device_tables.gather_rows, device_tables.probe_rows = gather_rows, probe_rows
     torch.cuda.synchronize()
-    per_step = decoder.language_model.order
-    check(len(calls) >= per_step * (step + 1), "fewer gathers than steps were recorded")
-    return calls[per_step * step : per_step * (step + 1)]
+    check(min(len(calls["gather"]), len(calls["probe"])) > step, "fewer row reads than steps were recorded")
+    return {"gather": calls["gather"][step], "probe": calls["probe"][step]}
+
+
+def make_flush(torch, dev):
+    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device=dev)
+    return lambda: scratch.fill_(1)
 
 
 def gather_phases(torch, gather, step_calls: dict) -> dict:
-    """``gather_rows`` vs ``table[idx]`` (bit-exact) and ``torch.index_select``; times; bounds."""
+    """``gather_rows`` vs its plain version (bit-exact) and ``torch.index_select``; times; bounds."""
     dev = torch.device("cuda")
     rec = {}
+    flush = make_flush(torch, dev)
 
-    scratch = torch.empty(L2_FLUSH_BYTES, dtype=torch.int8, device=dev)
-
-    def flush():
-        scratch.fill_(1)
-
-    def one(label, table, idx, timed=True, cold=False):
-        got = gather.gather_rows(table, idx)
+    def one(label, table, idx, slot=None, stride=None, width=None, timed=True, cold=False):
+        sel = (slot, stride, width)
+        got = gather.gather_rows(table, idx, *sel)
         torch.cuda.synchronize()
-        check(got.dtype == torch.int32 and tuple(got.shape) == (*idx.shape, table.shape[1]),
+        out_width = table.shape[1] if width is None else width
+        check(got.dtype == torch.int32 and tuple(got.shape) == (*idx.shape, out_width),
               f"gather_rows {label}: bad output shape or dtype")
-        want = gather.gather_rows_ref(table, idx)
+        want = gather.gather_rows_ref(table, idx, *sel)
         err = float((got.long() - want.long()).abs().max())
-        check(torch.equal(got, want), f"gather_rows {label}: differs from table[idx] by up to {err}")
+        check(torch.equal(got, want), f"gather_rows {label}: differs from the plain version by up to {err}")
         if not timed:
-            log(f"gather_rows {label}: equal to table[idx]")
+            log(f"gather_rows {label}: equal to the plain version")
             return
-        flat = idx.reshape(-1)
-        check(torch.equal(got.reshape(-1, table.shape[1]), torch.index_select(table, 0, flat)),
+        # the library call: one index_select of whole rows, or of whole slots
+        # of the table seen as [rows * slots per row, stride]
+        if slot is None:
+            lib_table, flat = table, idx.reshape(-1)
+        else:
+            lib_table = table.view(-1, stride)
+            flat = (idx * (table.shape[1] // stride) + slot).reshape(-1)
+        check(torch.equal(got.reshape(-1, out_width), torch.index_select(lib_table, 0, flat)[:, :out_width]),
               f"gather_rows {label}: differs from index_select")
-        ms, call = time_call(torch, lambda: gather.gather_rows(table, idx))
-        plain, plain_call = time_call(torch, lambda: gather.gather_rows_ref(table, idx))
-        lib, lib_call = time_call(torch, lambda: torch.index_select(table, 0, flat))
-        # each distinct row read once, each output row and each index once
-        row_bytes = table.shape[1] * table.element_size()
-        moved = (int(flat.unique().numel()) + flat.numel()) * row_bytes + flat.numel() * idx.element_size()
+        ms, call = time_call(torch, lambda: gather.gather_rows(table, idx, *sel))
+        plain, plain_call = time_call(torch, lambda: gather.gather_rows_ref(table, idx, *sel))
+        lib, lib_call = time_call(torch, lambda: torch.index_select(lib_table, 0, flat))
+        # each distinct row (or slot) read once, each output row and each index once
+        out_bytes = out_width * table.element_size()
+        index_bytes = flat.numel() * idx.element_size() * (1 if slot is None else 2)
+        distinct = int(flat.unique().numel())
+        moved = (distinct + flat.numel()) * out_bytes + index_bytes
         b_ms, b_by = bound_ms(moved, 0.0)
         log(f"gather_rows {label}: table {list(table.shape)}, idx {list(idx.shape)} "
-            f"({int(flat.unique().numel())} distinct): exact; kernel {ms:.4f} ms (call {call:.4f}), "
-            f"plain {plain:.4f} ms (call {plain_call:.4f}), index_select {lib:.4f} ms "
+            f"({distinct} distinct), {out_bytes} bytes out per query: exact; kernel {ms:.4f} ms "
+            f"(call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), index_select {lib:.4f} ms "
             f"(call {lib_call:.4f}), bound {b_ms:.5f} ms ({b_by})")
         rec[label] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                          max_abs_err=err, shape=[list(table.shape), list(idx.shape)],
+                          max_abs_err=err, shape=[list(table.shape), list(idx.shape), out_width],
                           call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call)
         if cold:
             # the same calls with the L2 cache flushed before each: the bound is
             # a device-memory bound, and repeated calls on one index set would
             # otherwise find their rows in the cache
-            c_ms, _ = time_call(torch, lambda: gather.gather_rows(table, idx), flush=flush)
-            c_plain, _ = time_call(torch, lambda: gather.gather_rows_ref(table, idx), flush=flush)
-            c_lib, _ = time_call(torch, lambda: torch.index_select(table, 0, flat), flush=flush)
+            c_ms, _ = time_call(torch, lambda: gather.gather_rows(table, idx, *sel), flush=flush)
+            c_plain, _ = time_call(torch, lambda: gather.gather_rows_ref(table, idx, *sel), flush=flush)
+            c_lib, _ = time_call(torch, lambda: torch.index_select(lib_table, 0, flat), flush=flush)
             log(f"gather_rows {label}, L2 flushed before each call: kernel {c_ms:.4f} ms, "
                 f"plain {c_plain:.4f} ms, index_select {c_lib:.4f} ms")
             rec[label].update(cold_ms=c_ms, cold_plain_ms=c_plain, cold_library_ms=c_lib)
@@ -425,12 +481,94 @@ def gather_phases(torch, gather, step_calls: dict) -> dict:
     one("one query", tab, idx[:1], timed=False)
     one("ragged count", tab, idx[:1001], timed=False)
     one("2-D idx", tab, idx[: 7 * 33].reshape(7, 33).contiguous(), timed=False)
+    # slots of the probe's table: whole 16-byte vectors (4 slots of 16 words), and a ragged cut
+    one("slot select, 16 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 16, timed=False)
+    one("slot select, 13 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 13, timed=False)
+    one("width cut, 5 of 64 words", tab, idx[:1001], None, 64, 5, timed=False)
     del tab, wide
     for path, (rows, calls) in step_calls.items():
-        for what, (table, step_idx) in zip(("trie rows", "bigram bucket rows", "trigram bucket rows"), calls):
-            label = f"{path} step: {what}"
-            check(tuple(step_idx.shape) == (rows, BEAM), f"gather_rows {label}: idx is not [{rows}, {BEAM}]")
-            one(label, table, step_idx, cold=True)
+        table, step_idx, slot, stride, width = calls["gather"]
+        label = f"{path} step: trie rows"
+        check(tuple(step_idx.shape) == (rows, BEAM), f"gather_rows {label}: idx is not [{rows}, {BEAM}]")
+        check(slot is not None and width < table.shape[1], f"gather_rows {label}: the trie fetch selects no slot")
+        one(label, table, step_idx, slot, stride, width, cold=True)
+    return rec
+
+
+def seeded_probe_queries(torch, dev, ngrams, rows: int):
+    """``(full, ctx_len)`` for ``[rows, BEAM]`` queries with hits at every order.
+
+    Of every ``orders + 2`` queries, one ends in a present n-gram of each
+    order >= 2 (under a -1 pad where the key is shorter than the id plane),
+    one is random with a random context length, one random with a full one.
+    """
+    rng = np.random.RandomState(5)
+    order = len(ngrams)
+    q = rows * BEAM
+    full = rng.randint(0, len(ngrams[0]), size=(q, order)).astype(np.int64)
+    ctx_len = np.full(q, order - 1, dtype=np.int64)
+    period = order + 1
+    for n in range(2, order + 1):
+        present = np.array(list(itertools.islice(ngrams[n - 1], 5000)), dtype=np.int64)
+        at = np.arange(n - 2, q, period)
+        full[at, order - n:] = present[rng.randint(0, len(present), size=len(at))]
+        full[at, : order - n] = -1
+        ctx_len[at] = n - 1
+    at = np.arange(order - 1, q, period)
+    ctx_len[at] = rng.randint(0, order, size=len(at))
+    return (torch.as_tensor(full.reshape(rows, BEAM, order)).to(dev),
+            torch.as_tensor(ctx_len.reshape(rows, BEAM)).to(dev))
+
+
+def probe_phases(torch, gather, step_calls: dict, ngrams) -> dict:
+    """``probe_rows`` vs its plain version, bit-exact; times; bounds.
+
+    On the queries of a real step of each path, and on seeded queries that
+    hit every order's table (``ngrams``: the LM's host tables, one dict of
+    id tuples per order). No single PyTorch call computes the probe, so
+    there is no library time.
+    """
+    dev = torch.device("cuda")
+    rec = {}
+    flush = make_flush(torch, dev)
+    cases = {path: (rows, calls["probe"]) for path, (rows, calls) in step_calls.items()}
+    tables, slots, sub_width = step_calls["dense"][1]["probe"][2:]
+    cases["seeded"] = (N_UTTS, (*seeded_probe_queries(torch, dev, ngrams, N_UTTS), tables, slots, sub_width))
+    for path, (rows, (full, ctx_len, tables, slots, sub_width)) in cases.items():
+        label = f"probe_rows {path} step"
+        orders = len(tables)
+        check(tuple(full.shape) == (rows, BEAM, orders + 1), f"{label}: ids are not [{rows}, {BEAM}, {orders + 1}]")
+        got = gather.probe_rows(full, ctx_len, tables, slots, sub_width)
+        torch.cuda.synchronize()
+        want = gather.probe_rows_ref(full, ctx_len, tables, slots, sub_width)
+        for name, g, w in zip(("found", "prob", "backoff"), got, want):
+            check(g.dtype == w.dtype and tuple(g.shape) == (orders, rows, BEAM), f"{label}: bad {name} plane")
+            check(torch.equal(g, w), f"{label}: {name} differs from the plain version")
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        hits = [int(f.sum()) for f in got[0]]
+        check(path != "seeded" or min(hits) > 0, f"{label}: an order's table was never hit")
+        ms, call = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width))
+        plain, plain_call = time_call(torch, lambda: gather.probe_rows_ref(full, ctx_len, tables, slots, sub_width))
+        c_ms, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width), flush=flush)
+        c_plain, _ = time_call(torch, lambda: gather.probe_rows_ref(full, ctx_len, tables, slots, sub_width),
+                               flush=flush)
+        # ids and context lengths read once, each distinct bucket row read once
+        # per order, (found, prob, backoff) written once per query and order
+        moved = nbytes([full, ctx_len]) + nbytes(got)
+        distinct = []
+        for t, tab in enumerate(tables):
+            h = gather.query_hashes(tab, full[..., orders - 1 - t:])[0] % tab["size"]
+            distinct.append(int(h.unique().numel()))
+            moved += distinct[-1] * tab["bucket"].shape[1] * tab["bucket"].element_size()
+        q = ctx_len.numel()
+        b_ms, b_by = bound_ms(moved, 3.0 * 3 * sum(range(2, orders + 2)) * q + 40.0 * orders * q)
+        log(f"{label}: ids {list(full.shape)}, {orders} tables, distinct bucket rows {distinct}, hits {hits}: "
+            f"exact; kernel {ms:.4f} ms (call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
+            f"L2 flushed: kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+        rec[path] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         shape=[list(full.shape), [list(tab["bucket"].shape) for tab in tables]],
+                         call_ms=call, plain_call_ms=plain_call, cold_ms=c_ms, cold_plain_ms=c_plain,
+                         hits=hits, distinct_rows=distinct)
     return rec
 
 
@@ -488,7 +626,8 @@ def device_profile(torch, run, steps: int, latency_s: float) -> dict:
     launches = sum(r[2] for r in rows)
     own = {}  # the package's own kernels on this decode's data: (device ms, launches)
     for kernel in OWN_KERNELS:
-        hit = [r for r in rows if f"::{kernel}(" in r[0] or r[0].startswith(f"{kernel}(")]
+        hit = [r for r in rows
+               if any(f"{lead}{kernel}{tail}" in f" {r[0]}" for lead in ("::", " ") for tail in ("(", "<"))]
         own[kernel] = (sum(r[1] for r in hit) / 1e3, sum(r[2] for r in hit))
     return {"device_busy_s": busy_s, "idle_share": 1.0 - busy_s / latency_s,
             "device_ops_per_step": launches / steps, "top": rows[:15], "own": own}
@@ -510,7 +649,7 @@ def log_profile(tag: str, prof, latency: float, card: str) -> None:
 
 def counters(merge, gather) -> dict:
     return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
-            "gather_rows": gather.gather_rows}
+            "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -525,17 +664,19 @@ def read_counts(wrappers: dict) -> dict:
 def expected_counts(lm, steps: int, finalizes: int) -> dict:
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
-    Every step launches ``expand_merge_prune`` once and ``gather_rows`` once
-    for the beams' trie rows and once per n-gram order >= 2 (the bucket
-    probes of ``lm_score_words``). A finalization launches ``merge_prune``
-    once and probes every order >= 2 for the last word and, when the LM
-    scores the sentence boundary, again for ``</s>``.
+    Every step launches ``expand_merge_prune`` once, ``gather_rows`` once
+    (the beams' trie rows) and ``probe_rows`` once (every n-gram order >= 2
+    of the step's ``lm_score_words`` call). A finalization launches
+    ``merge_prune`` once and scores the last word and, when the LM scores
+    the sentence boundary, ``</s>``: one ``probe_rows`` launch each. A
+    unigram LM probes no table.
     """
-    probes = lm.order - 1
+    probes = 1 if lm.order > 1 else 0
     return {
         "expand_merge_prune": steps,
         "merge_prune": finalizes,
-        "gather_rows": steps * (1 + probes) + finalizes * probes * (2 if lm.score_boundary else 1),
+        "gather_rows": steps,
+        "probe_rows": (steps + finalizes * (2 if lm.score_boundary else 1)) * probes,
     }
 
 
@@ -650,14 +791,15 @@ def main() -> int:
     t0 = time.perf_counter()
     blank_id = LIBRI_LABELS.index("")
     head = [m[:61] for m in logits]
-    step_calls = {"dense": (N_UTTS, record_step_gathers(torch, decoder, head, step=60))}
+    step_calls = {"dense": (N_UTTS, record_step_reads(torch, decoder, head, step=60))}
     head_plan = serving_plan(decoder, head, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     check(head_plan["groups"][0] == GROUP_ROWS, f"the first length group has not {GROUP_ROWS} rows")
-    step_calls["serving"] = (GROUP_ROWS, record_step_gathers(
+    step_calls["serving"] = (GROUP_ROWS, record_step_reads(
         torch, decoder, head, step=head_plan["group_steps"][0] // 2, **SERVING))
     log(f"[main] warm-up decodes of 61 frames (dense, and serving: groups with {head_plan['group_steps']} "
-        f"virtual steps), recording one step's gathers of each, in {time.perf_counter() - t0:.2f} s")
+        f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
     gather_rec = gather_phases(torch, gather, step_calls)
+    probe_rec = probe_phases(torch, gather, step_calls, lm.ngram_model.tables.ngrams)
     del step_calls
 
     # ---- dense path
@@ -805,9 +947,11 @@ def main() -> int:
          reference_site("ops/pallas_merge.py", 393)),
         ("gather_rows", "gather.cu", gather_rec["dense step: trie rows"], gather_rec["serving step: trie rows"],
          reference_site("pallas_gather_probe.py", 65)),
+        ("probe_rows", "gather.cu", probe_rec["dense"], probe_rec["serving"],
+         reference_site("pallas_gather_probe.py", 65)),
     ):
         errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname] or \
-            [v["max_abs_err"] for v in gather_rec.values()]
+            [v["max_abs_err"] for v in (probe_rec if kname == "probe_rows" else gather_rec).values()]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
         kernels.append({
             "name": kname, "route": "cuda", "source": f"pyctcdecode_torch/csrc/{src_file}",
@@ -820,7 +964,7 @@ def main() -> int:
     record = {
         "kernels": kernels,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
-        "gather_phases": gather_rec,
+        "gather_phases": gather_rec, "probe_phases": probe_rec,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,
                  "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
                  "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb,

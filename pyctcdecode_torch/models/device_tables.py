@@ -35,8 +35,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.gather import gather_rows
-from ..ops.hashing import M32, fnv1a, fnv1a_seeded, fnv1a_seeded_t, fnv1a_t
+from ..ops.gather import bucket_readout, gather_rows, probe_rows, query_hashes
+from ..ops.hashing import fnv1a, fnv1a_seeded
 from ..ops.tokens import TokenArrays
 from .language_model import LanguageModel
 from .ngram import BOS_WORD, EOS_WORD, NGramModel, NGramTables
@@ -784,61 +784,31 @@ def _probe_uni(uni_dev: torch.Tensor, wid: torch.Tensor) -> Tuple[torch.Tensor, 
     return exists, prob, backoff
 
 
-def _query_hashes(tab: Dict, query: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Base hash + clamped fingerprint lanes for queries ``[..., n]``."""
-    h = fnv1a_t(query)
-    lo = fnv1a_seeded_t(query, tab["seed_lo"]).clamp(max=0xFFFFFFFE)
-    hi = fnv1a_seeded_t(query, tab["seed_hi"]).clamp(max=0xFFFFFFFE)
-    return h, lo, hi
-
-
 def probe_fp(tab_dev: Dict, query: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Probe one order's table: a single bucket-row read per query.
 
     ``tab_dev``: {"bucket": i32 [size, _BUCKET_WIDTH], "seed_lo"/"seed_hi"/
     "size": ints}. ``query``: integer ``[..., n]``; ``valid``: bool
-    ``[...]``. Returns ``(found, prob, backoff)``.
+    ``[...]``. Returns ``(found, prob, backoff)``. The plain per-order form
+    of the probe: :func:`lm_score_words` probes all its orders at once
+    through :func:`~pyctcdecode_torch.ops.gather.probe_rows`.
     """
-    h, lo, hi = _query_hashes(tab_dev, query)
+    h, lo, hi = query_hashes(tab_dev, query)
     rows = gather_rows(tab_dev["bucket"], (h % tab_dev["size"]).contiguous())  # [..., _BUCKET_WIDTH]
-    return _bucket_readout(rows, lo, hi, valid)
-
-
-def _bucket_readout(rows, lo, hi, valid) -> Tuple[torch.Tensor, ...]:
-    """(found, prob, backoff) from bucket rows ``[..., _BUCKET_WIDTH]``.
-
-    Residents of a bucket have pairwise-distinct 64-bit fingerprints, so
-    each masked sum touches at most one slot of at most one sub-block.
-    """
-    s = _BUCKET_SLOTS
-    found = prob = backoff = None
-    for sub in range(rows.shape[-1] // _SUB_WIDTH):
-        blk = rows[..., sub * _SUB_WIDTH : (sub + 1) * _SUB_WIDTH]
-        rl = blk[..., :s].to(torch.int64) & M32
-        rh = blk[..., s : 2 * s].to(torch.int64) & M32
-        eq = (rl == lo[..., None]) & (rh == hi[..., None]) & valid[..., None]
-        f = eq.any(dim=-1)
-        pb = blk[..., 2 * s : 3 * s].view(torch.float32)
-        bb = blk[..., 3 * s :].view(torch.float32)
-        p = torch.where(eq, pb, 0.0).sum(dim=-1)
-        b = torch.where(eq, bb, 0.0).sum(dim=-1)
-        found = f if found is None else (found | f)
-        prob = p if prob is None else (prob + p)
-        backoff = b if backoff is None else (backoff + b)
-    return found, prob, backoff
+    return bucket_readout(rows, lo, hi, valid, _BUCKET_SLOTS, _SUB_WIDTH)
 
 
 def trie_fetch_rows(trie_rows: torch.Tensor, tp: Dict[str, int], nodes: torch.Tensor) -> torch.Tensor:
     """Per-node trie entries ``[..., width]`` from the multi-node-packed plane.
 
-    One plane-row read of ``nodes // pack``, then slot ``nodes % pack`` of
-    ``stride`` words, cut to the node's ``width`` words.
+    Slot ``nodes % pack`` of plane row ``nodes // pack``: ``stride`` words a
+    slot, of which the node's own ``width`` words are read.
     """
     pack, stride, w = tp["pack"], tp["stride"], tp["width"]
     nodes = nodes.to(torch.int64)
-    packed = gather_rows(trie_rows, (nodes // pack).contiguous()).reshape(*nodes.shape, pack, stride)
-    sub = (nodes % pack)[..., None, None].expand(*nodes.shape, 1, stride)
-    return packed.gather(-2, sub).squeeze(-2)[..., :w]
+    if pack == 1:
+        return gather_rows(trie_rows, nodes.contiguous(), None, stride, w)
+    return gather_rows(trie_rows, (nodes // pack).contiguous(), nodes % pack, stride, w)
 
 
 def lm_score_words(
@@ -877,12 +847,10 @@ def lm_score_words(
 
     full = torch.cat([ctx.to(torch.int64), wid[..., None]], dim=-1)  # [..., order]
     k = ctx_len
-    found, prob, backoff = [f1], [p1], [b1]
-    for n in range(2, order + 1):
-        f, p, b = probe_fp(dev["fp"][n - 2], full[..., order - n :], (k + 1) >= n)
-        found.append(f)
-        prob.append(p)
-        backoff.append(b)
+    fps, pps, bps = probe_rows(  # every order >= 2 at once, valid where k + 1 >= n
+        full, k.to(torch.int64).contiguous(), dev["fp"], _BUCKET_SLOTS, _SUB_WIDTH
+    )
+    found, prob, backoff = [f1, *fps.unbind(0)], [p1, *pps.unbind(0)], [b1, *bps.unbind(0)]
     ctx_bo = [ctx_backoffs[..., ctx_width - j] for j in range(1, order)]
 
     # longest match over full suffixes

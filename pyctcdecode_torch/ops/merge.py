@@ -22,12 +22,16 @@ What bounds it on the H100: at the decode shapes (N utterances, K = 29
 tokens, B = 100 beams) the inputs are a few MB, so the card's bytes bound is
 about a microsecond; the pairwise work, K * B * B compare/max/exp-sum
 terms per utterance, is a few tens of millions of scalar operations, also
-about a microsecond at the card's float32 rate. Neither is what limits the
-simple design: one block per utterance walks the K columns in turn, so only
-N of 132 SMs work and each thread does 2 * B serial shared-memory scans per
-column. The design keeps everything on chip (candidates and the collision
-matrix never touch global memory) and is written for correctness first;
-more blocks per utterance and warp-level compares are later work.
+about a microsecond at the card's float32 rate. What a launch really pays
+for is how little of the card it fills and how long one column's collision
+scan runs. The design (``csrc/merge.cu``) makes one (utterance, column) the
+work unit: the blocks of an utterance form a thread-block cluster of 1, 2,
+4 or 8 (picked from K), each block merges several columns at once, one
+group of warps per column, and the utterance-wide max behind the window
+prune crosses the cluster through distributed shared memory. The scan
+compares one 64-bit key word per candidate into hit bitmasks and sums only
+over set bits, in ascending order; scores wait for the max on chip, so
+every output is written once. Tensor cores have no work here (no product).
 
 Dtype contract (the port's lane convention): hash lanes are ``int64``
 tensors holding uint32 values, flags and ids ``int32``, scores
@@ -36,13 +40,14 @@ tensors holding uint32 values, flags and ids ``int32``, scores
 On CPU tensors each wrapper runs its plain PyTorch version
 (:func:`merge_prune_ref`, :func:`expand_merge_prune_ref`); on CUDA tensors
 it launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches.
+launches. ``cluster`` forces the blocks per utterance (1, 2, 4 or 8) for
+measurements; the default 0 picks it from K.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -50,7 +55,8 @@ from .hashing import hash_extend_char_t, mix4_t
 
 DEAD = -1.0e30
 DEAD_THRESH = -1.0e29
-MAX_BEAM = 1024  # one thread per beam in one block
+MAX_BEAM = 1024  # one thread per beam of a column
+CLUSTER_SIZES = (0, 1, 2, 4, 8)  # 0: picked from K
 
 X_BEAM = ("text_lo", "text_hi", "cm_text_lo", "cm_text_hi", "p_lo", "p_hi",
           "force", "fused", "wfused", "logit", "last_tok")  # [N, B] planes
@@ -71,13 +77,14 @@ def _plane_dtype(name: str) -> torch.dtype:
     return torch.int32
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int],
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Optional[Sequence[int]],
            device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device`` (of ``shape``, if given)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -104,14 +111,30 @@ def _library() -> ctypes.CDLL:
 
     lib = load("merge.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.merge_prune_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
+    lib.merge_prune_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
     lib.merge_prune_launch.restype = ci
-    lib.expand_merge_prune_launch.argtypes = [vp] * 25 + [ci] * 5 + [vp]
+    lib.expand_merge_prune_launch.argtypes = [vp] * 25 + [ci] * 6 + [vp]
     lib.expand_merge_prune_launch.restype = ci
     return lib
 
 
-def _raise_on(err: int, what: str) -> None:
+def _check_cluster(cluster: int) -> None:
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster: expected one of {CLUSTER_SIZES}, got {cluster}")
+
+
+def _launch(what: str, dev: torch.device, launch_fn, *args) -> None:
+    """Call ``launch_fn(*args, stream)`` on ``dev``'s current stream; raise on its error.
+
+    The device guard is entered only when ``dev`` is not the current device:
+    it costs more host time than the launch itself, and the decode step is
+    bound by host time.
+    """
+    if torch.cuda.current_device() == dev.index:
+        err = launch_fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    else:
+        with torch.cuda.device(dev):
+            err = launch_fn(*args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {err})")
 
@@ -183,7 +206,7 @@ def expand_merge_prune_ref(beam: Dict[str, torch.Tensor], tok: Dict[str, torch.T
 # wrappers
 # --------------------------------------------------------------------------
 def merge_prune(kl: torch.Tensor, kh: torch.Tensor, valid: torch.Tensor, logit: torch.Tensor,
-                extra: torch.Tensor, prune: torch.Tensor) -> Outputs:
+                extra: torch.Tensor, prune: torch.Tensor, cluster: int = 0) -> Outputs:
     """Merge + window prune of pre-keyed candidates ``[N, K, B]``.
 
     ``kl``/``kh`` int64 lanes, ``valid`` int32, ``logit``/``extra`` f32,
@@ -202,6 +225,7 @@ def merge_prune(kl: torch.Tensor, kh: torch.Tensor, valid: torch.Tensor, logit: 
     _check("prune", prune, torch.float32, (n,), dev)
     if b > MAX_BEAM:
         raise ValueError(f"merge_prune: beam width {b} exceeds {MAX_BEAM}")
+    _check_cluster(cluster)
     if dev.type == "cpu":
         return merge_prune_ref(kl, kh, valid, logit, extra, prune)
     _launch_device(dev)
@@ -210,14 +234,11 @@ def merge_prune(kl: torch.Tensor, kh: torch.Tensor, valid: torch.Tensor, logit: 
     src = torch.empty(shape, dtype=torch.int32, device=dev)
     if n == 0 or k == 0 or b == 0:
         return score, merged, src
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.merge_prune_launch(
-            *(_ptr(t) for t in (kl, kh, valid, logit, extra, prune, score, merged, src)),
-            n, k, b, ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "merge_prune")
+    _launch(
+        "merge_prune", dev, _library().merge_prune_launch,
+        *(_ptr(t) for t in (kl, kh, valid, logit, extra, prune, score, merged, src)),
+        n, k, b, cluster,
+    )
     merge_prune.launches += 1
     return score, merged, src
 
@@ -227,7 +248,7 @@ merge_prune.launches = 0
 
 def expand_merge_prune(beam: Dict[str, torch.Tensor], tok: Dict[str, torch.Tensor],
                        cids: torch.Tensor, pscore: torch.Tensor, prune: torch.Tensor,
-                       is_bpe: bool) -> Outputs:
+                       is_bpe: bool, cluster: int = 0) -> Outputs:
     """Candidate expansion + merge + window prune for ``N`` utterances.
 
     ``beam``: the ``X_BEAM`` parent planes ``[N, B]``; ``tok``: the
@@ -249,6 +270,7 @@ def expand_merge_prune(beam: Dict[str, torch.Tensor], tok: Dict[str, torch.Tenso
     _check("prune", prune, torch.float32, (n,), dev)
     if b > MAX_BEAM:
         raise ValueError(f"expand_merge_prune: beam width {b} exceeds {MAX_BEAM}")
+    _check_cluster(cluster)
     if dev.type == "cpu":
         return expand_merge_prune_ref(beam, tok, cids, pscore, prune, is_bpe)
     _launch_device(dev)
@@ -257,16 +279,12 @@ def expand_merge_prune(beam: Dict[str, torch.Tensor], tok: Dict[str, torch.Tenso
     src = torch.empty((n, k, b), dtype=torch.int32, device=dev)
     if n == 0 or k == 0 or b == 0:
         return score, merged, src
-    lib = _library()
     args = [beam[name] for name in X_BEAM] + [tok[name] for name in X_TOK]
     args += [cids, pscore, prune, score, merged, src]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.expand_merge_prune_launch(
-            *(_ptr(t) for t in args), n, k, b, lmax, int(bool(is_bpe)),
-            ctypes.c_void_p(stream),
-        )
-    _raise_on(err, "expand_merge_prune")
+    _launch(
+        "expand_merge_prune", dev, _library().expand_merge_prune_launch,
+        *(_ptr(t) for t in args), n, k, b, lmax, int(bool(is_bpe)), cluster,
+    )
     expand_merge_prune.launches += 1
     return score, merged, src
 

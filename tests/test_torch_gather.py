@@ -5,7 +5,9 @@ is defined inside ``main()`` of ``scripts/pallas_gather_probe.py`` and needs
 TPU memory spaces. That script checks its kernel against the XLA gather
 ``tab[idx]``; so does this file, and against numpy ``tab[idx]`` and the JAX
 package's ``trie_fetch_rows`` / ``probe_fp_jnp`` on the same tables and
-indices. Everything is integer data: results must be bit-equal.
+indices, with and without the slot select (a node's own words out of a row
+that packs several nodes). Everything is integer data: results must be
+bit-equal.
 
 Here, without a GPU, the wrapper runs its plain version; the CUDA kernel is
 held against the same plain version on the card
@@ -82,10 +84,12 @@ def test_probes_take_their_rows_through_gather_rows(tables, monkeypatch):  # noq
     jdlm, tdlm, present = tables
     calls = []
 
-    def counted(table, idx):
+    def counted(table, idx, slot=None, stride=None, width=None):
         assert int(idx.min()) >= 0 and int(idx.max()) < table.shape[0]
+        if slot is not None:
+            assert int(slot.min()) >= 0 and (int(slot.max()) + 1) * stride <= table.shape[1]
         calls.append((tuple(table.shape), tuple(idx.shape)))
-        return tg.gather_rows(table, idx)
+        return tg.gather_rows(table, idx, slot, stride, width)
 
     monkeypatch.setattr(tdt, "gather_rows", counted)
     tdev = tdlm.as_device("cpu")
@@ -107,6 +111,53 @@ def test_probes_take_their_rows_through_gather_rows(tables, monkeypatch):  # noq
     tdt.trie_fetch_rows(tdev["trie_rows"], tdev["trie_pack"], nodes)
     assert calls[-1] == (tuple(tdev["trie_rows"].shape), (4, 16))
     assert len(calls) == len(tdlm.fp_tables) + 1
+
+
+@pytest.mark.parametrize(
+    "rows,n_chars,lead",
+    [
+        (300, 28, (4, 25)),  # the char alphabet's geometry: 4 nodes of 16 words a row, 13 read
+        (300, 60, (7,)),  # 2 nodes a row
+        (200, 200, (3, 5)),  # a node fills its row: pack 1, the width cut alone
+        (64, 3, (2, 3, 4)),  # 8 narrow nodes a row
+    ],
+)
+def test_slot_select_matches_jax_trie_fetch_rows(rows, n_chars, lead):
+    """``gather_rows`` with a slot: a node's own words out of a multi-node row, bit-equal."""
+    tp = jdt.trie_pack_params(n_chars)
+    assert tp == tdt.trie_pack_params(n_chars)
+    pack, stride, width = tp["pack"], tp["stride"], tp["width"]
+    rng = np.random.RandomState(rows + n_chars)
+    plane = _table(rng, rows, pack * stride)
+    nodes = rng.randint(0, rows * pack, size=lead)
+    nodes.reshape(-1)[: nodes.size // 2] = nodes.reshape(-1)[0]  # beams bunch on few nodes
+    want = np.asarray(jdt.trie_fetch_rows(jnp, jnp.asarray(plane), tp, jnp.asarray(nodes.astype(np.int32))))
+    tplane, tnodes = torch.as_tensor(plane), torch.as_tensor(nodes.astype(np.int64))
+    before = tg.gather_rows.launches
+    got = tg.gather_rows(tplane, tnodes // pack, tnodes % pack, stride, width)
+    assert tg.gather_rows.launches == before
+    assert got.dtype == torch.int32 and tuple(got.shape) == (*lead, width)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tdt.trie_fetch_rows(tplane, tp, tnodes).numpy(), want)
+    if pack == 1:
+        cut = tg.gather_rows(tplane, tnodes, None, stride, width)
+        np.testing.assert_array_equal(cut.numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "slot,stride,width,error,match",
+    [
+        (torch.zeros(3, dtype=torch.int32), 4, 4, TypeError, "slot"),
+        (torch.zeros(4, dtype=torch.int64), 4, 4, ValueError, "slot"),
+        (torch.zeros(3, dtype=torch.int64), 4, 5, ValueError, "width"),
+        (torch.zeros(3, dtype=torch.int64), 16, 4, ValueError, "stride"),
+        (None, None, 0, ValueError, "width"),
+    ],
+)
+def test_slot_select_rejects_bad_geometry(slot, stride, width, error, match):
+    table = torch.zeros((8, 8), dtype=torch.int32)
+    with pytest.raises(error, match=match):
+        tg.gather_rows(table, torch.zeros(3, dtype=torch.int64), slot, stride, width)
 
 
 @pytest.mark.parametrize(

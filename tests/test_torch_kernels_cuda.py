@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import pyctcdecode_torch as P
+from pyctcdecode_torch.models import device_tables as tdt
 from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
@@ -67,6 +68,55 @@ def test_cuda_kernels_match_plain_versions():
         )
 
 
+def _on(dev, args):
+    return [a.to(dev) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,k,b,window",
+    [(3, 1, 100, False), (3, 1, 100, True), (3, 5, 100, False), (2, 29, 100, True),
+     (2, 3, 40, True), (2, 6, 37, True), (2, 2, 260, True), (2, 29, 1024, True),
+     (1, 9, 1024, False), (1, 64, 1024, True)],
+)
+def test_cuda_kernels_at_shapes_the_column_layout_makes_risky(n, k, b, window):
+    """K = 1, K below and off the cluster size, ragged and wide beams, a dead utterance.
+
+    Both kernels, at the cluster size picked from K and at every forced one
+    (1 block an utterance up to 8): all must agree with the plain version.
+    At [1, 64, 1024] with one or two blocks an utterance the score stash no
+    longer fits in shared memory and lives in the score output.
+    """
+    dev = _cuda()
+    rng = np.random.RandomState(1000 * k + b)
+    prune = np.full(n, -3.0 if window else -np.inf, dtype=np.float32)
+    kl, kh, valid, logit, extra, _ = merge_inputs(rng, n, k, b)
+    beam, tok, cids, pscore, _ = expand_inputs(rng, n, k, b, 1)
+    if n > 1:
+        valid[-1] = False
+        logit[-1] = DEAD
+        beam["logit"][-1] = DEAD
+    live = n - 1 if n > 1 else n
+    margs = _on(dev, torch_merge_args(kl, kh, valid, logit, extra, prune))
+    eargs = (
+        {key: val.to(dev) for key, val in torch_planes(beam).items()},
+        {key: val.to(dev) for key, val in torch_planes(tok).items()},
+        torch.as_tensor(cids).to(dev), torch.as_tensor(pscore).to(dev),
+        torch.as_tensor(prune).to(dev), False,
+    )
+    m_want = [w.cpu() for w in tm.merge_prune_ref(*margs)]
+    e_want = [w.cpu() for w in tm.expand_merge_prune_ref(*eargs)]
+    for cluster in (0, 1, 2, 4, 8):
+        for got, want in ((tm.merge_prune(*margs, cluster=cluster), m_want),
+                          (tm.expand_merge_prune(*eargs, cluster=cluster), e_want)):
+            torch.cuda.synchronize()
+            got = [g.cpu() for g in got]
+            assert not torch.isnan(got[0]).any()
+            assert_outputs([g[:live] for g in got], [w[:live] for w in want])
+            if n > 1:
+                assert bool((got[0][-1] == DEAD).all())
+
+
 @pytest.mark.cuda
 def test_cuda_chunk_step_with_the_window_off():
     """Per-utterance chunk token planes with empty slots, ``prune = -inf``, a dead utterance."""
@@ -112,6 +162,91 @@ def test_gather_rows_kernel_matches_plain_version(rows, width, idx_shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "rows,n_chars,lead", [(300, 28, (4, 25)), (300, 60, (7,)), (200, 200, (3, 5)), (64, 3, (2, 3, 4))]
+)
+def test_slot_select_kernel_matches_plain_version(rows, n_chars, lead):
+    """A node's own words out of a multi-node row: vector and word paths, bit-exact."""
+    dev = _cuda()
+    tp = tdt.trie_pack_params(n_chars)
+    pack, stride, width = tp["pack"], tp["stride"], tp["width"]
+    rng = np.random.RandomState(rows + n_chars)
+    plane = torch.as_tensor(
+        rng.randint(-(1 << 31), 1 << 31, (rows, pack * stride)).astype(np.int32)).to(dev)
+    nodes = rng.randint(0, rows * pack, size=lead)
+    nodes.reshape(-1)[: nodes.size // 2] = nodes.reshape(-1)[0]
+    nodes = torch.as_tensor(nodes.astype(np.int64)).to(dev)
+    before = tg.gather_rows.launches
+    got = tdt.trie_fetch_rows(plane, tp, nodes)
+    torch.cuda.synchronize()
+    assert tg.gather_rows.launches == before + 1
+    assert got.shape == (*lead, width)
+    want = tg.gather_rows_ref(plane, nodes // pack, nodes % pack, stride, width)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), tdt.trie_fetch_rows(plane.cpu(), tp, nodes.cpu()))
+    # slots of whole 16-byte vectors take the vector path
+    wide = tg.gather_rows(plane, nodes // pack, nodes % pack, stride, stride)
+    assert torch.equal(wide, tg.gather_rows_ref(plane, nodes // pack, nodes % pack, stride, stride))
+
+
+def _probe_tables(dev, rng, counts, id_range):
+    tabs, keys_by_order = [], []
+    for n, count in enumerate(counts, start=2):
+        keys = np.unique(rng.randint(0, id_range, size=(count, n)).astype(np.int32), axis=0)
+        probs = -rng.rand(len(keys)).astype(np.float32) - 0.1
+        backoffs = -rng.rand(len(keys)).astype(np.float32)
+        tab = tdt.build_fp_table(keys, probs, backoffs)
+        tabs.append({"bucket": torch.as_tensor(np.ascontiguousarray(tab.bucket)).to(torch.int32).to(dev),
+                     "size": tab.size, "seed_lo": tab.seed_lo, "seed_hi": tab.seed_hi})
+        keys_by_order.append(keys)
+    return tabs, keys_by_order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,lead", [((190, 20), (257,)), ((5000, 4000), (16, 100)), ((300, 200, 100, 50), (3, 41))])
+def test_probe_rows_kernel_matches_plain_version(counts, lead):
+    """Hits at every order (both sub-blocks), misses, every context length, -1 pads: bit-exact."""
+    dev = _cuda()
+    rng = np.random.RandomState(1)
+    tabs, keys_by_order = _probe_tables(dev, rng, counts, 1000)
+    order = len(counts) + 1
+    q = int(np.prod(lead))
+    full = rng.randint(0, 1100, size=(q, order)).astype(np.int64)
+    for t, keys in enumerate(keys_by_order):  # a share of the queries ends in a present (t + 2)-gram
+        rows = np.arange(t, q, 2 * len(counts))
+        full[rows, order - (t + 2):] = keys[rng.randint(0, len(keys), size=len(rows))]
+    ctx_len = rng.randint(0, order, size=q).astype(np.int64)
+    ctx_len[: q // 2] = order - 1
+    for row, n in zip(full, ctx_len):
+        row[: order - 1 - n] = -1
+    tfull = torch.as_tensor(full.reshape(*lead, order)).to(dev)
+    tlen = torch.as_tensor(ctx_len.reshape(lead)).to(dev)
+    before = tg.probe_rows.launches
+    got = tg.probe_rows(tfull, tlen, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+    torch.cuda.synchronize()
+    assert tg.probe_rows.launches == before + 1
+    want = tg.probe_rows_ref(tfull, tlen, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+    assert got[0].dtype == torch.bool and got[0].shape == (order - 1, *lead)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[0].any(dim=tuple(range(1, got[0].dim()))).all())  # every order has hits
+    cpu_tabs = [dict(tab, bucket=tab["bucket"].cpu()) for tab in tabs]
+    for g, w in zip(got, tg.probe_rows(tfull.cpu(), tlen.cpu(), cpu_tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_probe_rows_refuses_another_bucket_geometry():
+    dev = _cuda()
+    tabs, _ = _probe_tables(dev, np.random.RandomState(2), (50,), 100)
+    full = torch.zeros((4, 2), dtype=torch.int64, device=dev)
+    ctx_len = torch.ones(4, dtype=torch.int64, device=dev)
+    narrow = [dict(tab, bucket=tab["bucket"][:, :64].contiguous()) for tab in tabs]
+    with pytest.raises(ValueError, match="geometry"):
+        tg.probe_rows(full, ctx_len, narrow, 16, 64)
+
+
+@pytest.mark.cuda
 def test_gpu_decode_matches_cpu_decode(tmp_path):
     """The whole engine on CUDA (kernels) vs on the CPU (plain versions)."""
     _cuda()
@@ -137,15 +272,18 @@ def test_gpu_decode_matches_cpu_decode(tmp_path):
             assert g.last_lm_state == c.last_lm_state
             assert abs(g.logit_score - c.logit_score) <= 1e-4
             assert abs(g.lm_score - c.lm_score) <= 1e-4
-    # the serving call: chunks, collapse, two length groups; 3 gathers per step (3-gram)
+    # the serving call: chunks, collapse, two length groups; per step one trie fetch and
+    # one probe of both orders; per finalize one probe for the last word and one for </s>
     kw = dict(beam_width=16, prune_history=True, token_chunking=3, blank_collapse=True,
               length_bucketing=2)
     expand_before = tm.expand_merge_prune.launches
     merge_before = tm.merge_prune.launches
     gather_before = tg.gather_rows.launches
+    probe_before = tg.probe_rows.launches
     got = gpu.decode_beams_batch(batch, **kw)
     steps = tm.expand_merge_prune.launches - expand_before
     assert tm.merge_prune.launches - merge_before == 2  # one finalize per group
-    assert tg.gather_rows.launches - gather_before == 3 * steps + 2 * 4
+    assert tg.gather_rows.launches - gather_before == steps
+    assert tg.probe_rows.launches - probe_before == steps + 2 * 2
     assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)
     assert_same_batch(want, got)  # and the dense decode's results

@@ -134,6 +134,84 @@ def test_window_off_chunk_step_matches_pallas(n, k, b, seed):
     assert not np.isnan(mscore).any() and (mscore[~mvalid] == DEAD).all()
 
 
+@pytest.mark.parametrize(
+    "n,k,b,window,expand",
+    [
+        (2, 1, 100, False, False),  # the finalize: one column, one block an utterance
+        (2, 1, 100, True, True),
+        (3, 5, 100, False, True),  # a serving chunk: fewer columns than the largest cluster
+        (2, 29, 100, True, True),  # the dense step: columns not a multiple of the cluster
+        (2, 3, 40, True, True),  # a beam that is not whole warps
+        (2, 6, 37, True, False),
+        (1, 2, 260, True, True),  # a beam past 256: several hit words a thread
+        (1, 2, 260, False, False),
+    ],
+)
+def test_shapes_the_column_layout_makes_risky_match_pallas(n, k, b, window, expand):
+    """Shapes that stress the kernels' cut into clusters, warp groups and hit words.
+
+    Held here on the plain versions against the Pallas kernels; the card
+    tests hold the CUDA kernels against the plain versions at the same
+    shapes. The last utterance of a batch has no live beam.
+    """
+    rng = np.random.RandomState(1000 * k + b)
+    prune = np.full(n, -3.0 if window else -np.inf, dtype=np.float32)
+    if expand:
+        beam, tok, cids, pscore, _ = expand_inputs(rng, n, k, b, 1)
+        if n > 1:
+            beam["logit"][-1] = DEAD
+        got = tm.expand_merge_prune(
+            torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+            torch.as_tensor(pscore), torch.as_tensor(prune), False,
+        )
+
+        def one(beam_1, tok_1, cids_1, pscore_1, prune_1):
+            return pm.expand_merge_score_pallas(
+                beam_1, tok_1, list(cids_1), pscore_1, prune_1, False, interpret=True
+            )
+
+        want = jax.vmap(one, in_axes=(0, 0, 1, 0, 0))(
+            {key: jnp.asarray(val) for key, val in beam.items()},
+            {key: jnp.asarray(val) for key, val in tok.items()},
+            jnp.asarray(cids), jnp.asarray(pscore), jnp.asarray(prune),
+        )
+    else:
+        kl, kh, valid, logit, extra, _ = merge_inputs(rng, n, k, b)
+        if n > 1:
+            valid[-1] = False
+            logit[-1] = DEAD
+        got = tm.merge_prune(*torch_merge_args(kl, kh, valid, logit, extra, prune))
+        want = jax.vmap(
+            lambda a, bb, c, d, e, f: pm.merge_score_pallas(a, bb, c, d, e, f, interpret=True)
+        )(
+            jnp.asarray(kl), jnp.asarray(kh), jnp.asarray(valid.astype(np.int32)),
+            jnp.asarray(logit), jnp.asarray(extra), jnp.asarray(prune),
+        )
+    score = got[0].numpy()
+    assert not np.isnan(score).any()
+    live = n - 1 if n > 1 else n
+    assert_outputs([g[:live] for g in got], [np.asarray(w)[:live] for w in want])
+    if n > 1:
+        assert (score[-1] == DEAD).all()
+        np.testing.assert_array_equal(score[-1], np.asarray(want[0])[-1])
+
+
+def test_cluster_size_is_checked():
+    kl, kh, valid, logit, extra, prune = merge_inputs(np.random.RandomState(2), 2, 3, 8)
+    args = torch_merge_args(kl, kh, valid, logit, extra, prune)
+    for cluster in (0, 1, 2, 4, 8):  # on the CPU the plain version ignores it
+        assert torch.equal(tm.merge_prune(*args, cluster=cluster)[0], tm.merge_prune_ref(*args)[0])
+    for bad in (3, 16, -1):
+        with pytest.raises(ValueError, match="cluster"):
+            tm.merge_prune(*args, cluster=bad)
+    beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(3), 2, 4, 8, 1)
+    with pytest.raises(ValueError, match="cluster"):
+        tm.expand_merge_prune(
+            torch_planes(beam), torch_planes(tok), torch.as_tensor(cids),
+            torch.as_tensor(pscore), torch.as_tensor(prune), False, cluster=5,
+        )
+
+
 def test_cpu_wrappers_run_plain_version_and_count_nothing():
     kl, kh, valid, logit, extra, prune = merge_inputs(np.random.RandomState(2), 2, 3, 8)
     args = torch_merge_args(kl, kh, valid, logit, extra, prune)
