@@ -54,7 +54,21 @@ Phases (any failed check exits non-zero and prints no result line):
    the output copy through the decoder's pinned buffer is timed beside a
    plain ``.cpu()`` of the same tensors;
 7. profile: one more decode of each path under ``torch.profiler`` (device
-   time by kernel, device idle share).
+   time by kernel, device idle share);
+8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
+   and the same seed's 3-gram at half the bigrams and trigrams with other
+   fusion settings) and 28 hotwords (24 transcript words, 2 transcript
+   phrases, 2 strings no LM knows) at the default hotword weight, through
+   the dense call, the serving call and ``decode_beams_batches``. Per step
+   the counters must show one ``gather_rows`` and one ``probe_rows`` launch
+   per member, per finalization one ``probe_rows`` for the last word per
+   member plus one for ``</s>`` where the member scores it. Member B's
+   ``gather_rows`` and ``probe_rows`` are held bit-exact on its own tables
+   with a real step's nodes and queries, warm and with the L2 flushed; the
+   first 4 utterances, and every utterance whose top text the hotwords
+   change, decode identically on the CPU (``MultiLMState`` last states);
+   WER and the top texts the hotwords change are logged; the dense call is
+   profiled with and without the hotwords.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -97,6 +111,10 @@ REPS = 30
 PROFILE_TRIES = 4
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
+# the hot2lm path: member B's fusion settings (the JAX package's mixed-member
+# test settings) and the hotword list's make-up
+MEMBER_B = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, score_boundary=False)
+HOT_SEED, HOT_UNIGRAMS, HOT_PHRASES, HOT_UNKNOWN = 13, 24, 2, 2
 
 
 _T0 = time.perf_counter()
@@ -144,30 +162,41 @@ def time_call(torch, fn, reps: int = REPS, flush=None):
     time around single calls, which includes the launch gaps a caller pays.
     ``flush`` (a fill of a buffer larger than the L2 cache) runs before every
     profiled call, so that ``fn`` finds the cache cold; the fill kernels'
-    own rows are left out of the sum. Where the profiler keeps returning
-    empty traces, device ms is instead the CUDA-event time of ``reps`` calls
-    issued back to back, per call (launch gaps included; not available with
-    ``flush``, where it is NaN), and the log says so.
+    own rows are left out of the sum. The trace drops the first kernels it
+    sees, so the ``reps`` calls run twice, as the profiler's warm-up cycle
+    (discarded) and as its measured cycle; a measured cycle in which some
+    kernel did not run a multiple of ``reps`` times is incomplete and taken
+    again. Where the profiler keeps returning empty or incomplete traces,
+    device ms is instead the CUDA-event time of ``reps`` calls issued back
+    to back, per call (launch gaps included; not available with ``flush``,
+    where it is NaN), and the log says so.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     dev_us = 0.0
-    for attempt in range(PROFILE_TRIES):  # a trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush()
-                fn()
-            torch.cuda.synchronize()
-        dev_us = sum(_device_us(ev) for ev in prof.key_averages()
-                     if _is_device_row(ev) and not (flush is not None and FLUSH_KERNEL in ev.key))
-        if dev_us > 0:
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up cycle, then the measured one
+                for _ in range(reps):
+                    if flush is not None:
+                        flush()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [ev for ev in prof.key_averages()
+                if _is_device_row(ev) and not (flush is not None and FLUSH_KERNEL in ev.key)]
+        dev_us = sum(_device_us(ev) for ev in rows)
+        counts = sorted({int(ev.count) for ev in rows})
+        if dev_us > 0 and all(c % reps == 0 for c in counts):
             break
-        log(f"[profiler] empty trace (attempt {attempt + 1} of {PROFILE_TRIES})")
-        time.sleep(attempt + 1.0)
+        log(f"[profiler] {'empty' if dev_us <= 0 else f'incomplete (kernel counts {counts} for {reps} calls)'} "
+            f"trace (attempt {attempt + 1} of {PROFILE_TRIES})")
+        dev_us = 0.0
+        time.sleep(0.5)
     if dev_us <= 0 and flush is None:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -375,31 +404,36 @@ def kernel_phases(torch, merge) -> dict:
     return rec
 
 
-def record_step_reads(torch, decoder, logits, step: int, **decode_kw):
+def record_step_reads(torch, decoder, logits, step: int, member: int = 0, **decode_kw):
     """The arguments ``gather_rows`` and ``probe_rows`` get in one real decode step.
 
     Decodes ``logits`` (``decode_batch`` with ``decode_kw``) with recorders
     in place of the two wrappers inside ``device_tables``: every step fetches
-    its beams' trie rows (one ``gather_rows`` call with a slot) and probes
-    every n-gram order >= 2 (one ``probe_rows`` call). ``step`` counts from
-    the start of the call's first decode (the first length group's, where
-    the call splits). Returns ``{"gather": args, "probe": args}``.
+    each LM member's beams' trie rows (one ``gather_rows`` call with a slot
+    a member) and probes every n-gram order >= 2 (one ``probe_rows`` call a
+    member). Only the calls on LM member ``member``'s own tables are kept.
+    ``step`` counts from the start of the call's first decode (the first
+    length group's, where the call splits). Returns ``{"gather": args,
+    "probe": args}``.
     """
     from pyctcdecode_torch.models import device_tables
     from pyctcdecode_torch.ops.gather import gather_rows, probe_rows
 
     calls = {"gather": [], "probe": []}
+    tabs = decoder._tabs["lms"][member]
 
     def keep(args):
         return tuple(a.clone() if isinstance(a, torch.Tensor) and a.dim() and a.dtype == torch.int64 else a
                      for a in args)
 
     def gather_recorder(*args):
-        calls["gather"].append(keep(args))
+        if args[0] is tabs["trie_rows"]:
+            calls["gather"].append(keep(args))
         return gather_rows(*args)
 
     def probe_recorder(*args):
-        calls["probe"].append(keep(args))
+        if args[2] is tabs["fp"]:
+            calls["probe"].append(keep(args))
         return probe_rows(*args)
 
     device_tables.gather_rows, device_tables.probe_rows = gather_recorder, probe_recorder
@@ -417,8 +451,12 @@ def make_flush(torch, dev):
     return lambda: scratch.fill_(1)
 
 
-def gather_phases(torch, gather, step_calls: dict) -> dict:
-    """``gather_rows`` vs its plain version (bit-exact) and ``torch.index_select``; times; bounds."""
+def gather_phases(torch, gather, step_calls: dict, synthetic: bool = True) -> dict:
+    """``gather_rows`` vs its plain version (bit-exact) and ``torch.index_select``; times; bounds.
+
+    On the reference probe's synthetic shapes (``synthetic``) and on the
+    trie fetch of each recorded real step in ``step_calls``.
+    """
     dev = torch.device("cuda")
     rec = {}
     flush = make_flush(torch, dev)
@@ -472,20 +510,21 @@ def gather_phases(torch, gather, step_calls: dict) -> dict:
                 f"plain {c_plain:.4f} ms, index_select {c_lib:.4f} ms")
             rec[label].update(cold_ms=c_ms, cold_plain_ms=c_plain, cold_library_ms=c_lib)
 
-    rng = np.random.RandomState(0)  # the probe's seed, table and queries
-    tab = torch.as_tensor(rng.randint(0, 1 << 30, size=(PROBE_ROWS, PROBE_WIDTH), dtype=np.int32)).to(dev)
-    idx = torch.as_tensor(rng.randint(0, PROBE_ROWS, size=PROBE_QUERIES).astype(np.int64)).to(dev)
-    one("probe", tab, idx, cold=True)
-    wide = tab.reshape(PROBE_ROWS // 2, 2 * PROBE_WIDTH)
-    one("probe, 128-word rows", wide, idx % wide.shape[0], cold=True)
-    one("one query", tab, idx[:1], timed=False)
-    one("ragged count", tab, idx[:1001], timed=False)
-    one("2-D idx", tab, idx[: 7 * 33].reshape(7, 33).contiguous(), timed=False)
-    # slots of the probe's table: whole 16-byte vectors (4 slots of 16 words), and a ragged cut
-    one("slot select, 16 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 16, timed=False)
-    one("slot select, 13 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 13, timed=False)
-    one("width cut, 5 of 64 words", tab, idx[:1001], None, 64, 5, timed=False)
-    del tab, wide
+    if synthetic:
+        rng = np.random.RandomState(0)  # the probe's seed, table and queries
+        tab = torch.as_tensor(rng.randint(0, 1 << 30, size=(PROBE_ROWS, PROBE_WIDTH), dtype=np.int32)).to(dev)
+        idx = torch.as_tensor(rng.randint(0, PROBE_ROWS, size=PROBE_QUERIES).astype(np.int64)).to(dev)
+        one("probe", tab, idx, cold=True)
+        wide = tab.reshape(PROBE_ROWS // 2, 2 * PROBE_WIDTH)
+        one("probe, 128-word rows", wide, idx % wide.shape[0], cold=True)
+        one("one query", tab, idx[:1], timed=False)
+        one("ragged count", tab, idx[:1001], timed=False)
+        one("2-D idx", tab, idx[: 7 * 33].reshape(7, 33).contiguous(), timed=False)
+        # slots of the probe's table: whole 16-byte vectors (4 slots of 16 words), and a ragged cut
+        one("slot select, 16 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 16, timed=False)
+        one("slot select, 13 of 64 words", tab, idx[:1001], idx[:1001] % 4, 16, 13, timed=False)
+        one("width cut, 5 of 64 words", tab, idx[:1001], None, 64, 5, timed=False)
+        del tab, wide
     for path, (rows, calls) in step_calls.items():
         table, step_idx, slot, stride, width = calls["gather"]
         label = f"{path} step: trie rows"
@@ -520,20 +559,21 @@ def seeded_probe_queries(torch, dev, ngrams, rows: int):
             torch.as_tensor(ctx_len.reshape(rows, BEAM)).to(dev))
 
 
-def probe_phases(torch, gather, step_calls: dict, ngrams) -> dict:
+def probe_phases(torch, gather, step_calls: dict, ngrams=None) -> dict:
     """``probe_rows`` vs its plain version, bit-exact; times; bounds.
 
-    On the queries of a real step of each path, and on seeded queries that
-    hit every order's table (``ngrams``: the LM's host tables, one dict of
-    id tuples per order). No single PyTorch call computes the probe, so
-    there is no library time.
+    On the queries of a real step of each path, and, given ``ngrams`` (the
+    LM's host tables, one dict of id tuples per order), on seeded queries
+    that hit every order's table of the dense step's LM. No single PyTorch
+    call computes the probe, so there is no library time.
     """
     dev = torch.device("cuda")
     rec = {}
     flush = make_flush(torch, dev)
     cases = {path: (rows, calls["probe"]) for path, (rows, calls) in step_calls.items()}
-    tables, slots, sub_width = step_calls["dense"][1]["probe"][2:]
-    cases["seeded"] = (N_UTTS, (*seeded_probe_queries(torch, dev, ngrams, N_UTTS), tables, slots, sub_width))
+    if ngrams is not None:
+        tables, slots, sub_width = step_calls["dense"][1]["probe"][2:]
+        cases["seeded"] = (N_UTTS, (*seeded_probe_queries(torch, dev, ngrams, N_UTTS), tables, slots, sub_width))
     for path, (rows, (full, ctx_len, tables, slots, sub_width)) in cases.items():
         label = f"probe_rows {path} step"
         orders = len(tables)
@@ -585,25 +625,28 @@ def reference_site(rel_path: str, line: int) -> str:
     return f"{rel_path}:{line}"
 
 
-def parity_lm(build_dir: str):
+def parity_lm(build_dir: str, name: str = "parity_3gram.arpa", **sizes):
+    """The parity-scale 3-gram ``name`` under ``build_dir`` (written from seed 7 when absent), and its vocabulary."""
     from pyctcdecode_torch.evaluation import LM_VOCAB, make_parity_arpa, parity_vocab
 
-    path = os.path.join(build_dir, "parity_3gram.arpa")
+    path = os.path.join(build_dir, name)
     if os.path.exists(path):
         return path, parity_vocab(np.random.RandomState(7), LM_VOCAB)
     tmp = path + f".tmp{os.getpid()}"
-    vocab = make_parity_arpa(tmp)
+    vocab = make_parity_arpa(tmp, **sizes)
     os.replace(tmp, path)
     return path, vocab
 
 
-def device_profile(torch, run, steps: int, latency_s: float) -> dict:
+def device_profile(torch, run, steps: int, latency_s: float, launches: dict) -> dict:
     """Device time by kernel over one profiled call of ``run``.
 
     Only device rows (kernels, memsets, copies) are summed. The profiler
     slows the host a lot, so the idle share is taken against the
-    unprofiled batch latency: 1 - device busy / latency. ``None`` when
-    the profiler returns no device rows in any of its tries.
+    unprofiled batch latency: 1 - device busy / latency. A trace whose own
+    kernels' rows do not count ``launches`` (the launch counters of the
+    same call) is incomplete and taken again. ``None`` when the profiler
+    returns no complete trace in any of its tries.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -615,22 +658,25 @@ def device_profile(torch, run, steps: int, latency_s: float) -> dict:
             torch.cuda.synchronize()
         rows = [(ev.key, _device_us(ev), int(ev.count)) for ev in prof.key_averages()
                 if _is_device_row(ev) and _device_us(ev) > 0]
-        if rows:
+        own = {}  # the package's own kernels on this decode's data: (device ms, launches)
+        for kernel in OWN_KERNELS:
+            hit = [r for r in rows
+                   if any(f"{lead}{kernel}{tail}" in f" {r[0]}" for lead in ("::", " ") for tail in ("(", "<"))]
+            own[kernel] = (sum(r[1] for r in hit) / 1e3, sum(r[2] for r in hit))
+        seen = {kernel[: -len("_kernel")]: count for kernel, (_, count) in own.items()}
+        if rows and seen == launches:
             break
-        log(f"[profiler] empty trace (attempt {attempt + 1} of {PROFILE_TRIES})")
+        log(f"[profiler] {'incomplete' if rows else 'empty'} trace: own kernels' rows {seen}, launched "
+            f"{launches} (attempt {attempt + 1} of {PROFILE_TRIES})")
+        rows = []
         time.sleep(attempt + 1.0)
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) / 1e6
-    launches = sum(r[2] for r in rows)
-    own = {}  # the package's own kernels on this decode's data: (device ms, launches)
-    for kernel in OWN_KERNELS:
-        hit = [r for r in rows
-               if any(f"{lead}{kernel}{tail}" in f" {r[0]}" for lead in ("::", " ") for tail in ("(", "<"))]
-        own[kernel] = (sum(r[1] for r in hit) / 1e3, sum(r[2] for r in hit))
+    n_ops = sum(r[2] for r in rows)
     return {"device_busy_s": busy_s, "idle_share": 1.0 - busy_s / latency_s,
-            "device_ops_per_step": launches / steps, "top": rows[:15], "own": own}
+            "device_ops_per_step": n_ops / steps, "top": rows[:15], "own": own}
 
 
 def log_profile(tag: str, prof, latency: float, card: str) -> None:
@@ -661,22 +707,23 @@ def read_counts(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def expected_counts(lm, steps: int, finalizes: int) -> dict:
+def expected_counts(members, steps: int, finalizes: int) -> dict:
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
-    Every step launches ``expand_merge_prune`` once, ``gather_rows`` once
-    (the beams' trie rows) and ``probe_rows`` once (every n-gram order >= 2
-    of the step's ``lm_score_words`` call). A finalization launches
-    ``merge_prune`` once and scores the last word and, when the LM scores
-    the sentence boundary, ``</s>``: one ``probe_rows`` launch each. A
-    unigram LM probes no table.
+    ``members``: the LM members (one for a plain LM, none without an LM).
+    Every step launches ``expand_merge_prune`` once and, per member,
+    ``gather_rows`` once (the beams' trie rows) and ``probe_rows`` once
+    (every n-gram order >= 2 of the member's ``lm_score_words`` call). A
+    finalization launches ``merge_prune`` once and, per member, scores the
+    last word and, where the member scores the sentence boundary, ``</s>``:
+    one ``probe_rows`` launch each. A unigram member probes no table.
     """
-    probes = 1 if lm.order > 1 else 0
+    probing = [m for m in members if m.order > 1]
     return {
         "expand_merge_prune": steps,
         "merge_prune": finalizes,
-        "gather_rows": steps,
-        "probe_rows": (steps + finalizes * (2 if lm.score_boundary else 1)) * probes,
+        "gather_rows": steps * len(members),
+        "probe_rows": steps * len(probing) + finalizes * sum(2 if m.score_boundary else 1 for m in probing),
     }
 
 
@@ -716,7 +763,7 @@ def top_texts(beams) -> list:
 
 
 def check_same_results(tag: str, want, got, tol: float) -> float:
-    """Ranked beam lists per utterance: same texts and frames, scores within ``tol``."""
+    """Ranked beam lists per utterance: same texts, frames and LM states, scores within ``tol``."""
     check(len(want) == len(got), f"{tag}: {len(got)} results for {len(want)} utterances")
     worst = 0.0
     for i, (w, g) in enumerate(zip(want, got)):
@@ -724,10 +771,197 @@ def check_same_results(tag: str, want, got, tol: float) -> float:
         for wb, gb in zip(w, g):
             check(wb.text == gb.text, f"{tag}: utterance {i}: texts differ")
             check(wb.text_frames == gb.text_frames, f"{tag}: utterance {i}: text_frames differ")
+            check(wb.last_lm_state == gb.last_lm_state, f"{tag}: utterance {i}: last_lm_state differs")
             d = abs(wb.lm_score - gb.lm_score)
             worst = max(worst, d)
             check(d <= tol, f"{tag}: utterance {i}: lm_score differs by {d}")
     return worst
+
+
+def hotword_list(references, vocab) -> list:
+    """The ``hot2lm`` hotwords: 24 unigrams and 2 two-word phrases from the
+    reference transcripts, and 2 spellable strings no LM knows (seeded)."""
+    rng = np.random.RandomState(HOT_SEED)
+    words = sorted({w for ref in references for w in ref.split()})
+    unigrams = [str(w) for w in rng.choice(words, size=HOT_UNIGRAMS, replace=False)]
+    phrases = []
+    for i in rng.choice(len(references), size=HOT_PHRASES, replace=False):
+        ref = references[i].split()
+        j = rng.randint(0, len(ref) - 1)
+        phrases.append(" ".join(ref[j : j + 2]))
+    known = set(vocab)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz'"))
+    unknown = []
+    while len(unknown) < HOT_UNKNOWN:
+        word = "".join(rng.choice(letters, size=13))
+        if word not in known:
+            unknown.append(word)
+    return unigrams + phrases + unknown
+
+
+def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_wer: float) -> dict:
+    """The ``hot2lm`` path: two parity-scale 3-gram members and hotwords, dense and serving.
+
+    Member A is ``lm_a``, the dense path's LM at its settings; member B is the
+    parity 3-gram at half the bigrams and trigrams from the same seed (so
+    the same 200k-word vocabulary), at ``alpha=0.3, beta=2.0,
+    unk_score_offset=-6.0, score_boundary=False``. Checks: the vocabularies
+    agree; member B's ``gather_rows`` / ``probe_rows`` on a real step are
+    bit-exact against their plain versions; the launch counters equal the
+    two members' ``expected_counts`` on the dense, serving and pipelined
+    calls; serving texts equal dense texts; the first utterances, and those
+    whose top text the hotwords change, agree with a CPU decode
+    (``MultiLMState`` last states). Logged: WER beside the single-LM path's,
+    the top texts the hotwords change, dense profiles with and without the
+    hotwords.
+    """
+    from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP
+    from pyctcdecode_torch.csrc.build import BUILD_DIR
+    from pyctcdecode_torch.evaluation import LM_BIGRAMS, LM_TRIGRAMS
+    from pyctcdecode_torch.models.ngram import load_unigram_set_from_arpa, open_ngram_file
+    from pyctcdecode_torch.utils.metrics import word_error_rate
+
+    t0 = time.perf_counter()
+    arpa_b, vocab_b = parity_lm(str(BUILD_DIR), "parity_3gram_half.arpa",
+                                n_bigrams=LM_BIGRAMS // 2, n_trigrams=LM_TRIGRAMS // 2)
+    check(vocab_b == vocab, "member B's vocabulary differs from member A's")
+    lm_b = P.LanguageModel(open_ngram_file(arpa_b), load_unigram_set_from_arpa(arpa_b), **MEMBER_B)
+    check(lm_b.unigram_set == lm_a.unigram_set, "member B's unigram set differs from member A's")
+    n_bigrams = [len(m.ngram_model.tables.ngrams[1]) for m in (lm_a, lm_b)]
+    check(lm_b.order == 3 and n_bigrams[1] < n_bigrams[0], "member B is not the half-size 3-gram")
+    members = [lm_a, lm_b]
+    alphabet = P.Alphabet.build_alphabet(LIBRI_LABELS)
+    multi = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members))
+    check(multi.device.type == "cuda" and len(multi._tabs["lms"]) == 2, "the two-member decoder is not on CUDA")
+    sizes = [[tab["size"] for tab in tabs["fp"]] for tabs in multi._tabs["lms"]]
+    check(sizes[0] != sizes[1], "the two members' bucket tables have the same sizes")
+    hot = hotword_list(corpus.references, vocab)
+    hot_kw = dict(hotwords=hot, hotword_weight=DEFAULT_HOTWORD_WEIGHT)
+    logits = corpus.logits
+    t_max = max(m.shape[0] for m in logits)
+    audio_s = corpus.audio_seconds
+    setup_s = time.perf_counter() - t0
+    log(f"[hot2lm] member B {os.path.basename(arpa_b)} (bucket rows per order {sizes[1]} against A's "
+        f"{sizes[0]}), the two-member decoder in {setup_s:.1f} s; {len(hot)} hotwords: {hot}")
+
+    # member B's kernels on a real step's nodes and queries
+    head = [m[:61] for m in logits]
+    step_b = {"hot2lm member B dense": (N_UTTS, record_step_reads(
+        torch, multi, head, step=60, member=1, **hot_kw))}
+    b_gather = gather_phases(torch, gather, step_b, synthetic=False)
+    b_probe = probe_phases(torch, gather, step_b)
+    del step_b
+
+    wrappers = counters(merge, gather)
+    dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None, **hot_kw)
+    beams_kw = dict(prune_history=True, top_n=1)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = multi.decode_batch(logits, **dense_kw)
+    latencies = [time.perf_counter() - t0]
+    launches = read_counts(wrappers)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("hot2lm dense", launches, expected_counts(members, t_max, 1))
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dense_beams = multi.decode_beams_batch(logits, **dense_kw, **beams_kw)
+        latencies.append(time.perf_counter() - t0)
+        check(top_texts(dense_beams) == texts, "hot2lm: repeated dense decode gave other texts")
+    check(all(isinstance(b[0].last_lm_state, P.MultiLMState) for b in dense_beams),
+          "hot2lm: a last_lm_state is not a MultiLMState")
+    latency = statistics.median(latencies)
+    wer = word_error_rate(corpus.references, texts)
+    plain_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    plain_texts = multi.decode_batch(logits, **plain_kw)
+    plain_latency = time.perf_counter() - t0
+    plain_launches = read_counts(wrappers)
+    check_counts("hot2lm dense, no hotwords", plain_launches, expected_counts(members, t_max, 1))
+    changed_at = [i for i, (a, b) in enumerate(zip(texts, plain_texts)) if a != b]
+    changed = len(changed_at)
+    wer_plain = word_error_rate(corpus.references, plain_texts)
+    log(f"[hot2lm] dense decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, 2 members + hotwords: latency "
+        f"median {latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} "
+        f"audio-s/s, {t_max} frame steps, {latency / t_max * 1e3:.2f} ms per frame step, peak device memory "
+        f"{peak_gb:.3f} GB; WER {wer:.4f} (single LM {dense_wer:.4f}, the two members without hotwords "
+        f"{wer_plain:.4f}); the hotwords change {changed} of {N_UTTS} top texts (utterances {changed_at}); "
+        f"without hotwords one decode takes {plain_latency:.3f} s [{card}]")
+
+    blank_id = LIBRI_LABELS.index("")
+    plan = serving_plan(multi, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    serve_kw = dict(beam_width=BEAM, **SERVING, **hot_kw)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_texts = multi.decode_batch(logits, **serve_kw)
+    s_latencies = [time.perf_counter() - t0]
+    s_launches = read_counts(wrappers)
+    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("hot2lm serving", s_launches, expected_counts(members, plan["steps"], len(plan["groups"])))
+    check(s_texts == texts, "hot2lm: the serving decode's texts differ from the dense decode's")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        serve_beams = multi.decode_beams_batch(logits, **serve_kw, **beams_kw)
+        s_latencies.append(time.perf_counter() - t0)
+    d_score = check_same_results("hot2lm serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
+    s_latency = statistics.median(s_latencies)
+    log(f"[hot2lm] serving decode_batch, chunks of {CHUNK}, collapse, {len(plan['groups'])} groups: texts, "
+        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
+        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, {audio_s / s_latency:.1f} "
+        f"audio-s/s, {plan['steps']} virtual steps, {s_latency / plan['steps'] * 1e3:.2f} ms per step, peak "
+        f"device memory {s_peak_gb:.3f} GB [{card}]")
+
+    stream = [logits, logits[8:] + logits[:8], logits[::-1]]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    piped = list(multi.decode_beams_batches(stream, pipeline_depth=1, **serve_kw, **beams_kw))
+    piped_s = time.perf_counter() - t0
+    piped_launches = read_counts(wrappers)
+    plans = [plan] + [serving_plan(multi, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream[1:]]
+    check_counts("hot2lm pipelined", piped_launches, expected_counts(
+        members, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
+    check_same_results("hot2lm pipelined batch 0", serve_beams, piped[0], RERUN_TOL)
+    log(f"[hot2lm] decode_beams_batches, 3 batches at pipeline_depth 1: {piped_s:.3f} s, "
+        f"{3 * audio_s / piped_s:.1f} audio-s/s [{card}]")
+
+    t0 = time.perf_counter()
+    cpu = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members), device="cpu")
+    # the first utterances, and every one whose top text the hotwords change
+    checked = sorted(set(range(CPU_CHECK)) | set(changed_at))
+    sub = [logits[i] for i in checked]
+    kw = dict(dense_kw, batch_pad=1)
+    max_d = check_same_results("hot2lm: GPU vs CPU", cpu.decode_beams_batch(sub, **kw, **beams_kw),
+                               multi.decode_beams_batch(sub, **kw, **beams_kw), LM_SCORE_TOL)
+    log(f"[check] hot2lm dense: utterances {checked} identical on the CPU, texts, text_frames and "
+        f"MultiLMState last states (max lm_score diff {max_d:.3g}), {time.perf_counter() - t0:.1f} s")
+    del cpu
+
+    prof = device_profile(torch, lambda: multi.decode_batch(logits, **dense_kw), t_max, latency, launches)
+    log_profile("profile hot2lm dense", prof, latency, card)
+    # the same two members without hotwords: what the second member and the hotwords each add
+    plain_prof = device_profile(torch, lambda: multi.decode_batch(logits, **plain_kw), t_max, plain_latency,
+                                plain_launches)
+    log_profile("profile hot2lm dense, no hotwords", plain_prof, plain_latency, card)
+    return {
+        "members": [dict(order=m.order, alpha=m.alpha, beta=m.beta, unk_score_offset=m.unk_score_offset,
+                         score_boundary=m.score_boundary) for m in members],
+        "bucket_rows": sizes, "hotwords": hot, "hotword_weight": DEFAULT_HOTWORD_WEIGHT, "setup_s": setup_s,
+        "frame_steps": t_max, "latency_s": latency, "latencies_s": latencies,
+        "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches,
+        "wer": wer, "wer_without_hotwords": wer_plain, "texts_changed_by_hotwords": changed,
+        "serving": dict(plan, latency_s=s_latency, latencies_s=s_latencies, audio_s_per_s=audio_s / s_latency,
+                        peak_device_gb=s_peak_gb, launches=s_launches, pipelined_s=piped_s,
+                        pipelined_launches=piped_launches, max_lm_score_diff_vs_dense=d_score),
+        "texts_changed_at": changed_at, "latency_without_hotwords_s": plain_latency,
+        "cpu_checked": checked, "cpu_max_lm_score_diff": max_d, "profile": prof,
+        "profile_without_hotwords": plain_prof,
+        "gather_member_b": b_gather["hot2lm member B dense step: trie rows"],
+        "probe_member_b": b_probe["hot2lm member B dense"],
+    }
 
 
 def main() -> int:
@@ -814,7 +1048,7 @@ def main() -> int:
     latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("dense", launches, expected_counts(lm, t_max, 1))
+    check_counts("dense", launches, expected_counts([lm], t_max, 1))
     for _ in range(2):
         t0 = time.perf_counter()
         dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
@@ -850,7 +1084,7 @@ def main() -> int:
     s_latencies = [time.perf_counter() - t0]
     s_launches = read_counts(wrappers)
     s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("serving", s_launches, expected_counts(lm, plan["steps"], len(plan["groups"])))
+    check_counts("serving", s_launches, expected_counts([lm], plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "the serving decode's texts differ from the dense decode's")
     for _ in range(2):
         t0 = time.perf_counter()
@@ -874,7 +1108,7 @@ def main() -> int:
     check(len(piped) == len(stream), "decode_beams_batches: not one result per batch")
     plans = [plan] + [serving_plan(decoder, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream[1:]]
     check_counts("pipelined", piped_launches, expected_counts(
-        lm, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
+        [lm], sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
     check_same_results("pipelined batch 0", serve_beams, piped[0], RERUN_TOL)
     for i in (1, 2):
         check_same_results(f"pipelined batch {i}", decoder.decode_beams_batch(stream[i], **serve_kw, **beams_kw),
@@ -933,10 +1167,16 @@ def main() -> int:
             f"{max_d:.3g}), {time.perf_counter() - t0:.1f} s so far")
 
     # ---- where the device time goes
-    prof = device_profile(torch, lambda: decoder.decode_batch(logits, **dense_kw), t_max, latency)
+    prof = device_profile(torch, lambda: decoder.decode_batch(logits, **dense_kw), t_max, latency, launches)
     log_profile("profile dense", prof, latency, card)
-    s_prof = device_profile(torch, lambda: decoder.decode_batch(logits, **serve_kw), plan["steps"], s_latency)
+    s_prof = device_profile(torch, lambda: decoder.decode_batch(logits, **serve_kw), plan["steps"], s_latency,
+                            s_launches)
     log_profile("profile serving", s_prof, s_latency, card)
+
+    # ---- the hot2lm path: two LM members and hotwords (the single-LM
+    # decoders go first, so that the peak memory is the new decoder's own)
+    del cpu_dec, decoder, handles, staged
+    hot_rec = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
 
     kernels = []
     for kname, src_file, r, r_serving, site in (
@@ -951,7 +1191,8 @@ def main() -> int:
          reference_site("pallas_gather_probe.py", 65)),
     ):
         errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname] or \
-            [v["max_abs_err"] for v in (probe_rec if kname == "probe_rows" else gather_rec).values()]
+            [v["max_abs_err"] for v in (probe_rec if kname == "probe_rows" else gather_rec).values()] + \
+            [hot_rec["probe_member_b" if kname == "probe_rows" else "gather_member_b"]["max_abs_err"]]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
         kernels.append({
             "name": kname, "route": "cuda", "source": f"pyctcdecode_torch/csrc/{src_file}",
@@ -960,7 +1201,12 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "shape": r["shape"],
             "launches_serving": s_launches[kname],
             "serving": {key: r_serving.get(key) for key in keys},
+            "launches_hot2lm": hot_rec["launches"][kname],
+            "launches_hot2lm_serving": hot_rec["serving"]["launches"][kname],
         })
+        if kname in ("gather_rows", "probe_rows"):
+            r_b = hot_rec["gather_member_b" if kname == "gather_rows" else "probe_member_b"]
+            kernels[-1]["hot2lm_member_b"] = {key: r_b.get(key) for key in keys}
     record = {
         "kernels": kernels,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
@@ -973,7 +1219,7 @@ def main() -> int:
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, pipelined_s=piped_s, pipelined_launches=piped_launches,
                         max_lm_score_diff_vs_dense=d_score, stages=stages),
-        "profile": prof, "profile_serving": s_prof, "card": smi,
+        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "card": smi,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out:

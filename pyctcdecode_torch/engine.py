@@ -41,18 +41,35 @@ window off, ranks pool U chunk into a carried top-B candidate pool, and on
 the frame's last chunk applies the window and promotes the pool to the new
 beam set. Non-final steps emit identity backpointers with token ``-3``.
 
-The engine covers a char alphabet with at most one n-gram LM.
+Language models are a list of members: one for a plain LM, N for a
+``MultiLanguageModel``, whose fused word scores average over the members
+(ref ``language_model.py:455-502``). Each member carries its own trie node,
+context ids and backoffs per beam (state planes ``p_node{i}``, ``ctx{i}``,
+...), and each costs one trie fetch and one n-gram probe a step. Hotwords
+are a per-call packed trie walked beside the members (``h_node`` /
+``h_bits``): a committed hotword adds the hotword weight, an in-progress
+hotword prefix takes the hotword completion score as its partial score.
+
+The engine covers a char alphabet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .constants import AVG_TOKEN_LEN, LOG_BASE_CHANGE_FACTOR
-from .models.device_tables import DeviceLM, lm_score_words, trie_fetch_rows
+from .models.device_tables import (
+    HOT_MINCOMP_MAX,
+    HOT_MINCOMP_SHIFT,
+    HOT_NODE_MASK,
+    HOT_WORD_BIT,
+    DeviceLM,
+    lm_score_words,
+    trie_fetch_rows,
+)
 from .ops.hashing import M32, as_lane, hash_extend_char_t, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
 from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
@@ -71,8 +88,6 @@ class EngineConfig:
     beam_width: int
     vocab_size: int
     k_tokens: int  # tokens expanded per frame (== vocab_size: exact)
-    use_lm: bool
-    order: int  # LM order (1 when no LM); sets the history-prune window
     prune_history: bool
     # backtrace only the top-N beams (None: all B)
     emit_paths: Optional[int] = None
@@ -83,20 +98,32 @@ class EngineConfig:
     # merge group, and iterated top-B over pool U chunk equals the frame's
     # top-B).
     token_timeline: bool = False
+    use_hotwords: bool = False
+    orders: Tuple[int, ...] = ()  # per-LM-member n-gram orders (empty when no LM)
+
+    @property
+    def n_lms(self) -> int:
+        """Number of LM members (0 without an LM)."""
+        return len(self.orders)
+
+    def ctx_w(self, i: int) -> int:
+        """Context width of member ``i``."""
+        return max(self.orders[i] - 1, 1)
 
     @property
     def ring_width(self) -> int:
-        return max(self.order - 1, 1)
-
-    @property
-    def ctx_w(self) -> int:
-        return max(self.order - 1, 1)
+        """History ring width, from the largest member order; sets the history-prune window."""
+        return max(max(self.orders, default=1) - 1, 1)
 
 
 def build_table_args(
-    tokens: TokenArrays, device_lm: Optional[DeviceLM], device: torch.device
+    tokens: TokenArrays, device_lms: Sequence[DeviceLM], device: torch.device
 ) -> Dict[str, Any]:
-    """Upload the token tables and the LM tables to ``device`` (once per decoder)."""
+    """Upload the token tables and every LM member's tables to ``device`` (once per decoder).
+
+    Hotword tables change per call: they go to the decode function instead
+    (see :func:`make_decode_fn`).
+    """
     if tokens.raw_chars.shape[1] != 1:
         raise NotImplementedError("multi-character labels are not ported yet")
 
@@ -112,36 +139,38 @@ def build_table_args(
         "seed_lo": as_lane(tokens.seed_hash_lo, device),
         "seed_hi": as_lane(tokens.seed_hash_hi, device),
     }
-    lm = device_lm.as_device(device) if device_lm is not None else None
-    return {"tok": tok, "lm": lm}
+    return {"tok": tok, "lms": [dlm.as_device(device) for dlm in device_lms]}
 
 
 def _params_dict(cfg: EngineConfig, params: np.ndarray) -> Dict[str, Any]:
     """Unpack the f32 parameter vector into Python scalars.
 
-    Layout: ``[token_min_logp, beam_prune_logp, hot_weight, alpha, beta,
-    unk_offset, score_boundary]`` (the LM entries only with an LM). Values
-    pass through float32, so scalar arithmetic on f32 tensors matches the
-    reference's f32 parameter math.
+    Layout: ``[token_min_logp, beam_prune_logp, hot_weight, (alpha_i,
+    beta_i, unk_offset_i, score_boundary_i) x n_lms]``. Values pass through
+    float32, so scalar arithmetic on f32 tensors matches the reference's f32
+    parameter math.
     """
     p = [float(x) for x in np.asarray(params, dtype=np.float32)]
-    out: Dict[str, Any] = {"token_min_logp": p[0], "beam_prune_logp": p[1]}
-    if cfg.use_lm:
-        out["lm"] = {
-            "alpha": p[3],
-            "beta": p[4],
-            "unk_offset": p[5],
-            "score_boundary": p[6] > 0.5,
-        }
+    out: Dict[str, Any] = {
+        "token_min_logp": p[0], "beam_prune_logp": p[1], "hot_weight": p[2], "lm": [],
+    }
+    for i in range(cfg.n_lms):
+        base = 3 + 4 * i
+        out["lm"].append({
+            "alpha": p[base],
+            "beta": p[base + 1],
+            "unk_offset": p[base + 2],
+            "score_boundary": p[base + 3] > 0.5,
+        })
     return out
 
 
-def _init_state(cfg: EngineConfig, start: Optional[Dict], n: int, device: torch.device) -> Dict:
+def _init_state(cfg: EngineConfig, start: Sequence[Dict], n: int, device: torch.device) -> Dict:
     """Initial beam state ``[N, B, ...]``.
 
-    ``start``: ``{"ctx": [ctx_w] int, "len": int, "bo": [ctx_w] f32}`` (the
-    LM start context, its length and its suffix backoffs), or None without
-    an LM.
+    ``start``: one dict per LM member, ``{"ctx": [ctx_w(i)] int, "len":
+    int, "bo": [ctx_w(i)] f32}`` (the member's start context, its length
+    and its suffix backoffs); empty without an LM.
     """
     b = cfg.beam_width
     iota = torch.arange(b, device=device)
@@ -165,15 +194,18 @@ def _init_state(cfg: EngineConfig, start: Optional[Dict], n: int, device: torch.
         "ring_hi": zi(cfg.ring_width),
         "n_words": zi(),
     }
-    if cfg.use_lm:
-        w = cfg.ctx_w
-        ctx = torch.as_tensor(np.asarray(start["ctx"], dtype=np.int64), device=device)
-        bo = torch.as_tensor(np.asarray(start["bo"], dtype=np.float32), device=device)
-        state["p_node"] = zi()
-        state["p_flags"] = zi()  # packed entry bits of the current node
-        state["ctx"] = ctx.expand(n, b, w).contiguous()
-        state["ctx_len"] = torch.full((n, b), int(start["len"]), dtype=torch.int64, device=device)
-        state["ctx_bo"] = bo.expand(n, b, w).contiguous()
+    for i in range(cfg.n_lms):
+        w = cfg.ctx_w(i)
+        ctx = torch.as_tensor(np.asarray(start[i]["ctx"], dtype=np.int64), device=device)
+        bo = torch.as_tensor(np.asarray(start[i]["bo"], dtype=np.float32), device=device)
+        state[f"p_node{i}"] = zi()
+        state[f"p_flags{i}"] = zi()  # packed entry bits of the current node
+        state[f"ctx{i}"] = ctx.expand(n, b, w).contiguous()
+        state[f"ctx_len{i}"] = torch.full((n, b), int(start[i]["len"]), dtype=torch.int64, device=device)
+        state[f"ctx_bo{i}"] = bo.expand(n, b, w).contiguous()
+    if cfg.use_hotwords:
+        state["h_node"] = zi()
+        state["h_bits"] = zi()  # packed hot entry (min-completion + terminal)
     if cfg.token_timeline:
         # carried candidate pool: the running top-B of the current frame's
         # merged candidates across its token chunks (see _make_step)
@@ -183,8 +215,10 @@ def _init_state(cfg: EngineConfig, start: Optional[Dict], n: int, device: torch.
         state["pool_pf"] = iota.expand(n, b).contiguous()  # first-member parent (replay)
         state["pool_pd"] = iota.expand(n, b).contiguous()  # newest-member parent (backtrace)
         state["pool_tok"] = torch.full((n, b), -1, dtype=torch.int64, device=device)
-        if cfg.use_lm:
-            state["pool_ent"] = zi()  # packed trie entry of the candidate
+        for i in range(cfg.n_lms):
+            state[f"pool_ent{i}"] = zi()  # packed trie entry of the candidate
+        if cfg.use_hotwords:
+            state["pool_h"] = zi()  # packed hot entry of the candidate
     return state
 
 
@@ -214,9 +248,20 @@ def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ct
     return fused, new_ctx, new_ctx_len, new_bo
 
 
-def _commit_quantities(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict,
-                       trie_rows: Optional[torch.Tensor]) -> Dict:
-    """Per-beam word-commit effects: text hash, fused word score, new context."""
+def _hot_gain(prm: Dict, h_bits: torch.Tensor, commit: torch.Tensor) -> torch.Tensor:
+    """Full-word hotword boost at commit (ref language_model.py:137-139)."""
+    is_hot_word = (h_bits & HOT_WORD_BIT) != 0
+    return prm["hot_weight"] * (is_hot_word & commit).to(torch.float32)
+
+
+def _commit_quantities(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict,
+                       trie_rows: List[torch.Tensor]) -> Dict:
+    """Per-beam word-commit effects: text hash, fused word score, new contexts.
+
+    The members' fused scores are summed in member order and then divided
+    by the member count, as the reference does (float32 order matters at
+    1e-4); the hotword boost is added after.
+    """
     commit = state["p_len"] > 0
     t_lo, t_hi = hash_text_commit_t(
         state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"]
@@ -225,18 +270,26 @@ def _commit_quantities(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: 
         "text_lo": torch.where(commit, t_lo, state["text_lo"]),
         "text_hi": torch.where(commit, t_hi, state["text_hi"]),
     }
-    if lm is None:
-        out["word_fused"] = torch.zeros_like(state["fused"])
-        return out
-    fused, new_ctx, new_ctx_len, new_bo = _member_word_score(
-        lm, prm["lm"], trie_rows, state["p_flags"], state["ctx"], state["ctx_len"],
-        state["ctx_bo"],
-    )
+    fused_sum = None
     c2 = commit[..., None]
-    out["ctx"] = torch.where(c2, new_ctx, state["ctx"])
-    out["ctx_len"] = torch.where(commit, new_ctx_len, state["ctx_len"])
-    out["ctx_bo"] = torch.where(c2, new_bo, state["ctx_bo"])
-    out["word_fused"] = torch.where(commit, fused, 0.0)
+    for i, lm in enumerate(lms):
+        fused, new_ctx, new_ctx_len, new_bo = _member_word_score(
+            lm, prm["lm"][i], trie_rows[i], state[f"p_flags{i}"], state[f"ctx{i}"],
+            state[f"ctx_len{i}"], state[f"ctx_bo{i}"],
+        )
+        fused_sum = fused if fused_sum is None else fused_sum + fused
+        out[f"ctx{i}"] = torch.where(c2, new_ctx, state[f"ctx{i}"])
+        out[f"ctx_len{i}"] = torch.where(commit, new_ctx_len, state[f"ctx_len{i}"])
+        out[f"ctx_bo{i}"] = torch.where(c2, new_bo, state[f"ctx_bo{i}"])
+    if fused_sum is None:
+        word_fused = torch.zeros_like(state["fused"])
+    else:
+        if len(lms) > 1:
+            fused_sum = fused_sum / len(lms)
+        word_fused = torch.where(commit, fused_sum, 0.0)
+    if cfg.use_hotwords:
+        word_fused = word_fused + _hot_gain(prm, state["h_bits"], commit)
+    out["word_fused"] = word_fused
     return out
 
 
@@ -282,19 +335,37 @@ def _top_b(scores: torch.Tensor, b: int):
     return srt.values[:, :b], srt.indices[:, :b]
 
 
-def _partial_score(lm_prm: Optional[Dict], flags, plen):
-    """score_partial_token for in-progress words, from the packed flag bits.
+def _partial_score(cfg: EngineConfig, hot: Optional[Dict], prm: Dict,
+                   flag_list: List[torch.Tensor], h_entry: Optional[torch.Tensor], plen):
+    """score_partial_token for in-progress words, from the packed entry bits.
 
-    Prefix of a known unigram: 0; otherwise the unknown-prefix penalty,
-    scaled up past ``AVG_TOKEN_LEN`` chars (ref language_model.py:326-336).
+    Hotword-prefix partials take the hotword completion score, weight x
+    length / shortest completion (ref decoder.py:410-418,
+    language_model.py:141-150); every other partial the member-averaged LM
+    score: 0 on the prefix of a known unigram, else the unknown-prefix
+    penalty, scaled up past ``AVG_TOKEN_LEN`` chars (ref
+    language_model.py:326-336, 478-481). ``h_entry`` is the packed hot
+    entry (node | bits), or None without hotwords.
     """
-    if lm_prm is None:
-        return torch.zeros(plen.shape, dtype=torch.float32, device=plen.device)
     plen_f = plen.to(torch.float32)
-    is_pref = (flags & _BIT_UNI_PREFIX) != 0
-    punk = lm_prm["unk_offset"] * (~is_pref).to(torch.float32)
-    punk = torch.where(plen > AVG_TOKEN_LEN, punk * plen_f / AVG_TOKEN_LEN, punk)
-    return torch.where(plen > 0, punk, 0.0)
+    acc = None
+    for i in range(cfg.n_lms):
+        is_pref = (flag_list[i] & _BIT_UNI_PREFIX) != 0
+        punk = prm["lm"][i]["unk_offset"] * (~is_pref).to(torch.float32)
+        punk = torch.where(plen > AVG_TOKEN_LEN, punk * plen_f / AVG_TOKEN_LEN, punk)
+        acc = punk if acc is None else acc + punk
+    if acc is None:
+        lm_part = torch.zeros(plen.shape, dtype=torch.float32, device=plen.device)
+    else:
+        if cfg.n_lms > 1:
+            acc = acc / cfg.n_lms
+        lm_part = torch.where(plen > 0, acc, 0.0)
+    if not cfg.use_hotwords:
+        return lm_part
+    hot_pref = ((h_entry & HOT_NODE_MASK) != hot["dead"]) & (plen > 0)
+    min_comp = (h_entry >> HOT_MINCOMP_SHIFT) & HOT_MINCOMP_MAX
+    hot_part = prm["hot_weight"] * plen_f / min_comp.clamp(min=1).to(torch.float32)
+    return torch.where(hot_pref, hot_part, lm_part)
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -304,11 +375,13 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, *x.shape[2:]))
 
 
-def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tensor):
+def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
+               n_frames: torch.Tensor):
     """Build the per-frame (timeline: per-chunk) step over ``[N, B]`` state planes."""
     b, k, v = cfg.beam_width, cfg.k_tokens, cfg.vocab_size
     tl = cfg.token_timeline
-    tok_dev, lm = tables["tok"], tables["lm"]
+    tok_dev, lms = tables["tok"], tables["lms"]
+    n_lms, use_hot = cfg.n_lms, cfg.use_hotwords
     device = n_frames.device
     n = n_frames.shape[0]
     iota_b = torch.arange(b, device=device)
@@ -318,7 +391,6 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
     # known at its last chunk, where the pooled top-1 is that max
     prune = torch.full((n,), float("-inf") if tl else prm["beam_prune_logp"],
                        dtype=torch.float32, device=device)
-    lm_prm = prm.get("lm")
     lower = torch.tril(torch.ones((b, b), dtype=torch.bool, device=device), diagonal=-1)
 
     def step(state: Dict, xs, t: int):
@@ -357,34 +429,49 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
         blank = tok_kind == KIND_BLANK
         boundary_kind = tok_kind == KIND_BOUNDARY
 
-        trie_rows_b = None
-        if lm is not None:
-            trie_rows_b = trie_fetch_rows(lm["trie_rows"], lm["trie_pack"], state["p_node"])
-        cm = _commit_quantities(cfg, lm, prm, state, trie_rows_b)
+        # one trie-row fetch per member, shared by commit scoring and the walk
+        trie_rows_b = [
+            trie_fetch_rows(lm["trie_rows"], lm["trie_pack"], state[f"p_node{i}"])
+            for i, lm in enumerate(lms)
+        ]
+        cm = _commit_quantities(cfg, lms, prm, state, trie_rows_b)
 
-        # ---- transition classes [N, B, K]: the trie walk and the partial
+        # ---- transition classes [N, B, K]: the trie walks and the partial
         # score need them here; the kernel re-derives the rest in registers
         stay = blank[:, None, :] | (state["last_tok"][:, :, None] == toks[:, None, :])
         as_boundary = ~stay & boundary_kind[:, None, :]
-        if lm is not None:
-            tp = lm["trie_pack"]
+        p_entry_n: List[torch.Tensor] = []  # per member: packed trie entry [N, B, K]
+        h_entry_n = None  # packed hot entry [N, B, K]
+        if n_lms or use_hot:
             has = (cid >= 0)[:, None, :]
             cid_safe = cid.clamp(min=0)
-            rows = trie_rows_b  # [N, B, W] (shared with commit scoring)
-            col = (1 + cid_safe // tp["cpw"])[:, None, :].expand(n, b, k)
-            word = rows.gather(2, col)
-            ent = _decode_trie_cells(tp, rows[..., 0:1], word, cid_safe[:, None, :])
-            cur = (state["p_node"] | state["p_flags"])[..., None]
-            seed_entry = lm["seed_node"][toks][:, None, :]
-            p_entry_n = torch.where(
-                stay, cur, torch.where(as_boundary, seed_entry, torch.where(has, ent, cur))
-            )
+
+            def walked(cur, seed_entry, ent):
+                return torch.where(
+                    stay, cur, torch.where(as_boundary, seed_entry, torch.where(has, ent, cur))
+                )
+
+            for i, lm in enumerate(lms):
+                tp = lm["trie_pack"]
+                rows = trie_rows_b[i]  # [N, B, W]
+                col = (1 + cid_safe // tp["cpw"])[:, None, :].expand(n, b, k)
+                word = rows.gather(2, col)
+                ent = _decode_trie_cells(tp, rows[..., 0:1], word, cid_safe[:, None, :])
+                cur = (state[f"p_node{i}"] | state[f"p_flags{i}"])[..., None]
+                p_entry_n.append(walked(cur, lm["seed_node"][toks][:, None, :], ent))
+            if use_hot:
+                # the beam's hot-trie row, then the token's char column
+                h_ent = hot["next"][state["h_node"]].gather(2, cid_safe[:, None, :].expand(n, b, k))
+                cur = (state["h_node"] | state["h_bits"])[..., None]
+                h_entry_n = walked(cur, hot["seed"][toks][:, None, :], h_ent)
             p_len = state["p_len"][..., None]
             p_len_n = torch.where(
                 stay, p_len,
                 torch.where(as_boundary, tok_plen[:, None, :], p_len + tok_rlen[:, None, :]),
             )
-            pscore = _partial_score(lm_prm, p_entry_n & ~_NODE_MASK, p_len_n)
+            pscore = _partial_score(
+                cfg, hot, prm, [e & ~_NODE_MASK for e in p_entry_n], h_entry_n, p_len_n
+            )
             pscore = pscore.transpose(1, 2).contiguous()  # [N, K, B]
         else:
             pscore = torch.zeros((n, k, b), dtype=torch.float32, device=device)
@@ -448,9 +535,15 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
                 "pool_pd": torch.where(fin2, iota_b, parent),
                 "pool_tok": torch.where(fin2, -1, sel_tok),
             }
-            if lm is not None:
-                ent_w = pooled("pool_ent", p_entry_n.transpose(1, 2)).gather(1, top_src)
-                pool_new["pool_ent"] = torch.where(fin2, 0, ent_w)
+            ent_w = [
+                pooled(f"pool_ent{i}", e.transpose(1, 2)).gather(1, top_src)
+                for i, e in enumerate(p_entry_n)
+            ]
+            for i, e in enumerate(ent_w):
+                pool_new[f"pool_ent{i}"] = torch.where(fin2, 0, e)
+            if use_hot:
+                h_w = pooled("pool_h", h_entry_n.transpose(1, 2)).gather(1, top_src)
+                pool_new["pool_h"] = torch.where(fin2, 0, h_w)
         else:
             # ---- top-B; positional fields by gather
             top_scores, top_idx = _top_b(sc.reshape(n, k * b), b)
@@ -460,11 +553,18 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
             top_logit = merged.reshape(n, k * b).gather(1, top_idx)
             sel_alive = top_scores > DEAD_THRESH
             parent = src_w % b  # newest-wins, backtrace only
-            if lm is not None:
-                ent_w = p_entry_n.reshape(n, b * k).gather(1, top_parent * k + tok_col)
-        if lm is not None:
-            new_state["p_node"] = ent_w & _NODE_MASK
-            new_state["p_flags"] = ent_w & ~_NODE_MASK
+            ent_w = []
+            if n_lms or use_hot:
+                flat_w = top_parent * k + tok_col
+                ent_w = [e.reshape(n, b * k).gather(1, flat_w) for e in p_entry_n]
+                if use_hot:
+                    h_w = h_entry_n.reshape(n, b * k).gather(1, flat_w)
+        for i, e in enumerate(ent_w):
+            new_state[f"p_node{i}"] = e & _NODE_MASK
+            new_state[f"p_flags{i}"] = e & ~_NODE_MASK
+        if use_hot:
+            new_state["h_node"] = h_w & HOT_NODE_MASK
+            new_state["h_bits"] = h_w & ~HOT_NODE_MASK
 
         # ---- transition replay for the winners: every other field is a
         # deterministic function of (parent beam, token)
@@ -530,8 +630,8 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
         new_state["ring_hi"] = torch.where(
             c2, torch.cat([bsel["ring_hi"][..., 1:], bsel["p_hi"][..., None]], dim=-1), bsel["ring_hi"]
         )
-        if lm is not None:
-            for key in ("ctx", "ctx_len", "ctx_bo"):
+        for i in range(n_lms):
+            for key in (f"ctx{i}", f"ctx_len{i}", f"ctx_bo{i}"):
                 c_val = _rows(state[key], top_parent)
                 m_val = _rows(cm[key], top_parent)
                 new_state[key] = torch.where(bnd2 if c_val.dim() == 3 else bnd_w, m_val, c_val)
@@ -585,12 +685,13 @@ def _make_step(cfg: EngineConfig, tables: Dict, prm: Dict, n_frames: torch.Tenso
     return step
 
 
-def _finalize(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict) -> Dict:
+def _finalize(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict) -> Dict:
     """End-of-utterance ranking (ref decoder.py:558-602).
 
     Force-commits trailing partial words, scores the final word with
-    ``is_last_word`` semantics (``</s>`` credit when ``score_boundary``),
-    merges beams by committed text (the ``merge_prune`` kernel with K = 1,
+    ``is_last_word`` semantics for every member (``</s>`` credit where the
+    member has ``score_boundary``; members averaged) plus the hotword
+    boost, merges beams by committed text (the ``merge_prune`` kernel with K = 1,
     extra 0 and no prune window; the donor's extra is added after, as the
     reference does) and ranks with the window prune.
     """
@@ -601,29 +702,33 @@ def _finalize(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict) -> 
     t_lo, t_hi = hash_text_commit_t(state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"])
     text_lo = torch.where(commit, t_lo, state["text_lo"])
     text_hi = torch.where(commit, t_hi, state["text_hi"])
-    ctx_view = ctx_len_view = None
-    if lm is not None:
-        lm_prm = prm["lm"]
-        flags = state["p_flags"]
+    fused_sum = None
+    ctx_views = []  # per member: (context, length) after the last word
+    for i, lm in enumerate(lms):
+        lm_prm = prm["lm"][i]
+        flags = state[f"p_flags{i}"]
         in_model = ((flags & _BIT_IN_VOCAB) != 0) & commit
-        wid = torch.where(in_model, lm["trie_word_id"][state["p_node"]], lm["unk_id"])
+        wid = torch.where(in_model, lm["trie_word_id"][state[f"p_node{i}"]], lm["unk_id"])
         in_uni = ((flags & _BIT_UNI_WORD) != 0) & commit
         is_oov = ~in_model
         if lm["has_unigrams"]:
             is_oov = is_oov | ~in_uni
         raw10, ctx2, ctx2_len, ctx2_bo = lm_score_words(
-            lm, state["ctx"], state["ctx_len"], wid, state["ctx_bo"]
+            lm, state[f"ctx{i}"], state[f"ctx_len{i}"], wid, state[f"ctx_bo{i}"]
         )
         raw = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
         if lm_prm["score_boundary"]:
             eos = torch.full_like(wid, lm["eos_id"])
             eos10, _, _, _ = lm_score_words(lm, ctx2, ctx2_len, eos, ctx2_bo)
             raw = raw + eos10
-        word_fused = lm_prm["alpha"] * raw * _LOG10 + lm_prm["beta"]
-        fused_scored = state["fused"] + word_fused
-        ctx_view, ctx_len_view = ctx2, ctx2_len
-    else:
-        fused_scored = state["fused"]
+        fused = lm_prm["alpha"] * raw * _LOG10 + lm_prm["beta"]
+        fused_sum = fused if fused_sum is None else fused_sum + fused
+        ctx_views.append((ctx2, ctx2_len))
+    fused_scored = state["fused"]
+    if fused_sum is not None:
+        fused_scored = fused_scored + (fused_sum / len(lms) if len(lms) > 1 else fused_sum)
+    if cfg.use_hotwords:
+        fused_scored = fused_scored + _hot_gain(prm, state["h_bits"], commit)
 
     # merge key: committed text only
     kl = mix4_t(text_lo, 0, 1, 0)
@@ -645,19 +750,24 @@ def _finalize(cfg: EngineConfig, lm: Optional[Dict], prm: Dict, state: Dict) -> 
     score, top_idx = _top_b(sc, b)
     src = donor.gather(1, top_idx)
     out = {"src": src, "logit": merged_b.gather(1, top_idx), "score": score}
-    if lm is not None:
-        out["ctx"] = _rows(ctx_view, src)
-        out["ctx_len"] = _rows(ctx_len_view, src)
+    for i, (ctx2, ctx2_len) in enumerate(ctx_views):
+        out[f"ctx{i}"] = _rows(ctx2, src)
+        out[f"ctx_len{i}"] = _rows(ctx2_len, src)
     return out
 
 
 def make_decode_fn(cfg: EngineConfig, tables: Dict):
     """Build the batch decode function over uploaded ``tables``.
 
-    ``fn(logp [N, T, V] f32, n_frames [N] int64, params f32 vector, start)``
-    runs the frame loop and the finalization on ``logp``'s device and
-    returns the ranked beams (top ``emit_paths`` or all B) with their token
-    paths ``[N, R, T]`` (backtraced on the device; -1 at padded frames).
+    ``fn(logp [N, T, V] f32, n_frames [N] int64, params f32 vector, start,
+    hot)`` runs the frame loop and the finalization on ``logp``'s device
+    and returns the ranked beams (top ``emit_paths`` or all B) with their
+    token paths ``[N, R, T]`` (backtraced on the device; -1 at padded
+    frames) and each member's final context (``ctx{i}``, ``ctx_len{i}``).
+    ``start`` holds one start dict per LM member (see :func:`_init_state`);
+    ``hot`` is this call's hotword trie, ``{"next": int64 [nodes, chars],
+    "seed": int64 [V], "dead": int}`` on ``logp``'s device, or None (it must
+    be given exactly when ``cfg.use_hotwords``).
 
     With ``cfg.token_timeline``, ``logp`` is the host-built timeline tuple
     ``(toks [N, Tv, K] int, tlogp [N, Tv, K] f32, is_final [N, Tv] int)``,
@@ -666,7 +776,7 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
     """
 
     def decode(logp, n_frames: torch.Tensor, params: np.ndarray,
-               start: Optional[Dict]) -> Dict[str, torch.Tensor]:
+               start: Sequence[Dict], hot: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         device = n_frames.device
         if cfg.token_timeline:
             toks, tlogp, fin = logp
@@ -675,7 +785,7 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
             n, t_max, _ = logp.shape
         prm = _params_dict(cfg, params)
         state = _init_state(cfg, start, n, device)
-        step = _make_step(cfg, tables, prm, n_frames)
+        step = _make_step(cfg, tables, hot, prm, n_frames)
         parents: List[torch.Tensor] = []
         trace: List[torch.Tensor] = []
         for t in range(t_max):
@@ -683,7 +793,7 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
             state, (par, tok) = step(state, xs, t)
             parents.append(par.to(_parent_dtype(cfg.beam_width)))
             trace.append(tok.to(_path_dtype(cfg.vocab_size)))
-        fin = _finalize(cfg, tables["lm"], prm, state)
+        fin = _finalize(cfg, tables["lms"], prm, state)
         r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
         cur = fin["src"][:, :r]
         paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=device)
@@ -696,9 +806,9 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
             "lm_score": fin["score"][:, :r],
             "paths": paths,
         }
-        if "ctx" in fin:
-            out["ctx"] = fin["ctx"][:, :r]
-            out["ctx_len"] = fin["ctx_len"][:, :r]
+        for i in range(cfg.n_lms):
+            out[f"ctx{i}"] = fin[f"ctx{i}"][:, :r]
+            out[f"ctx_len{i}"] = fin[f"ctx_len{i}"][:, :r]
         return out
 
     return decode

@@ -1,12 +1,16 @@
-"""Language models: the ARPA n-gram runtime, its fusion wrapper and device tables."""
-from .base import AbstractLanguageModel, AbstractLMState, NGramLMState
-from .language_model import LanguageModel
+"""Language models: the ARPA n-gram runtime, fusion wrappers, hotwords and device tables."""
+from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
+from .hotwords import HotwordScorer
+from .language_model import LanguageModel, MultiLanguageModel
 from .ngram import NGramModel, open_ngram_file
 
 __all__ = [
     "AbstractLanguageModel",
     "AbstractLMState",
+    "HotwordScorer",
     "LanguageModel",
+    "MultiLMState",
+    "MultiLanguageModel",
     "NGramLMState",
     "NGramModel",
     "open_ngram_file",

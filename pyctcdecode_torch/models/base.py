@@ -10,7 +10,7 @@ compare equal with the reference's.
 from __future__ import annotations
 
 import abc
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 class AbstractLMState(abc.ABC):
@@ -41,6 +41,29 @@ class NGramLMState(AbstractLMState):
 
     def __repr__(self) -> str:
         return f"NGramLMState({self._context!r})"
+
+
+class MultiLMState(AbstractLMState):
+    """Tuple of member states for :class:`MultiLanguageModel`."""
+
+    def __init__(self, states: Sequence[AbstractLMState]) -> None:
+        self._states = list(states)
+
+    @property
+    def states(self) -> Sequence[AbstractLMState]:
+        return self._states
+
+    def __eq__(self, other: Any) -> bool:
+        return (
+            isinstance(other, MultiLMState)
+            and list(other.states) == list(self._states)
+        )
+
+    def __hash__(self) -> int:
+        return hash(tuple(self._states))
+
+    def __repr__(self) -> str:
+        return f"MultiLMState({self._states!r})"
 
 
 class AbstractLanguageModel(abc.ABC):

@@ -14,6 +14,8 @@ probed on the device:
   of every bucket fingerprint-distinct, so every key that IS in the table
   always resolves to its own value.
 * **unigrams** — a dense ``[vocab, 4]`` array indexed by word id directly.
+* **hotword trie** — per decode call, the hotword unigrams as a small
+  packed trie (:func:`build_hotword_tables`), walked by plain indexing.
 * **vocab trie** — a packed character trie over the LM vocabulary plus the
   known-unigram set. Beams carry their in-progress word as a trie node id;
   one row read per consumed character advances it. Node flags answer every
@@ -42,6 +44,13 @@ from .language_model import LanguageModel
 from .ngram import BOS_WORD, EOS_WORD, NGramModel, NGramTables
 
 _MIN_TABLE = 8
+
+# packed hotword-trie entry layout: child node (20 bits), shortest-completion
+# length (10 bits, saturating), is-hotword-terminal (bit 30)
+HOT_NODE_MASK = (1 << 20) - 1
+HOT_MINCOMP_SHIFT = 20
+HOT_MINCOMP_MAX = 1023
+HOT_WORD_BIT = 1 << 30
 
 
 # --------------------------------------------------------------------------
@@ -770,6 +779,63 @@ def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> Devic
     )
     dlm.start_ctx_backoffs = context_suffix_backoffs(dlm, bos_state)
     return dlm
+
+
+def build_hotword_tables(
+    hotword_unigrams: "object",
+    char2id: Dict[str, int],
+    tokens: TokenArrays,
+    min_nodes: int = 8,
+) -> Dict[str, np.ndarray]:
+    """Per-call hotword trie as packed arrays (ref language_model.py:115-189).
+
+    Hotwords change per decode call, so these arrays are uploaded per call
+    set (the decoder caches a few), not with the LM tables. ``next`` /
+    ``seed`` entries are packed (child node id + the child's
+    shortest-completion length + terminal flag, see ``HOT_NODE_MASK``) so a
+    walk's single read also answers every scoring question; node counts pad
+    to a power of two (at least ``min_nodes``) with rows of the packed dead
+    entry. ``dead`` is the swallowing node id.
+    """
+    builder = _TrieBuilder(len(char2id))
+    for word in hotword_unigrams:
+        ids = []
+        ok = True
+        for ch in word:
+            cid = char2id.get(ch)
+            if cid is None:
+                ok = False
+                break
+            ids.append(cid)
+        if not ok:
+            continue  # contains an undecodable char: can never match
+        node = builder.insert(ids, len(word))
+        builder.is_uni_word[node] = True
+    trie = builder.pack()
+    if trie.n_nodes >= (1 << 20):
+        raise ValueError("hotword trie exceeds the 2^20 packed-node limit")
+
+    def _pack(nodes: np.ndarray) -> np.ndarray:
+        mc = np.minimum(trie.min_completion[nodes], HOT_MINCOMP_MAX).astype(np.int64)
+        bits = nodes.astype(np.int64) | (mc << HOT_MINCOMP_SHIFT)
+        bits |= np.where(trie.is_uni_word[nodes], HOT_WORD_BIT, 0)
+        return bits.astype(np.int32)
+
+    n = trie.n_nodes  # includes the dead node
+    n_pad = min_nodes
+    while n_pad < n:
+        n_pad *= 2
+    nxt = np.full(
+        (n_pad, trie.next.shape[1]),
+        int(_pack(np.array([trie.dead]))[0]),
+        dtype=np.int32,
+    )
+    nxt[:n] = _pack(trie.next)
+    return {
+        "next": nxt,
+        "seed": _pack(trie_seed_nodes(trie, tokens)),
+        "dead": np.int32(trie.dead),
+    }
 
 
 # --------------------------------------------------------------------------

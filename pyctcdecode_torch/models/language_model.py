@@ -1,6 +1,6 @@
 """Shallow-fusion language model wrapper.
 
-Parity surface: ref ``language_model.py:230-360``. :class:`LanguageModel`
+Parity surface: ref ``language_model.py:230-360, 455-502``. :class:`LanguageModel`
 wraps this package's own n-gram runtime (``models/ngram.py``), applying the
 fused-score formula
 
@@ -9,14 +9,18 @@ fused-score formula
 per committed word (ref ``language_model.py:338-360``), the OOV rule
 (unigram-set miss when a unigram set exists, OR model-vocab miss), and the
 partial-word scoring (prefix-trie miss penalty, length-scaled past
-``AVG_TOKEN_LEN``; ref ``language_model.py:326-336``). The device engine
-reads ``alpha``, ``beta``, ``unk_score_offset`` and ``score_boundary`` per
-decode call; the host scoring methods document the same rules.
+``AVG_TOKEN_LEN``; ref ``language_model.py:326-336``).
+:class:`MultiLanguageModel` averages the fused scores of two or more
+members. The device engine reads every member's ``alpha``, ``beta``,
+``unk_score_offset`` and ``score_boundary`` per decode call; the host
+scoring methods document the same rules.
 """
 from __future__ import annotations
 
 import logging
-from typing import Any, Collection, Dict, Optional, Set, Tuple
+from typing import Any, Collection, Dict, Optional, Sequence, Set, Tuple
+
+import numpy as np
 
 from ..constants import (
     AVG_TOKEN_LEN,
@@ -27,7 +31,7 @@ from ..constants import (
     LOG_BASE_CHANGE_FACTOR,
 )
 from ..utils.trie import CharTrie
-from .base import AbstractLanguageModel, AbstractLMState, NGramLMState
+from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
 from .ngram import NGramModel
 
 logger = logging.getLogger(__name__)
@@ -156,3 +160,58 @@ class LanguageModel(AbstractLanguageModel):
             raw += self._model.raw_end_score(end_context)
         fused = self.alpha * raw * LOG_BASE_CHANGE_FACTOR + self.beta
         return fused, NGramLMState(end_context)
+
+
+class MultiLanguageModel(AbstractLanguageModel):
+    """Average-fusion ensemble of two or more language models."""
+
+    def __init__(self, language_models: Sequence[AbstractLanguageModel]) -> None:
+        if len(language_models) < 2:
+            raise ValueError("an ensemble needs two or more member language models")
+        self._language_models = list(language_models)
+
+    def reset_params(self, **params: "object") -> None:
+        """Re-tune every member's fusion knobs in place.
+
+        Deliberate divergence: the reference's MultiLanguageModel inherits
+        the abstract no-op (ref language_model.py:226-227), so re-tuning
+        an ensemble there silently does nothing — a tuning-sweep trap.
+        Forwarding to the members is strictly more useful and matches the
+        single-LM semantics.
+        """
+        for lm in self._language_models:
+            lm.reset_params(**params)
+
+    @property
+    def order(self) -> int:
+        return max(lm.order for lm in self._language_models)
+
+    def get_start_state(self) -> MultiLMState:
+        return MultiLMState([lm.get_start_state() for lm in self._language_models])
+
+    def score_partial_token(self, partial_token: str) -> float:
+        return float(
+            np.mean([lm.score_partial_token(partial_token) for lm in self._language_models])
+        )
+
+    def score(
+        self, prev_state: AbstractLMState, word: str, is_last_word: bool = False
+    ) -> Tuple[float, MultiLMState]:
+        """Average of member scores; state is the tuple of member states."""
+        if not isinstance(prev_state, MultiLMState):
+            raise AssertionError(
+                f"MultiLanguageModel.score needs a MultiLMState; "
+                f"received {type(prev_state).__name__}"
+            )
+        if len(prev_state.states) != len(self._language_models):
+            raise AssertionError(
+                f"state carries {len(prev_state.states)} member states but the "
+                f"ensemble has {len(self._language_models)} models"
+            )
+        total = 0.0
+        out_states = []
+        for state, lm in zip(prev_state.states, self._language_models):
+            fused, out = lm.score(state, word, is_last_word=is_last_word)
+            total += fused
+            out_states.append(out)
+        return total / len(self._language_models), MultiLMState(out_states)

@@ -37,9 +37,14 @@ from .constants import (
 )
 from .decoder import NULL_FRAMES, OutputBeam
 from .engine import EngineConfig, build_table_args, make_decode_fn
-from .models.base import AbstractLMState, NGramLMState
-from .models.device_tables import build_device_lm, context_suffix_backoffs
-from .models.language_model import LanguageModel
+from .models.base import AbstractLMState, MultiLMState, NGramLMState
+from .models.device_tables import (
+    build_device_lm,
+    build_hotword_tables,
+    context_suffix_backoffs,
+)
+from .models.hotwords import HotwordScorer
+from .models.language_model import LanguageModel, MultiLanguageModel
 from .ops.tokens import build_token_arrays
 from .utils.logits import (
     normalize_batch,
@@ -244,34 +249,46 @@ class TorchBeamSearchDecoderCTC:
     def __init__(
         self,
         alphabet: Alphabet,
-        language_model: Optional[LanguageModel] = None,
+        language_model: Union[None, LanguageModel, MultiLanguageModel] = None,
         device: Union[None, str, torch.device] = None,
     ) -> None:
         self._device = _resolve_device(device)
         if alphabet.is_bpe:
             raise _not_ported("a BPE alphabet")
-        if language_model is not None and not isinstance(language_model, LanguageModel):
-            raise _not_ported(
-                f"language model {type(language_model).__name__} (only a single "
-                f"pyctcdecode_torch LanguageModel; MultiLanguageModel is not ported)"
-            )
+        if language_model is None:
+            members: List[LanguageModel] = []
+        elif isinstance(language_model, MultiLanguageModel):
+            members = list(language_model._language_models)
+            for m in members:
+                if isinstance(m, MultiLanguageModel):
+                    raise NotImplementedError(
+                        "nested MultiLanguageModel is not supported on the "
+                        "device engine"
+                    )
+        else:
+            members = [language_model]
+        for m in members:
+            if not isinstance(m, LanguageModel):
+                raise _not_ported(
+                    f"language model {type(m).__name__} (members must be "
+                    f"pyctcdecode_torch LanguageModels)"
+                )
         self._alphabet = alphabet
         self._labels = alphabet.labels
         self._blank_id = self._labels.index("")  # CTC blank (always present)
         self._lm = language_model
+        self._lm_members = members
         self._tokens = build_token_arrays(alphabet)
-        self._device_lm = (
-            build_device_lm(language_model, self._tokens)
-            if language_model is not None
-            else None
-        )
+        self._device_lm = [build_device_lm(m, self._tokens) for m in members]
         # tables are uploaded once here and reused by every decode call
         self._tabs = build_table_args(self._tokens, self._device_lm, self._device)
+        # hotword tables on the device, keyed by the unigram set
+        self._hot_cache: Dict[Tuple[str, ...], Dict[str, Any]] = {}
         self._pinned: Optional[torch.Tensor] = None  # host staging of the outputs, see _fetch
 
     # -- configuration ---------------------------------------------------
     @property
-    def language_model(self) -> Optional[LanguageModel]:
+    def language_model(self) -> Union[None, LanguageModel, MultiLanguageModel]:
         return self._lm
 
     @property
@@ -284,26 +301,49 @@ class TorchBeamSearchDecoderCTC:
             self._lm.reset_params(**kwargs)
 
     def _engine_cfg(self, beam_width: int, k: int, prune_history: bool,
-                    emit_paths: Optional[int] = None,
+                    use_hotwords: bool, emit_paths: Optional[int] = None,
                     token_timeline: bool = False) -> EngineConfig:
-        order = self._lm.order if self._lm is not None else 1
         return EngineConfig(
             beam_width=beam_width,
             vocab_size=len(self._labels),
             k_tokens=k,
-            use_lm=self._lm is not None,
-            order=order,
             prune_history=prune_history,
             emit_paths=emit_paths,
             token_timeline=token_timeline,
+            use_hotwords=use_hotwords,
+            orders=tuple(m.order for m in self._lm_members),
         )
 
     # -- call-time parameters ------------------------------------------------
-    def _params_vector(self, token_min_logp: float, beam_prune_logp: float) -> np.ndarray:
-        """The reference's f32 parameter layout (slot 2, the hotword weight, is 0)."""
-        vals = [token_min_logp, beam_prune_logp, 0.0]
-        if self._lm is not None:
-            m = self._lm
+    def _hot_tables(self, hotwords: Optional[Iterable[str]],
+                    weight: float) -> Tuple[Optional[Dict[str, Any]], float]:
+        """This call's hotword trie on the device and its weight.
+
+        Returns ``(None, 0.0)`` when no hotwords are given. The tables of
+        the last 8 unigram sets stay on the device.
+        """
+        scorer = HotwordScorer.build_scorer(hotwords, weight=weight)
+        if not scorer.unigrams:
+            return None, 0.0
+        key = tuple(sorted(scorer.unigrams))
+        hot = self._hot_cache.get(key)
+        if hot is None:
+            tables = build_hotword_tables(list(key), self._tokens.char2id, self._tokens)
+            hot = {
+                "next": torch.as_tensor(tables["next"], device=self._device).to(torch.int64),
+                "seed": torch.as_tensor(tables["seed"], device=self._device).to(torch.int64),
+                "dead": int(tables["dead"]),
+            }
+            if len(self._hot_cache) >= 8:  # bound per-call table churn
+                self._hot_cache.pop(next(iter(self._hot_cache)))
+            self._hot_cache[key] = hot
+        return hot, float(weight)
+
+    def _params_vector(self, token_min_logp: float, beam_prune_logp: float,
+                       hotword_weight: float = 0.0) -> np.ndarray:
+        """The reference's f32 parameter layout (see ``engine._params_dict``)."""
+        vals = [token_min_logp, beam_prune_logp, hotword_weight]
+        for m in self._lm_members:
             vals += [
                 float(m.alpha),
                 float(m.beta),
@@ -312,35 +352,51 @@ class TorchBeamSearchDecoderCTC:
             ]
         return np.array(vals, dtype=np.float32)
 
-    def _start_ctx(self, lm_start_state: Optional[AbstractLMState]) -> Optional[Dict]:
-        """LM start dict ({"ctx", "len", "bo"}) for the engine."""
-        if self._lm is None:
-            return None
-        state = lm_start_state if lm_start_state is not None else self._lm.get_start_state()
-        if not isinstance(state, NGramLMState):
-            raise AssertionError(f"Expected NGramLMState, got {type(state)}")
-        width = max(self._lm.order - 1, 1)
-        ctx = np.full(width, -1, dtype=np.int32)
-        words = state.context[-width:] if self._lm.order > 1 else ()
-        for i, wid in enumerate(words):
-            ctx[width - len(words) + i] = wid
-        bo = context_suffix_backoffs(self._device_lm, words)
-        return {"ctx": ctx, "len": len(words), "bo": bo}
+    def _start_ctx(self, lm_start_state: Optional[AbstractLMState]) -> Tuple[Dict, ...]:
+        """Per-LM-member start dicts ({"ctx", "len", "bo"}) for the engine."""
+        if not self._lm_members:
+            return ()
+        if lm_start_state is None:
+            states = [m.get_start_state() for m in self._lm_members]
+        elif isinstance(lm_start_state, MultiLMState):
+            states = list(lm_start_state.states)
+            if len(states) != len(self._lm_members):
+                raise AssertionError(
+                    f"Number of states ({len(states)}) does not match number "
+                    f"of language models ({len(self._lm_members)})."
+                )
+        else:
+            states = [lm_start_state]
+        start = []
+        for m, dlm, state in zip(self._lm_members, self._device_lm, states):
+            if not isinstance(state, NGramLMState):
+                raise AssertionError(f"Expected NGramLMState, got {type(state)}")
+            width = max(m.order - 1, 1)
+            ctx = np.full(width, -1, dtype=np.int32)
+            words = state.context[-width:] if m.order > 1 else ()
+            for i, wid in enumerate(words):
+                ctx[width - len(words) + i] = wid
+            bo = context_suffix_backoffs(dlm, words)
+            start.append({"ctx": ctx, "len": len(words), "bo": bo})
+        return tuple(start)
 
     # -- device launch and fetch ---------------------------------------------
     def _launch(self, inputs: Any, n_frames: np.ndarray, k: int, beam_width: int,
                 beam_prune_logp: float, token_min_logp: float, prune_history: bool,
                 top_n: Optional[int], lm_start_state: Optional[AbstractLMState],
+                hot: Optional[Dict[str, Any]], hot_weight: float,
                 token_timeline: bool = False) -> Dict[str, torch.Tensor]:
         """Upload and enqueue one decode; returns its outputs as device tensors.
 
         ``inputs``: log-probs ``[N, T, V]``, or with ``token_timeline`` the
-        tuple ``(toks, tlogp, is_final)``. Nothing here waits for the device.
+        tuple ``(toks, tlogp, is_final)``; ``hot``: the call's hotword tables
+        (:meth:`_hot_tables`) or None. Nothing here waits for the device.
         """
         emit_paths = min(top_n, beam_width) if top_n is not None else None
-        cfg = self._engine_cfg(beam_width, k, prune_history, emit_paths, token_timeline)
+        cfg = self._engine_cfg(beam_width, k, prune_history, hot is not None, emit_paths,
+                               token_timeline)
         fn = make_decode_fn(cfg, self._tabs)
-        params = self._params_vector(token_min_logp, beam_prune_logp)
+        params = self._params_vector(token_min_logp, beam_prune_logp, hot_weight)
         dev = self._device
         with torch.inference_mode():
             if token_timeline:
@@ -357,6 +413,7 @@ class TorchBeamSearchDecoderCTC:
                 torch.as_tensor(n_frames, dtype=torch.int64, device=dev),
                 params,
                 self._start_ctx(lm_start_state),
+                hot,
             )
 
     def _fetch(self, out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
@@ -532,7 +589,9 @@ class TorchBeamSearchDecoderCTC:
         :func:`~pyctcdecode_torch.utils.logits.token_timeline`);
         ``max_tokens_per_frame`` is ignored on this path.
 
-        ``hotwords`` and ``collect_stats`` are not ported yet and raise.
+        ``hotwords`` boosts the given words and phrases by
+        ``hotword_weight`` (ref ``language_model.py:115-189``), with or
+        without an LM. ``collect_stats`` is not ported yet and raises.
         """
         logits_list = self._without_pool_arg(logits_list, _pool_compat)
         dispatch_kw = dict(
@@ -686,12 +745,11 @@ class TorchBeamSearchDecoderCTC:
         length bucketing). ``lm_start_state`` (the single-utterance call's)
         seeds every row's LM context on the dense path.
         """
-        if hotwords is not None:
-            raise _not_ported("hotwords")
         if collect_stats:
             raise _not_ported("collect_stats")
         if not logits_list:
             return None
+        hot, hot_weight = self._hot_tables(hotwords, hotword_weight)
         v = len(self._labels)
         n = len(logits_list)
         n_pad = ((n + batch_pad - 1) // batch_pad) * batch_pad
@@ -715,7 +773,7 @@ class TorchBeamSearchDecoderCTC:
                 beam_width=beam_width, beam_prune_logp=beam_prune_logp,
                 token_min_logp=token_min_logp, prune_history=prune_history,
                 k_chunk=5 if token_chunking is True else int(token_chunking),
-                n_pad=n_pad, top_n=top_n,
+                n_pad=n_pad, top_n=top_n, hot=hot, hot_weight=hot_weight,
             )
         lens = [m.shape[0] for m in mats]
         t_max = max(max(lens), 1)
@@ -729,7 +787,7 @@ class TorchBeamSearchDecoderCTC:
         k = self._pick_k(max_tokens_per_frame, counts, v)
         out = self._launch(
             logp, n_frames, k, beam_width, beam_prune_logp, token_min_logp,
-            prune_history, top_n, lm_start_state,
+            prune_history, top_n, lm_start_state, hot, hot_weight,
         )
         return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
                 "frame_ids": frame_ids_list, "offsets": offsets}
@@ -747,6 +805,8 @@ class TorchBeamSearchDecoderCTC:
         k_chunk: int,
         n_pad: int,
         top_n: Optional[int],
+        hot: Optional[Dict[str, Any]],
+        hot_weight: float,
     ) -> Dict[str, Any]:
         """Launch one batch of normalized matrices through the token-timeline engine.
 
@@ -779,7 +839,7 @@ class TorchBeamSearchDecoderCTC:
         n_frames[:n] = lens
         out = self._launch(
             (toks, tlogp, fin), n_frames, k_chunk, beam_width, beam_prune_logp,
-            token_min_logp, prune_history, top_n, None, token_timeline=True,
+            token_min_logp, prune_history, top_n, None, hot, hot_weight, token_timeline=True,
         )
         return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
                 "frame_ids": step_frames, "offsets": offsets}
@@ -824,11 +884,16 @@ class TorchBeamSearchDecoderCTC:
         for row, (u, r) in enumerate(zip(ui.tolist(), ri.tolist())):
             words, frames = pairs[row]
             off = float(offsets[u]) if offsets is not None else 0.0
-            last_state = None
-            if self._lm is not None:
-                n_ctx = int(host["ctx_len"][u, r])
-                ctx = host["ctx"][u, r]
-                last_state = NGramLMState(tuple(int(w) for w in ctx[len(ctx) - n_ctx:]) if n_ctx else ())
+            last_state: Optional[AbstractLMState] = None
+            if self._lm_members:
+                states = []
+                for i in range(len(self._lm_members)):
+                    n_ctx = int(host[f"ctx_len{i}"][u, r])
+                    ctx = host[f"ctx{i}"][u, r]
+                    states.append(NGramLMState(
+                        tuple(int(w) for w in ctx[len(ctx) - n_ctx:]) if n_ctx else ()
+                    ))
+                last_state = states[0] if len(states) == 1 else MultiLMState(states)
             results[u].append(
                 OutputBeam(
                     text=" ".join(words),

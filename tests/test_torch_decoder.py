@@ -124,10 +124,10 @@ def test_reset_params_retunes_without_rebuild(decoders):
     ],
 )
 def test_unported_options_raise(decoders, option):
-    """Options still to port raise by name; the serving options decode as the reference."""
+    """Options still to port raise by name; the serving options and hotwords decode as the reference."""
     jdec, pdec = decoders["none"]
     name = next(iter(option))
-    if name in ("hotwords", "collect_stats"):
+    if name == "collect_stats":
         with pytest.raises(NotImplementedError, match=name):
             pdec.decode_beams_batch([word_logits(0, 5)], **option)
         return
@@ -154,5 +154,8 @@ def test_unported_engines_and_formats_raise(arpa_path, tmp_path):
     assert dec.decode(TEST_LOGITS, beam_width=8) == "bugs bunny"
     with pytest.raises(NotImplementedError, match="streaming"):
         dec.get_starting_state()
-    with pytest.raises(NotImplementedError, match="hotwords"):
-        dec.decode(TEST_LOGITS, hotwords=["bugs"])
+    # hotwords are ported (tests/test_torch_hotwords.py); a nested ensemble still raises
+    assert dec.decode(TEST_LOGITS, beam_width=8, hotwords=["bugs"]) == "bugs bunny"
+    nested = P.MultiLanguageModel([P.MultiLanguageModel([dec.language_model] * 2), dec.language_model])
+    with pytest.raises(NotImplementedError, match="nested"):
+        P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), nested, device="cpu")

@@ -30,13 +30,21 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert "clean" in out.stdout
 
 
-def test_no_source_file_names_jax_or_the_reference_package():
+def _port_sources():
+    """Every source file of the port: the package, ``chip_smoke.py`` and ``scripts/torch_*.py``."""
     root = os.path.join(REPO, "pyctcdecode_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
+    scripts = os.path.join(REPO, "scripts")
+    paths += [os.path.join(scripts, name) for name in sorted(os.listdir(scripts))
+              if name.startswith("torch_") and name.endswith(".py")]
     for dirpath, _, files in os.walk(root):
         paths += [os.path.join(dirpath, name) for name in files if name.endswith((".py", ".cu"))]
+    return paths
+
+
+def test_no_source_file_names_jax_or_the_reference_package():
     offenders = []
-    for path in paths:
+    for path in _port_sources():
         with open(path, encoding="utf-8") as fh:
             text = fh.read()
         for needle in ("import jax", "from jax", "pyctcdecode_tpu"):
@@ -45,25 +53,54 @@ def test_no_source_file_names_jax_or_the_reference_package():
     assert not offenders, offenders
 
 
-def test_default_device_is_cuda_and_never_falls_back():
+def _two_member_lm(tmp_path):
+    import pyctcdecode_torch as P
+    from pyctcdecode_torch.models.ngram import open_ngram_file
+
+    from .torch_cases import ARPA, ARPA_2GRAM, UNIGRAMS
+
+    members = []
+    for name, text in (("a", ARPA), ("b", ARPA_2GRAM)):
+        path = tmp_path / f"{name}.arpa"
+        path.write_text(text)
+        members.append(P.LanguageModel(open_ngram_file(str(path)), UNIGRAMS))
+    return P.MultiLanguageModel(members)
+
+
+def test_default_device_is_cuda_and_never_falls_back(tmp_path):
+    """Without an LM and with a two-member MultiLanguageModel."""
     import pyctcdecode_torch as P
 
-    alphabet = P.Alphabet.build_alphabet([" ", "a", "b", ""])
-    if torch.cuda.is_available():
-        assert P.TorchBeamSearchDecoderCTC(alphabet).device.type == "cuda"
-        return
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        P.TorchBeamSearchDecoderCTC(alphabet)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        P.build_ctcdecoder([" ", "a", "b", ""])
-    assert P.TorchBeamSearchDecoderCTC(alphabet, device="cpu").device.type == "cpu"
+    from .helpers import SAMPLE_LABELS
+
+    alphabet = P.Alphabet.build_alphabet(SAMPLE_LABELS)
+    for model in (None, _two_member_lm(tmp_path)):
+        if torch.cuda.is_available():
+            dec = P.TorchBeamSearchDecoderCTC(alphabet, model)
+            assert dec.device.type == "cuda"
+            assert all(tabs["trie_rows"].is_cuda for tabs in dec._tabs["lms"])
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            P.TorchBeamSearchDecoderCTC(alphabet, model)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            P.build_ctcdecoder(SAMPLE_LABELS)
+        dec = P.TorchBeamSearchDecoderCTC(alphabet, model, device="cpu")
+        assert dec.device.type == "cpu"
+        assert all(t.device.type == "cpu" for t in dec._tabs["tok"].values())
+        assert len(dec._tabs["lms"]) == (0 if model is None else 2)
+        for tabs in dec._tabs["lms"]:
+            assert tabs["trie_rows"].device.type == "cpu"
+            assert all(tab["bucket"].device.type == "cpu" for tab in tabs["fp"])
 
 
 def test_every_new_module_is_in_the_source_scan():
-    """The scan above walks the package: the gather wrapper, its source and the build module are in it."""
-    root = os.path.join(REPO, "pyctcdecode_torch")
-    for rel in ("ops/gather.py", "csrc/gather.cu", "csrc/build.py", "utils/logits.py"):
-        assert os.path.isfile(os.path.join(root, rel)), rel
+    """The scan above walks the package and the port's scripts: each of these is in it."""
+    scanned = {os.path.relpath(path, REPO) for path in _port_sources()}
+    for rel in ("pyctcdecode_torch/ops/gather.py", "pyctcdecode_torch/csrc/gather.cu",
+                "pyctcdecode_torch/csrc/build.py", "pyctcdecode_torch/utils/logits.py",
+                "pyctcdecode_torch/models/hotwords.py", "scripts/torch_decode_latency.py",
+                "chip_smoke.py"):
+        assert rel in scanned, rel
 
 
 @pytest.mark.parametrize("wrapper", ["gather_rows", "merge_prune"])

@@ -19,6 +19,7 @@ from pyctcdecode_torch.ops import merge as tm
 from .helpers import SAMPLE_LABELS
 from .torch_cases import (
     ARPA,
+    ARPA_2GRAM,
     DEAD,
     UNIGRAMS,
     assert_outputs,
@@ -287,3 +288,92 @@ def test_gpu_decode_matches_cpu_decode(tmp_path):
     assert tg.probe_rows.launches - probe_before == steps + 2 * 2
     assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)
     assert_same_batch(want, got)  # and the dense decode's results
+
+
+@pytest.mark.cuda
+def test_gather_and_probe_alternate_between_two_members_tables():
+    """Two members' trie planes and bucket tables in one process, calls alternating.
+
+    Nothing of a table's size, seeds or geometry may stick to the wrappers
+    between calls: each call is held against its plain version.
+    """
+    dev = _cuda()
+    rng = np.random.RandomState(4)
+    planes = []
+    for rows, n_chars in ((300, 28), (170, 31)):
+        tp = tdt.trie_pack_params(n_chars)
+        plane = torch.as_tensor(
+            rng.randint(-(1 << 31), 1 << 31, (rows, tp["pack"] * tp["stride"])).astype(np.int32)).to(dev)
+        planes.append((plane, tp, rows * tp["pack"]))
+    members = [_probe_tables(dev, rng, (400, 300), 900)[0], _probe_tables(dev, rng, (5000,), 3000)[0]]
+    for rep in range(3):
+        for (plane, tp, n_nodes), tabs in zip(planes, members):
+            nodes = torch.as_tensor(rng.randint(0, n_nodes, size=(4, 25)).astype(np.int64)).to(dev)
+            got = tdt.trie_fetch_rows(plane, tp, nodes)
+            want = tg.gather_rows_ref(plane, nodes // tp["pack"], nodes % tp["pack"], tp["stride"], tp["width"])
+            assert torch.equal(got, want)
+            order = len(tabs) + 1
+            full = torch.as_tensor(rng.randint(-1, 1000, size=(4, 25, order)).astype(np.int64)).to(dev)
+            ctx_len = torch.as_tensor(rng.randint(0, order, size=(4, 25)).astype(np.int64)).to(dev)
+            got = tg.probe_rows(full, ctx_len, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+            want = tg.probe_rows_ref(full, ctx_len, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_expand_with_a_hotword_partial_score_and_no_lm():
+    """The hotword completion score as ``pscore`` (weight x length / shortest completion)."""
+    dev = _cuda()
+    rng = np.random.RandomState(9)
+    beam, tok, cids, _, prune = expand_inputs(rng, 3, 8, 100, 1)
+    beam["wfused"] = np.where(rng.rand(3, 100) < 0.3, 10.0, 0.0).astype(np.float32)  # hotword boosts
+    plen = rng.randint(0, 9, size=(3, 8, 100))
+    min_comp = np.maximum(plen, rng.randint(1, 12, size=plen.shape))
+    hot_pref = (rng.rand(*plen.shape) < 0.4) & (plen > 0)
+    pscore = np.where(hot_pref, np.float32(10.0) * plen.astype(np.float32) / min_comp, 0.0)
+    eargs = (
+        {key: val.to(dev) for key, val in torch_planes(beam).items()},
+        {key: val.to(dev) for key, val in torch_planes(tok).items()},
+        torch.as_tensor(cids).to(dev), torch.as_tensor(pscore.astype(np.float32)).to(dev),
+        torch.as_tensor(prune).to(dev), False,
+    )
+    got = tm.expand_merge_prune(*eargs)
+    torch.cuda.synchronize()
+    assert_outputs([g.cpu() for g in got], [w.cpu() for w in tm.expand_merge_prune_ref(*eargs)])
+
+
+@pytest.mark.cuda
+def test_gpu_two_member_hotword_decode_matches_cpu(tmp_path):
+    """Two members (a 3-gram with ``</s>`` credit, a 2-gram without) and hotwords, CUDA vs CPU.
+
+    Per step: one ``expand_merge_prune``, one ``gather_rows`` and one
+    ``probe_rows`` per member; per finalize one ``merge_prune`` and, per
+    member, one ``probe_rows`` for the last word plus one for ``</s>`` where
+    the member scores it. Hotwords without an LM read no LM table.
+    """
+    _cuda()
+    members = []
+    for name, text, kw in (("a", ARPA, {}), ("b", ARPA_2GRAM, dict(alpha=0.3, beta=2.0, score_boundary=False))):
+        path = tmp_path / f"{name}.arpa"
+        path.write_text(text)
+        members.append(P.LanguageModel(open_ngram_file(str(path)), UNIGRAMS, **kw))
+    alphabet = P.Alphabet.build_alphabet(SAMPLE_LABELS)
+    lm = P.MultiLanguageModel(members)
+    batch = [word_logits(11, 33), word_logits(12, 17), word_logits(13, 40)]
+    hot = dict(hotwords=["bugs bunny", "sun"], hotword_weight=8.0)
+    for model, probes_per_step, probes_per_finalize in ((lm, 2, 3), (None, 0, 0)):
+        gpu = P.TorchBeamSearchDecoderCTC(alphabet, model)
+        cpu = P.TorchBeamSearchDecoderCTC(alphabet, model, device="cpu")
+        for kw in (dict(beam_width=16, prune_history=True, **hot),
+                   dict(beam_width=16, prune_history=True, token_chunking=3, blank_collapse=True,
+                        length_bucketing=2, **hot)):
+            before = {fn: fn.launches for fn in (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows,
+                                                 tg.probe_rows)}
+            got = gpu.decode_beams_batch(batch, **kw)
+            used = {fn: fn.launches - n for fn, n in before.items()}
+            steps, finalizes = used[tm.expand_merge_prune], used[tm.merge_prune]
+            assert steps >= 40 and finalizes == (2 if "length_bucketing" in kw else 1)
+            assert used[tg.gather_rows] == (2 if model is not None else 0) * steps
+            assert used[tg.probe_rows] == probes_per_step * steps + probes_per_finalize * finalizes
+            assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)

@@ -54,6 +54,10 @@ ngram 3=4
 """
 UNIGRAMS = ["bugs", "bunny", "bun", "buns", "sun", "sunny", "gun", "nun"]  # "guns" left out
 
+# The same model cut to a 2-gram (its 3-grams dropped): a second member of
+# another order for MultiLanguageModel cases.
+ARPA_2GRAM = ARPA.replace("ngram 3=4\n", "").split("\\3-grams:")[0] + "\\end\\\n"
+
 
 def merge_inputs(rng, n, k, b):
     kl = rng.randint(0, 5, size=(n, k, b)).astype(np.uint32)
@@ -149,6 +153,15 @@ def word_logits(seed, t):
     return mat
 
 
+def state_contexts(state):
+    """An LM state as plain data: None, a context tuple, or a list of them (a MultiLMState)."""
+    if state is None:
+        return None
+    if hasattr(state, "states"):
+        return [state_contexts(member) for member in state.states]
+    return state.context
+
+
 def assert_same_beams(want, got, tol=SCORE_TOL):
     """Two ranked OutputBeam lists: texts, frames, LM states identical; scores within ``tol``."""
     assert len(got) == len(want)
@@ -156,8 +169,7 @@ def assert_same_beams(want, got, tol=SCORE_TOL):
     for wb, gb in zip(want, got):
         assert gb.text == wb.text
         assert gb.text_frames == wb.text_frames
-        w_state = None if wb.last_lm_state is None else wb.last_lm_state.context
-        g_state = None if gb.last_lm_state is None else gb.last_lm_state.context
-        assert g_state == w_state
+        assert type(gb.last_lm_state).__name__ == type(wb.last_lm_state).__name__
+        assert state_contexts(gb.last_lm_state) == state_contexts(wb.last_lm_state)
         assert abs(gb.logit_score - wb.logit_score) <= tol
         assert abs(gb.lm_score - wb.lm_score) <= tol
