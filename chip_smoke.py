@@ -16,7 +16,8 @@ Phases (any failed check exits non-zero and prints no result line):
    without the window; the serving path's length groups of N = 16 with K = 5
    per-utterance chunk token planes with empty slots and the window off for
    its step, and K = 1 with the window off for its final merge; the chunk
-   step at N = 32 as well), at B = 1024, and at every cluster size (blocks
+   step at N = 32 as well; the bpe path's BPE form, lmax 5, at [32, 129, 100]
+   and chunk [16, 5, 100]), at B = 1024, and at every cluster size (blocks
    per utterance) beside the one the kernel picks from K. Tolerances: scores and merged logits within atol
    1e-5 + rtol 1e-6 (the kernel sums exponentials in another order); ``src``
    exact at live entries; the pruned (DEAD) sets equal except within that
@@ -40,21 +41,22 @@ Phases (any failed check exits non-zero and prints no result line):
    launch counters must show one ``expand_merge_prune``, one ``gather_rows``
    (trie rows) and one ``probe_rows`` launch per frame step, and per
    finalization one ``merge_prune`` launch and two ``probe_rows`` launches
-   (the last word and ``</s>``). The first 4 utterances decode
+   (the last word and ``</s>``). The first 2 utterances decode
    again with a ``device="cpu"`` decoder (the plain versions): identical
    texts, lm_score within 1e-3;
 6. serving path: the same utterances through ``decode_batch(...,
    token_chunking=True, blank_collapse=True, length_bucketing=16)`` (two
-   length groups) and through ``decode_beams_batches`` over 3 batches. Texts
-   equal the dense path's, lm_score within 1e-3 of it, the first 4 utterances
-   identical on the CPU, the pipelined generator gives ``decode_beams_batch``'s
-   results batch by batch, and the launch counters equal the virtual steps
+   length groups) and through ``decode_beams_batches`` over the batch and the
+   batch reversed. Texts equal the dense path's, lm_score within 1e-3 of it,
+   the first 2 utterances identical on the CPU, the pipelined generator gives
+   the serving call's results batch by batch, and the launch counters equal the virtual steps
    that the host prep implies. One more batch is launched and collected in
    separate timed stages (host prep, enqueue, wait, copy and assembly), and
    the output copy through the decoder's pinned buffer is timed beside a
    plain ``.cpu()`` of the same tensors;
-7. profile: one more decode of each path under ``torch.profiler`` (device
-   time by kernel, device idle share);
+7. profile: each path decodes the first 200 frames of every utterance
+   under ``torch.profiler`` (device time by kernel, device ops per step,
+   device idle share against the same decode unprofiled);
 8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
    and the same seed's 3-gram at half the bigrams and trigrams with other
    fusion settings) and 28 hotwords (24 transcript words, 2 transcript
@@ -65,10 +67,21 @@ Phases (any failed check exits non-zero and prints no result line):
    member plus one for ``</s>`` where the member scores it. Member B's
    ``gather_rows`` and ``probe_rows`` are held bit-exact on its own tables
    with a real step's nodes and queries, warm and with the L2 flushed; the
-   first 4 utterances, and every utterance whose top text the hotwords
+   first 2 utterances, and every utterance whose top text the hotwords
    change, decode identically on the CPU (``MultiLMState`` last states);
    WER and the top texts the hotwords change are logged; the dense call is
-   profiled with and without the hotwords.
+   profiled;
+9. bpe: a 128-piece vocabulary of Conformer-CTC's width (V = 129 with the
+   blank, ``▁⁇▁`` bounded on the right, labels up to ``▁`` + 4 letters, grown
+   from the parity LM's words) over the same 32 references, split into
+   pieces, with the same noise model at 0.04 s a frame. ``expand_merge_prune``
+   in its BPE form on a real dense and serving step against its plain
+   version at every cluster size; the dense call (K = 129), the serving call
+   and ``decode_beams_batches`` (the batch and the batch reversed) with member A, and one dense
+   call with hot2lm's two members and hotwords, each with its launch counts;
+   serving and pipelined texts equal the dense texts; the first 2 utterances
+   identical on the CPU (member A, and the two members with the hotwords),
+   dense; WER beside greedy WER; the dense call profiled.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -92,7 +105,7 @@ GROUP_ROWS = 16  # rows of one length group of the serving call
 BEAM = 100
 K_TOKENS = len(LIBRI_LABELS)
 ATOL, RTOL = 1e-5, 1e-6
-CPU_CHECK = 4
+CPU_CHECK = 2  # utterances decoded again on the CPU (its plain versions are the host's costliest step)
 LM_SCORE_TOL = 1e-3
 RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
@@ -109,12 +122,22 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 REPS = 30
 PROFILE_TRIES = 4
+PROFILE_FRAMES = 200  # profiles decode the first frames of every utterance (the profiler slows the host ~10x)
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
+PRE_ROLL, PRE_ROLL_KERNEL = 64, "FillFunctor<double>"  # a decode fills no float64 tensor
 # the hot2lm path: member B's fusion settings (the JAX package's mixed-member
 # test settings) and the hotword list's make-up
 MEMBER_B = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, score_boundary=False)
 HOT_SEED, HOT_UNIGRAMS, HOT_PHRASES, HOT_UNKNOWN = 13, 24, 2, 2
+# the bpe path: a piece vocabulary of the width of NeMo's English Conformer-CTC
+# checkpoints (a 128-piece SentencePiece tokenizer, the blank appended as the
+# last logit column), grown from the parity LM's words; Conformer's 4x
+# subsampling of 10 ms frames
+BPE_QUOTA = {2: 13, 3: 12, 4: 12}  # multi-letter pieces by length, word-initial and inner each
+BPE_V, BPE_LMAX = 129, 5  # logit columns; the longest label, ▁ + 4 letters
+BPE_FRAME_SEC = 0.04
+BPE_SEED = 3
 
 
 _T0 = time.perf_counter()
@@ -276,7 +299,7 @@ def merge_inputs(torch, dev, rng, n, k, b, window=True):
     return [torch.as_tensor(a).to(dev) for a in (kl, kh, valid, logit, extra, prune)]
 
 
-def expand_inputs(torch, dev, rng, n, k, b, lmax, chunk=False):
+def expand_inputs(torch, dev, rng, n, k, b, lmax, chunk=False, vocab=K_TOKENS):
     def lanes(shape):
         return torch.as_tensor(rng.randint(0, 4, size=shape).astype(np.int64)).to(dev)
 
@@ -305,7 +328,7 @@ def expand_inputs(torch, dev, rng, n, k, b, lmax, chunk=False):
         # one timeline chunk per utterance: distinct ascending ids that differ
         # from row to row, ending in empty slots (id -1: clamped to 0 for
         # lookups, not admitted), as the serving step feeds the kernel
-        ids = np.stack([np.sort(rng.choice(K_TOKENS, size=k, replace=False)) for _ in range(n)])
+        ids = np.stack([np.sort(rng.choice(vocab, size=k, replace=False)) for _ in range(n)])
         holes = np.arange(k)[None, :] >= rng.randint(1, k + 1, size=(n, 1))
         tok["tok"] = torch.as_tensor(np.where(holes, 0, ids).astype(np.int32)).to(dev)
         tok["admit"] = torch.as_tensor((~holes).astype(np.int32)).to(dev)
@@ -361,14 +384,17 @@ def kernel_phases(torch, merge) -> dict:
             rec[("merge_prune", key)]["ms_by_cluster"] = by_cluster(
                 torch, label, lambda c: merge.merge_prune(*args, cluster=c), want, args[5], ms)
         del args, got, want
-    # (N, K, B, lmax, BPE, chunk): the dense step, the BPE-like walk, the serving
-    # chunk step at the dense batch's rows and at a length group's, the widest beam
+    # (N, K, B, lmax, BPE, chunk): the dense step, the serving chunk step at the
+    # dense batch's rows and at a length group's, the bpe path's dense step
+    # (K = V = 129) and chunk step, the widest beam
     for n, k, b, lmax, is_bpe, chunk in (
-            (N_UTTS, K_TOKENS, BEAM, 1, False, False), (N_UTTS, K_TOKENS, BEAM, 3, True, False),
-            (N_UTTS, CHUNK, BEAM, 1, False, True), (GROUP_ROWS, CHUNK, BEAM, 1, False, True),
+            (N_UTTS, K_TOKENS, BEAM, 1, False, False), (N_UTTS, CHUNK, BEAM, 1, False, True),
+            (GROUP_ROWS, CHUNK, BEAM, 1, False, True), (N_UTTS, BPE_V, BEAM, BPE_LMAX, True, False),
+            (GROUP_ROWS, CHUNK, BEAM, BPE_LMAX, True, True),
             (WIDE_ROWS, K_TOKENS, WIDE_BEAM, 1, False, False), (WIDE_ROWS, CHUNK, WIDE_BEAM, 1, False, True)):
         beam, tok, cids, pscore, prune = expand_inputs(
-            torch, dev, np.random.RandomState((300 if chunk else 200 + lmax) + (n != N_UTTS) * 1000), n, k, b, lmax, chunk
+            torch, dev, np.random.RandomState((300 if chunk else 200 + lmax) + (n != N_UTTS) * 1000), n, k, b, lmax,
+            chunk, BPE_V if is_bpe else K_TOKENS,
         )
         eargs = (beam, tok, cids, pscore, prune, is_bpe)
         got = merge.expand_merge_prune(*eargs)
@@ -387,18 +413,18 @@ def kernel_phases(torch, merge) -> dict:
         ins = list(beam.values()) + list(tok.values()) + [cids, pscore, prune]
         alive = beam["logit"] > -1e29
         n_valid = int((alive[:, None, :] & (tok["admit"][:, :, None] != 0)).sum())
-        # pairwise key tests + ~30 scalar ops per candidate to build it
-        ops = 3.0 * b * n_valid + 30.0 * n * k * b
+        # pairwise key tests + ~26 scalar ops per candidate to build it, and 4
+        # per character of its partial-word hash
+        ops = 3.0 * b * n_valid + (26.0 + 4.0 * lmax) * n * k * b
         b_ms, b_by = bound_ms(nbytes(ins) + nbytes(got), ops)
         log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (call {call:.4f}), "
-            f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by})")
+            f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by}), {n_valid} valid candidates")
         key = f"n={n},k={k},lmax={lmax}" + ("" if b == BEAM else f",b={b}") + (",chunk,window off" if chunk else "")
         rec[("expand_merge_prune", key)] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             shape=[n, k, b], call_ms=call, plain_call_ms=plain_call)
-        if lmax == 1:
-            rec[("expand_merge_prune", key)]["ms_by_cluster"] = by_cluster(
-                torch, label, lambda c: merge.expand_merge_prune(*eargs, cluster=c), want, prune, ms)
+        rec[("expand_merge_prune", key)]["ms_by_cluster"] = by_cluster(
+            torch, label, lambda c: merge.expand_merge_prune(*eargs, cluster=c), want, prune, ms)
         del eargs, got, want, beam, tok, cids, pscore
     torch.cuda.empty_cache()
     return rec
@@ -645,19 +671,27 @@ def device_profile(torch, run, steps: int, latency_s: float, launches: dict) -> 
     slows the host a lot, so the idle share is taken against the
     unprofiled batch latency: 1 - device busy / latency. A trace whose own
     kernels' rows do not count ``launches`` (the launch counters of the
-    same call) is incomplete and taken again. ``None`` when the profiler
+    same call) is incomplete and taken again; each trace starts with
+    ``PRE_ROLL`` float64 fills, left out, since a trace may drop the first
+    kernels it sees. ``None`` when the profiler
     returns no complete trace in any of its tries.
     """
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    pre = torch.empty(1, dtype=torch.float64, device="cuda")
     rows = []
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a pre-roll of tiny fills: where the trace drops its first kernels,
+            # it drops these (left out of the sums below) and not the decode's
+            for _ in range(PRE_ROLL):
+                pre.fill_(0.0)
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
         rows = [(ev.key, _device_us(ev), int(ev.count)) for ev in prof.key_averages()
-                if _is_device_row(ev) and _device_us(ev) > 0]
+                if _is_device_row(ev) and _device_us(ev) > 0 and PRE_ROLL_KERNEL not in ev.key]
         own = {}  # the package's own kernels on this decode's data: (device ms, launches)
         for kernel in OWN_KERNELS:
             hit = [r for r in rows
@@ -691,6 +725,60 @@ def log_profile(tag: str, prof, latency: float, card: str) -> None:
         log(f"[{tag}]   {kernel}: {ms:.3f} ms over {count} launches, {ms / count:.5f} ms each")
     for key, us, count in prof["top"]:
         log(f"[{tag}]   {us / 1e3:9.2f} ms  x{count:6d}  {key[:100]}")
+
+
+def profile_head(torch, tag: str, wrappers: dict, run, logits, card: str) -> dict:
+    """``device_profile`` of ``run`` on the first ``PROFILE_FRAMES`` frames of every utterance.
+
+    The same call unprofiled, three times, gives the latency (median) the idle
+    share is taken against and the launch counts the trace must show; its
+    steps are its ``expand_merge_prune`` launches.
+    """
+    head = [m[:PROFILE_FRAMES] for m in logits]
+    latencies = []
+    for _ in range(3):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        run(head)
+        latencies.append(time.perf_counter() - t0)
+    launches = read_counts(wrappers)
+    steps = launches["expand_merge_prune"]
+    latency = statistics.median(latencies)
+    prof = device_profile(torch, lambda: run(head), steps, latency, launches)
+    log(f"[{tag}] the first {PROFILE_FRAMES} frames of each utterance: {steps} steps, unprofiled latency median "
+        f"{latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}")
+    log_profile(tag, prof, latency, card)
+    if prof is not None:
+        prof.update(frames=PROFILE_FRAMES, steps=steps, latency_s=latency, launches=launches)
+    return prof
+
+
+def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict,
+              audio_s: float, card: str) -> dict:
+    """``decode_beams_batches`` at depth 1 over the batch and the batch reversed.
+
+    Checks the launch counts the two batches' serving plans imply, and that
+    each batch's results are ``serve_beams`` (the serving call's, in that
+    batch's order).
+    """
+    from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
+
+    stream = [logits, logits[::-1]]
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    piped = list(decoder.decode_beams_batches(stream, pipeline_depth=1, prune_history=True, top_n=1, **serve_kw))
+    piped_s = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    check(len(piped) == len(stream), f"{tag}: decode_beams_batches gave not one result per batch")
+    blank_id = decoder._labels.index("")
+    plans = [serving_plan(decoder, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream]
+    check_counts(f"{tag} pipelined", launches, expected_counts(
+        members, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
+    for i, want in enumerate((serve_beams, serve_beams[::-1])):
+        check_same_results(f"{tag} pipelined batch {i}", want, piped[i], RERUN_TOL)
+    log(f"[{tag}] decode_beams_batches, the batch and the batch reversed at pipeline_depth 1: the serving "
+        f"call's results; {piped_s:.3f} s, {2 * audio_s / piped_s:.1f} audio-s/s [{card}]")
+    return {"pipelined_s": piped_s, "pipelined_launches": launches}
 
 
 def counters(merge, gather) -> dict:
@@ -799,7 +887,7 @@ def hotword_list(references, vocab) -> list:
     return unigrams + phrases + unknown
 
 
-def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_wer: float) -> dict:
+def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_wer: float):
     """The ``hot2lm`` path: two parity-scale 3-gram members and hotwords, dense and serving.
 
     Member A is ``lm_a``, the dense path's LM at its settings; member B is the
@@ -812,8 +900,8 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     calls; serving texts equal dense texts; the first utterances, and those
     whose top text the hotwords change, agree with a CPU decode
     (``MultiLMState`` last states). Logged: WER beside the single-LM path's,
-    the top texts the hotwords change, dense profiles with and without the
-    hotwords.
+    the top texts the hotwords change, a dense profile. Returns the record,
+    the two members and the hotwords.
     """
     from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.csrc.build import BUILD_DIR
@@ -903,10 +991,9 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("hot2lm serving", s_launches, expected_counts(members, plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "hot2lm: the serving decode's texts differ from the dense decode's")
-    for _ in range(2):
-        t0 = time.perf_counter()
-        serve_beams = multi.decode_beams_batch(logits, **serve_kw, **beams_kw)
-        s_latencies.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()  # two latencies here, to leave the bpe path its time
+    serve_beams = multi.decode_beams_batch(logits, **serve_kw, **beams_kw)
+    s_latencies.append(time.perf_counter() - t0)
     d_score = check_same_results("hot2lm serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
     s_latency = statistics.median(s_latencies)
     log(f"[hot2lm] serving decode_batch, chunks of {CHUNK}, collapse, {len(plan['groups'])} groups: texts, "
@@ -915,18 +1002,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
         f"audio-s/s, {plan['steps']} virtual steps, {s_latency / plan['steps'] * 1e3:.2f} ms per step, peak "
         f"device memory {s_peak_gb:.3f} GB [{card}]")
 
-    stream = [logits, logits[8:] + logits[:8], logits[::-1]]
-    reset_counts(wrappers)
-    t0 = time.perf_counter()
-    piped = list(multi.decode_beams_batches(stream, pipeline_depth=1, **serve_kw, **beams_kw))
-    piped_s = time.perf_counter() - t0
-    piped_launches = read_counts(wrappers)
-    plans = [plan] + [serving_plan(multi, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream[1:]]
-    check_counts("hot2lm pipelined", piped_launches, expected_counts(
-        members, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
-    check_same_results("hot2lm pipelined batch 0", serve_beams, piped[0], RERUN_TOL)
-    log(f"[hot2lm] decode_beams_batches, 3 batches at pipeline_depth 1: {piped_s:.3f} s, "
-        f"{3 * audio_s / piped_s:.1f} audio-s/s [{card}]")
+    piped = pipelined("hot2lm", multi, members, logits, serve_kw, serve_beams, wrappers, audio_s, card)
 
     t0 = time.perf_counter()
     cpu = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members), device="cpu")
@@ -940,13 +1016,9 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
         f"MultiLMState last states (max lm_score diff {max_d:.3g}), {time.perf_counter() - t0:.1f} s")
     del cpu
 
-    prof = device_profile(torch, lambda: multi.decode_batch(logits, **dense_kw), t_max, latency, launches)
-    log_profile("profile hot2lm dense", prof, latency, card)
-    # the same two members without hotwords: what the second member and the hotwords each add
-    plain_prof = device_profile(torch, lambda: multi.decode_batch(logits, **plain_kw), t_max, plain_latency,
-                                plain_launches)
-    log_profile("profile hot2lm dense, no hotwords", plain_prof, plain_latency, card)
-    return {
+    prof = profile_head(torch, "profile hot2lm dense", wrappers, lambda b: multi.decode_batch(b, **dense_kw),
+                        logits, card)
+    record = {
         "members": [dict(order=m.order, alpha=m.alpha, beta=m.beta, unk_score_offset=m.unk_score_offset,
                          score_boundary=m.score_boundary) for m in members],
         "bucket_rows": sizes, "hotwords": hot, "hotword_weight": DEFAULT_HOTWORD_WEIGHT, "setup_s": setup_s,
@@ -954,13 +1026,278 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
         "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches,
         "wer": wer, "wer_without_hotwords": wer_plain, "texts_changed_by_hotwords": changed,
         "serving": dict(plan, latency_s=s_latency, latencies_s=s_latencies, audio_s_per_s=audio_s / s_latency,
-                        peak_device_gb=s_peak_gb, launches=s_launches, pipelined_s=piped_s,
-                        pipelined_launches=piped_launches, max_lm_score_diff_vs_dense=d_score),
+                        peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
+                        **piped),
         "texts_changed_at": changed_at, "latency_without_hotwords_s": plain_latency,
         "cpu_checked": checked, "cpu_max_lm_score_diff": max_d, "profile": prof,
-        "profile_without_hotwords": plain_prof,
         "gather_member_b": b_gather["hot2lm member B dense step: trie rows"],
         "probe_member_b": b_probe["hot2lm member B dense"],
+    }
+    return record, members, hot
+
+
+def bpe_vocabulary(words) -> list:
+    """The bpe path's 128 raw labels, grown from ``words``.
+
+    ``<unk>`` (the alphabet makes it ``▁⁇▁``, bounded on the right) and
+    ``▁``; the 26 letters and the 26 ``▁``-letter pieces; for each length of
+    2-4 letters, the ``BPE_QUOTA`` most frequent word-initial substrings of
+    ``words``, ``▁``-prefixed, and as many of the most frequent inner ones
+    (ties broken by the string): 37 + 37. Counted by length, since over
+    random words a shorter substring is always the more frequent. The
+    alphabet appends the blank.
+    """
+    from collections import Counter
+
+    first = {n: Counter() for n in BPE_QUOTA}
+    inner = {n: Counter() for n in BPE_QUOTA}
+    for word in words:
+        for n in BPE_QUOTA:
+            for i in range(len(word) - n + 1):
+                (first if i == 0 else inner)[n][word[i : i + n]] += 1
+
+    def top(counts, m):
+        return sorted(counts, key=lambda piece: (-counts[piece], piece))[:m]
+
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    multi = []
+    for n, m in BPE_QUOTA.items():
+        multi += ["▁" + piece for piece in top(first[n], m)] + top(inner[n], m)
+    return ["<unk>", "▁"] + letters + ["▁" + c for c in letters] + multi
+
+
+def split_pieces(word: str, index: dict) -> list:
+    """Greedy longest-match piece ids of ``word``, the first piece ``▁``-prefixed."""
+    ids, i = [], 0
+    while i < len(word):
+        for n in range(min(4, len(word) - i), 0, -1):
+            piece = ("▁" if i == 0 else "") + word[i : i + n]
+            if piece in index:
+                ids.append(index[piece])
+                i += n
+                break
+        else:
+            raise CheckFailed(f"bpe: {word!r} cannot be split into the vocabulary's pieces")
+    return ids
+
+
+def bpe_corpus(references, labels) -> list:
+    """Logits of ``references`` over the piece alphabet ``labels`` (normalized, blank included).
+
+    ``synthesize_corpus``'s noise model at dev-other difficulty, one piece per
+    emission: each piece of a word's split holds 1-2 frames and is followed by
+    1-2 blank frames; raw logits are ``peak`` one-hot + N(0, ``noise``), blank
+    frames ``blank_peak``. Seeded with ``BPE_SEED``.
+    """
+    from pyctcdecode_torch.evaluation import DEV_OTHER_DIFFICULTY
+
+    d = DEV_OTHER_DIFFICULTY
+    index = {lab: i for i, lab in enumerate(labels)}
+    blank = index[""]
+    rng = np.random.RandomState(BPE_SEED)
+    mats = []
+    for ref in references:
+        ids = []
+        for word in ref.split():
+            for piece in split_pieces(word, index):
+                ids += [piece] * rng.randint(d["frames_per_char"][0], d["frames_per_char"][1] + 1)
+                ids += [blank] * rng.randint(d["blank_frames"][0], d["blank_frames"][1] + 1)
+        arr = np.asarray(ids)
+        mat = rng.randn(len(ids), len(labels)).astype(np.float32) * d["noise"]
+        mat[np.arange(len(ids)), arr] += d["peak"]
+        mat[arr == blank, blank] += d["blank_peak"] - d["peak"]
+        mats.append(mat)
+    return mats
+
+
+def greedy_bpe(logits, labels) -> list:
+    """Best-path texts: each frame's argmax piece, replayed by the piece rules."""
+    from pyctcdecode_torch.torch_decoder import replay_token_path
+
+    texts = []
+    for mat in logits:
+        words, _, (partial, _) = replay_token_path(mat.argmax(axis=1).tolist(), labels, True)
+        texts.append(" ".join(words + ([partial] if partial else [])))
+    return texts
+
+
+def record_expand_step(torch, decoder, logits, step: int, **decode_kw):
+    """The arguments ``expand_merge_prune`` gets in one real decode step (``decode_batch``
+    of ``logits`` with ``decode_kw``; ``step`` counts from the call's first decode)."""
+    from pyctcdecode_torch import engine
+
+    wrapper, calls = engine.expand_merge_prune, []
+
+    def recorder(*args):
+        if len(calls) == step:
+            calls.append(tuple({k: v.clone() for k, v in a.items()} if isinstance(a, dict) else
+                               a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        elif len(calls) < step:
+            calls.append(None)
+        return wrapper(*args)
+
+    engine.expand_merge_prune = recorder
+    try:
+        decoder.decode_batch(logits, beam_width=BEAM, **decode_kw)
+    finally:
+        engine.expand_merge_prune = wrapper
+    torch.cuda.synchronize()
+    check(len(calls) > step, "fewer expand_merge_prune calls than steps were recorded")
+    return calls[step]
+
+
+def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card) -> dict:
+    """The ``bpe`` path: a 128-piece vocabulary on the dense and serving decode.
+
+    The pieces come from :func:`bpe_vocabulary` over the parity LM's words
+    (V = 129 with the blank, ``▁⁇▁`` bounded on the right, labels up to
+    ``▁`` + 4 letters); the logits from :func:`bpe_corpus` over the same 32
+    references. Member A (``lm_a``) is the LM; one more dense decode runs
+    ``members`` (the hot2lm path's two) with the hotwords ``hot``. Checks:
+    ``expand_merge_prune`` in its BPE form on a real dense and serving step
+    against its plain version; the launch counts of the dense, serving,
+    pipelined and two-member calls; serving and pipelined texts equal the
+    dense texts; the first ``CPU_CHECK`` utterances decode identically on
+    the CPU, dense, with member A and with the two members and hotwords.
+    """
+    from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
+    from pyctcdecode_torch.utils.metrics import word_error_rate
+
+    t0 = time.perf_counter()
+    raw = bpe_vocabulary(vocab)
+    alphabet = P.Alphabet.build_alphabet(raw)
+    labels = alphabet.labels
+    decoder = P.TorchBeamSearchDecoderCTC(alphabet, lm_a)
+    lmax = int(decoder._tabs["tok"]["raw_chars"].shape[1])
+    check(alphabet.is_bpe and len(set(raw)) == 128 and len(labels) == BPE_V and lmax == BPE_LMAX,
+          f"bpe: the vocabulary is not 128 pieces + blank with labels of up to {BPE_LMAX} chars")
+    check(decoder.device.type == "cuda" and labels[0] == "▁⁇▁" and labels[-1] == "", "bpe: bad decoder")
+    logits = bpe_corpus(corpus.references, labels)
+    steps = max(m.shape[0] for m in logits)
+    audio_s = sum(m.shape[0] for m in logits) * BPE_FRAME_SEC
+    index = {lab: i for i, lab in enumerate(labels)}
+    pieces = sum(len(split_pieces(w, index)) for ref in corpus.references for w in ref.split())
+    setup_s = time.perf_counter() - t0
+    log(f"[bpe] {len(labels)} columns ({sum(lab.startswith('▁') for lab in labels)} ▁-pieces, lmax {lmax}): "
+        f"{labels[:8]} ... {labels[-6:]}; {N_UTTS} utterances, {pieces} pieces for "
+        f"{sum(len(r.split()) for r in corpus.references)} words, frames {min(m.shape[0] for m in logits)}.."
+        f"{steps}, {audio_s:.2f} audio-s at {BPE_FRAME_SEC} s a frame; decoder and corpus in {setup_s:.1f} s")
+
+    # expand_merge_prune in its BPE form on a real step of each path (the warm-up
+    # decodes), at every cluster size; its times are the kernel phase's and the profile's
+    blank_id = labels.index("")
+    head = [m[:61] for m in logits]
+    head_plan = serving_plan(decoder, head, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    step_rec = {}
+    for path, eargs in (
+            ("dense", record_expand_step(torch, decoder, head, 60)),
+            ("serving", record_expand_step(torch, decoder, head, head_plan["group_steps"][0] // 2, **SERVING))):
+        check(eargs[5] is True and eargs[2].shape[0] == BPE_LMAX, f"bpe {path} step: not the kernel's BPE form")
+        label = f"expand_merge_prune bpe {path} step {list(eargs[3].shape)} lmax={BPE_LMAX}"
+        want = merge.expand_merge_prune_ref(*eargs)
+        err = max(compare(f"{label} cluster={c}", merge.expand_merge_prune(*eargs, cluster=c), want, eargs[4])
+                  for c in (0,) + CLUSTERS)
+        alive = eargs[0]["logit"] > -1e29
+        n_valid = int((alive[:, None, :] & (eargs[1]["admit"][:, :, None] != 0)).sum())
+        log(f"{label}: {n_valid} valid candidates, {int((eargs[0]['force'] != 0).sum())} beams after a "
+            f"right-bounded piece; equal to the plain version at every cluster size, max_abs_err {err:.3g}")
+        step_rec[path] = dict(shape=list(eargs[3].shape), max_abs_err=err, n_valid=n_valid)
+        del eargs, want
+
+    wrappers = counters(merge, gather)
+    dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
+    beams_kw = dict(prune_history=True, top_n=1)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = decoder.decode_batch(logits, **dense_kw)
+    latencies = [time.perf_counter() - t0]
+    launches = read_counts(wrappers)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("bpe dense", launches, expected_counts([lm_a], steps, 1))
+    for _ in range(2):
+        t0 = time.perf_counter()
+        dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
+        latencies.append(time.perf_counter() - t0)
+        check(top_texts(dense_beams) == texts, "bpe: repeated dense decode gave other texts")
+    latency = statistics.median(latencies)
+    wer = word_error_rate(corpus.references, texts)
+    wer_greedy = word_error_rate(corpus.references, greedy_bpe(logits, labels))
+    forced = sum("⁇" in t for t in texts)
+    log(f"[bpe] dense decode_batch {N_UTTS} x beam {BEAM}, K {BPE_V}: latency median {latency:.3f} s of "
+        f"{', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} audio-s/s, {steps} frame steps, "
+        f"{latency / steps * 1e3:.2f} ms per frame step, peak device memory {peak_gb:.3f} GB; WER {wer:.4f} "
+        f"(greedy {wer_greedy:.4f}); {forced} top texts hold the unknown piece [{card}]")
+
+    plan = serving_plan(decoder, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    serve_kw = dict(beam_width=BEAM, **SERVING)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_texts = decoder.decode_batch(logits, **serve_kw)
+    s_latencies = [time.perf_counter() - t0]
+    s_launches = read_counts(wrappers)
+    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_counts("bpe serving", s_launches, expected_counts([lm_a], plan["steps"], len(plan["groups"])))
+    check(s_texts == texts, "bpe: the serving decode's texts differ from the dense decode's")
+    t0 = time.perf_counter()
+    serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
+    s_latencies.append(time.perf_counter() - t0)
+    d_score = check_same_results("bpe serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
+    s_latency = statistics.median(s_latencies)
+    log(f"[bpe] serving decode_batch, chunks of {CHUNK}, collapse, groups {plan['groups']} with "
+        f"{plan['group_steps']} virtual steps ({plan['frames_kept']} of {plan['frames_in']} frames kept): texts, "
+        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
+        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, {audio_s / s_latency:.1f} audio-s/s, "
+        f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
+
+    piped = pipelined("bpe", decoder, [lm_a], logits, serve_kw, serve_beams, wrappers, audio_s, card)
+
+    # two members and the hotwords, dense
+    multi = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members))
+    hot_kw = dict(dense_kw, hotwords=hot)
+    reset_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_beams = multi.decode_beams_batch(logits, **hot_kw, **beams_kw)
+    h_latency = time.perf_counter() - t0
+    h_launches = read_counts(wrappers)
+    check_counts("bpe hot2lm dense", h_launches, expected_counts(members, steps, 1))
+    h_wer = word_error_rate(corpus.references, top_texts(h_beams))
+    log(f"[bpe] two members + {len(hot)} hotwords, dense: {h_latency:.3f} s (one decode), "
+        f"{h_latency / steps * 1e3:.2f} ms per frame step, WER {h_wer:.4f} [{card}]")
+
+    # the first utterances on the CPU (dense: the serving texts equal the dense
+    # ones on the card), member A alone, then the two members with the hotwords
+    t0 = time.perf_counter()
+    sub = logits[:CPU_CHECK]
+    cpu_diff = {}
+    for tag, kw, gpu_dec, lm, batch_texts in (
+            ("dense", dense_kw, decoder, lm_a, texts),
+            ("hot2lm dense", hot_kw, multi, P.MultiLanguageModel(members), top_texts(h_beams))):
+        kw = dict(kw, batch_pad=1)
+        gpu_beams = gpu_dec.decode_beams_batch(sub, **kw, **beams_kw)
+        cpu_beams = P.TorchBeamSearchDecoderCTC(alphabet, lm, device="cpu").decode_beams_batch(sub, **kw, **beams_kw)
+        cpu_diff[tag] = check_same_results(f"bpe {tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
+        check(top_texts(gpu_beams) == batch_texts[:CPU_CHECK], f"bpe {tag}: batch-of-{N_UTTS} texts differ")
+        log(f"[check] bpe {tag}: first {CPU_CHECK} utterances identical on the CPU (max lm_score diff "
+            f"{cpu_diff[tag]:.3g}), {time.perf_counter() - t0:.1f} s so far")
+    del multi
+
+    prof = profile_head(torch, "profile bpe dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
+                        logits, card)
+    return {
+        "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC, "setup_s": setup_s,
+        "frame_steps": steps, "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
+        "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches, "wer": wer,
+        "wer_greedy": wer_greedy, "texts_with_unknown_piece": forced, "step_kernels": step_rec,
+        "serving": dict(plan, latency_s=s_latency, latencies_s=s_latencies, audio_s_per_s=audio_s / s_latency,
+                        peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
+                        **piped),
+        "hot2lm": {"latency_s": h_latency, "launches": h_launches, "wer": h_wer},
+        "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff, "profile": prof,
     }
 
 
@@ -1098,23 +1435,8 @@ def main() -> int:
         f"{audio_s / s_latency:.1f} audio-s/s, {plan['steps']} virtual steps, "
         f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
 
-    # the pipelined entry point over 3 batches, held against decode_beams_batch
-    stream = [logits, logits[8:] + logits[:8], logits[::-1]]
-    reset_counts(wrappers)
-    t0 = time.perf_counter()
-    piped = list(decoder.decode_beams_batches(stream, pipeline_depth=1, **serve_kw, **beams_kw))
-    piped_s = time.perf_counter() - t0
-    piped_launches = read_counts(wrappers)
-    check(len(piped) == len(stream), "decode_beams_batches: not one result per batch")
-    plans = [plan] + [serving_plan(decoder, b, blank_id, DEFAULT_MIN_TOKEN_LOGP) for b in stream[1:]]
-    check_counts("pipelined", piped_launches, expected_counts(
-        [lm], sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
-    check_same_results("pipelined batch 0", serve_beams, piped[0], RERUN_TOL)
-    for i in (1, 2):
-        check_same_results(f"pipelined batch {i}", decoder.decode_beams_batch(stream[i], **serve_kw, **beams_kw),
-                           piped[i], RERUN_TOL)
-    log(f"[serving] decode_beams_batches, 3 batches at pipeline_depth 1: decode_beams_batch's results "
-        f"batch by batch; {piped_s:.3f} s, {3 * audio_s / piped_s:.1f} audio-s/s [{card}]")
+    # the pipelined entry point, held against decode_beams_batch
+    piped = pipelined("serving", decoder, [lm], logits, serve_kw, serve_beams, wrappers, audio_s, card)
 
     # one more batch in separately timed stages, and the output copy both ways
     dispatch_kw = dict(
@@ -1167,16 +1489,19 @@ def main() -> int:
             f"{max_d:.3g}), {time.perf_counter() - t0:.1f} s so far")
 
     # ---- where the device time goes
-    prof = device_profile(torch, lambda: decoder.decode_batch(logits, **dense_kw), t_max, latency, launches)
-    log_profile("profile dense", prof, latency, card)
-    s_prof = device_profile(torch, lambda: decoder.decode_batch(logits, **serve_kw), plan["steps"], s_latency,
-                            s_launches)
-    log_profile("profile serving", s_prof, s_latency, card)
+    prof = profile_head(torch, "profile dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
+                        logits, card)
+    s_prof = profile_head(torch, "profile serving", wrappers, lambda b: decoder.decode_batch(b, **serve_kw),
+                          logits, card)
 
     # ---- the hot2lm path: two LM members and hotwords (the single-LM
     # decoders go first, so that the peak memory is the new decoder's own)
     del cpu_dec, decoder, handles, staged
-    hot_rec = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+    hot_rec, members, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+
+    # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
+    bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
+    del members
 
     kernels = []
     for kname, src_file, r, r_serving, site in (
@@ -1190,7 +1515,8 @@ def main() -> int:
         ("probe_rows", "gather.cu", probe_rec["dense"], probe_rec["serving"],
          reference_site("pallas_gather_probe.py", 65)),
     ):
-        errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname] or \
+        errs = [v["max_abs_err"] for (n2, _), v in rec.items() if n2 == kname] + \
+            ([v["max_abs_err"] for v in bpe_rec["step_kernels"].values()] if kname == "expand_merge_prune" else []) or \
             [v["max_abs_err"] for v in (probe_rec if kname == "probe_rows" else gather_rec).values()] + \
             [hot_rec["probe_member_b" if kname == "probe_rows" else "gather_member_b"]["max_abs_err"]]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
@@ -1203,7 +1529,19 @@ def main() -> int:
             "serving": {key: r_serving.get(key) for key in keys},
             "launches_hot2lm": hot_rec["launches"][kname],
             "launches_hot2lm_serving": hot_rec["serving"]["launches"][kname],
+            "launches_bpe": bpe_rec["launches"][kname],
+            "launches_bpe_serving": bpe_rec["serving"]["launches"][kname],
+            "launches_bpe_hot2lm": bpe_rec["hot2lm"]["launches"][kname],
         })
+        if kname == "expand_merge_prune":
+            for tag, r_bpe in (("bpe", rec[("expand_merge_prune", f"n={N_UTTS},k={BPE_V},lmax={BPE_LMAX}")]),
+                               ("bpe_serving", rec[("expand_merge_prune",
+                                                    f"n={GROUP_ROWS},k={CHUNK},lmax={BPE_LMAX},chunk,window off")]),
+                               ("bpe_dense_step", bpe_rec["step_kernels"]["dense"]),
+                               ("bpe_serving_step", bpe_rec["step_kernels"]["serving"])):
+                kernels[-1][tag] = {key: r_bpe.get(key) for key in keys}
+            own = (bpe_rec["profile"] or {}).get("own", {}).get("expand_merge_prune_kernel")
+            kernels[-1]["bpe"]["path_ms"] = own[0] / own[1] if own and own[1] else None
         if kname in ("gather_rows", "probe_rows"):
             r_b = hot_rec["gather_member_b" if kname == "gather_rows" else "probe_member_b"]
             kernels[-1]["hot2lm_member_b"] = {key: r_b.get(key) for key in keys}
@@ -1217,9 +1555,8 @@ def main() -> int:
                  "wer": wer, "wer_greedy": wer_greedy, "frame_sec": FRAME_SEC, "launches": launches},
         "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
-                        launches=s_launches, pipelined_s=piped_s, pipelined_launches=piped_launches,
-                        max_lm_score_diff_vs_dense=d_score, stages=stages),
-        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "card": smi,
+                        launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
+        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "card": smi,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out:

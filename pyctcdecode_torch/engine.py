@@ -50,7 +50,13 @@ are a per-call packed trie walked beside the members (``h_node`` /
 ``h_bits``): a committed hotword adds the hotword weight, an in-progress
 hotword prefix takes the hotword completion score as its partial score.
 
-The engine covers a char alphabet.
+Labels may be longer than one character: a BPE alphabet's pieces, or a char
+alphabet's multi-character labels. A token that extends the partial word
+walks each trie (and the hot trie) one character at a time: the first
+character from the beam's fetched trie row, each later one by an element
+gather at the node reached so far. With a BPE alphabet a right-bounded piece
+(``▁⁇▁``) sets the beam's ``force`` flag, and the next token that does not
+stay starts a new word even when it is a regular piece.
 """
 from __future__ import annotations
 
@@ -99,6 +105,8 @@ class EngineConfig:
     # top-B).
     token_timeline: bool = False
     use_hotwords: bool = False
+    # BPE alphabet: a right-bounded piece forces a word break before the next token
+    is_bpe: bool = False
     orders: Tuple[int, ...] = ()  # per-LM-member n-gram orders (empty when no LM)
 
     @property
@@ -124,16 +132,13 @@ def build_table_args(
     Hotword tables change per call: they go to the decode function instead
     (see :func:`make_decode_fn`).
     """
-    if tokens.raw_chars.shape[1] != 1:
-        raise NotImplementedError("multi-character labels are not ported yet")
-
     def put(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=device).to(dtype)
 
     tok = {
         "kind": put(tokens.kind, torch.int64),
         "piece_len": put(tokens.piece_len, torch.int64),
-        "raw_chars": put(tokens.raw_chars, torch.int64),
+        "raw_chars": put(tokens.raw_chars, torch.int64),  # [V, lmax], -1 past the label's end
         "raw_len": put(tokens.raw_len, torch.int64),
         "right_bound": put(tokens.right_bound, torch.int32),
         "seed_lo": as_lane(tokens.seed_hash_lo, device),
@@ -311,6 +316,20 @@ def _decode_trie_cells(tp: Dict[str, int], fc, word, cid):
     return torch.where(rank == (1 << rb) - 1, tp["dead"], entry)
 
 
+def _trie_cells_at(lm: Dict, node: torch.Tensor, cid: torch.Tensor):
+    """``(word, first_child)`` of ``node``'s packed trie slot for char ``cid`` (element gathers).
+
+    The walk's later characters: after the first one, the node differs per
+    (beam, token), so each reads its two words of the plane on its own. The
+    slot geometry comes from ``trie_pack``.
+    """
+    tp = lm["trie_pack"]
+    rows = lm["trie_rows"]
+    base = (node // tp["pack"]) * rows.shape[1] + (node % tp["pack"]) * tp["stride"]
+    flat = rows.reshape(-1)
+    return flat[base + 1 + cid // tp["cpw"]], flat[base]
+
+
 def _path_dtype(vocab_size: int) -> torch.dtype:
     """Narrowest signed dtype for emitted token ids (+ -1/-2/-3 sentinels)."""
     if vocab_size <= 120:
@@ -381,6 +400,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
     b, k, v = cfg.beam_width, cfg.k_tokens, cfg.vocab_size
     tl = cfg.token_timeline
     tok_dev, lms = tables["tok"], tables["lms"]
+    lmax = int(tok_dev["raw_chars"].shape[1])  # longest label, in chars
     n_lms, use_hot = cfg.n_lms, cfg.use_hotwords
     device = n_frames.device
     n = n_frames.shape[0]
@@ -423,7 +443,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
         tok_right = tok_dev["right_bound"][toks]
         tok_plen = tok_dev["piece_len"][toks]
         tok_rlen = tok_dev["raw_len"][toks]
-        cid = tok_dev["raw_chars"][toks, 0]
+        cids = tok_dev["raw_chars"][toks]  # [N, K, lmax], -1 past the label's end
         seed_lo_k = tok_dev["seed_lo"][toks]
         seed_hi_k = tok_dev["seed_hi"][toks]
         blank = tok_kind == KIND_BLANK
@@ -439,31 +459,47 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
         # ---- transition classes [N, B, K]: the trie walks and the partial
         # score need them here; the kernel re-derives the rest in registers
         stay = blank[:, None, :] | (state["last_tok"][:, :, None] == toks[:, None, :])
-        as_boundary = ~stay & boundary_kind[:, None, :]
+        if cfg.is_bpe:
+            # after a right-bounded piece every token that does not stay starts a word
+            as_boundary = ~stay & (boundary_kind[:, None, :] | state["force"][:, :, None])
+        else:
+            as_boundary = ~stay & boundary_kind[:, None, :]
         p_entry_n: List[torch.Tensor] = []  # per member: packed trie entry [N, B, K]
         h_entry_n = None  # packed hot entry [N, B, K]
         if n_lms or use_hot:
-            has = (cid >= 0)[:, None, :]
-            cid_safe = cid.clamp(min=0)
+            # extension walk over the label's chars; an entry stays put past the label's end
+            cur_n = [(state[f"p_node{i}"] | state[f"p_flags{i}"])[..., None] for i in range(n_lms)]
+            ext_n = [c.expand(n, b, k) for c in cur_n]
+            h_cur = (state["h_node"] | state["h_bits"])[..., None] if use_hot else None
+            h_ext = h_cur.expand(n, b, k) if use_hot else None
+            for l in range(lmax):
+                cid = cids[..., l]
+                has = (cid >= 0)[:, None, :]
+                cid_safe = cid.clamp(min=0)[:, None, :]
+                for i, lm in enumerate(lms):
+                    tp = lm["trie_pack"]
+                    if l == 0:
+                        # the first char from the beam's own row [N, B, W]
+                        rows = trie_rows_b[i]
+                        col = (1 + cid_safe // tp["cpw"]).expand(n, b, k)
+                        word, fc = rows.gather(2, col), rows[..., 0:1]
+                    else:
+                        word, fc = _trie_cells_at(lm, ext_n[i] & _NODE_MASK, cid_safe)
+                    ext_n[i] = torch.where(has, _decode_trie_cells(tp, fc, word, cid_safe), ext_n[i])
+                if use_hot:
+                    if l == 0:  # the beam's hot-trie row, then the token's char column
+                        h_ent = hot["next"][state["h_node"]].gather(2, cid_safe.expand(n, b, k))
+                    else:
+                        h_ent = hot["next"][h_ext & HOT_NODE_MASK, cid_safe]
+                    h_ext = torch.where(has, h_ent, h_ext)
 
             def walked(cur, seed_entry, ent):
-                return torch.where(
-                    stay, cur, torch.where(as_boundary, seed_entry, torch.where(has, ent, cur))
-                )
+                return torch.where(stay, cur, torch.where(as_boundary, seed_entry, ent))
 
             for i, lm in enumerate(lms):
-                tp = lm["trie_pack"]
-                rows = trie_rows_b[i]  # [N, B, W]
-                col = (1 + cid_safe // tp["cpw"])[:, None, :].expand(n, b, k)
-                word = rows.gather(2, col)
-                ent = _decode_trie_cells(tp, rows[..., 0:1], word, cid_safe[:, None, :])
-                cur = (state[f"p_node{i}"] | state[f"p_flags{i}"])[..., None]
-                p_entry_n.append(walked(cur, lm["seed_node"][toks][:, None, :], ent))
+                p_entry_n.append(walked(cur_n[i], lm["seed_node"][toks][:, None, :], ext_n[i]))
             if use_hot:
-                # the beam's hot-trie row, then the token's char column
-                h_ent = hot["next"][state["h_node"]].gather(2, cid_safe[:, None, :].expand(n, b, k))
-                cur = (state["h_node"] | state["h_bits"])[..., None]
-                h_entry_n = walked(cur, hot["seed"][toks][:, None, :], h_ent)
+                h_entry_n = walked(h_cur, hot["seed"][toks][:, None, :], h_ext)
             p_len = state["p_len"][..., None]
             p_len_n = torch.where(
                 stay, p_len,
@@ -500,9 +536,8 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             "tok_logp": tok_logp,
             "admit": admit.to(torch.int32),
         }
-        sc, merged, src = expand_merge_prune(  # char alphabet: one cid plane, no BPE
-            beam, tokp, cid.to(torch.int32)[None], pscore, prune, False
-        )
+        cid_planes = cids.permute(2, 0, 1).to(torch.int32, memory_format=torch.contiguous_format)
+        sc, merged, src = expand_merge_prune(beam, tokp, cid_planes, pscore, prune, cfg.is_bpe)
 
         new_state: Dict[str, torch.Tensor] = {}
         if tl:
@@ -581,7 +616,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             kind_w = tok_dev["kind"][tok_w]
             blank_w = kind_w == KIND_BLANK
             boundary_w = kind_w == KIND_BOUNDARY
-            cid_w = tok_dev["raw_chars"][tok_w, 0]
+            cid_w = tok_dev["raw_chars"][tok_w]  # [N, B, lmax]
             seed_lo_w = tok_dev["seed_lo"][tok_w]
             seed_hi_w = tok_dev["seed_hi"][tok_w]
             plen_w = tok_dev["piece_len"][tok_w]
@@ -591,7 +626,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             tok_w = toks.gather(1, tok_col)
             blank_w = blank.gather(1, tok_col)
             boundary_w = boundary_kind.gather(1, tok_col)
-            cid_w = cid.gather(1, tok_col)
+            cid_w = cids.gather(1, tok_col[..., None].expand(-1, -1, lmax))
             seed_lo_w = seed_lo_k.gather(1, tok_col)
             seed_hi_w = seed_hi_k.gather(1, tok_col)
             plen_w = tok_plen.gather(1, tok_col)
@@ -600,10 +635,16 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
         commit_w = bsel["p_len"] > 0
         mt_lo, mt_hi = hash_text_commit_t(bsel["text_lo"], bsel["text_hi"], bsel["p_lo"], bsel["p_hi"])
         stay_w = blank_w | (bsel["last_tok"] == tok_w)
-        bnd_w = ~stay_w & boundary_w
-        ext_lo_w, ext_hi_w = hash_extend_char_t(bsel["p_lo"], bsel["p_hi"], cid_w.clamp(min=0))
-        ext_lo_w = torch.where(cid_w >= 0, ext_lo_w, bsel["p_lo"])
-        ext_hi_w = torch.where(cid_w >= 0, ext_hi_w, bsel["p_hi"])
+        if cfg.is_bpe:
+            bnd_w = ~stay_w & (boundary_w | bsel["force"])
+        else:
+            bnd_w = ~stay_w & boundary_w
+        ext_lo_w, ext_hi_w = bsel["p_lo"], bsel["p_hi"]
+        for l in range(lmax):
+            c_w = cid_w[..., l]
+            nlo_w, nhi_w = hash_extend_char_t(ext_lo_w, ext_hi_w, c_w.clamp(min=0))
+            ext_lo_w = torch.where(c_w >= 0, nlo_w, ext_lo_w)
+            ext_hi_w = torch.where(c_w >= 0, nhi_w, ext_hi_w)
         new_state["p_lo"] = torch.where(
             stay_w, bsel["p_lo"], torch.where(bnd_w, seed_lo_w, ext_lo_w)
         )
@@ -730,7 +771,11 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict) -> Dic
     if cfg.use_hotwords:
         fused_scored = fused_scored + _hot_gain(prm, state["h_bits"], commit)
 
-    # merge key: committed text only
+    # merge key: committed text only. The reference's key also carries the
+    # partial, last token and force lanes for a finalize that does not commit
+    # (a streaming chunk); this one ends the utterance and always commits, so
+    # those lanes are 0, 1 and 0 (force included: ``where(do_commit, False,
+    # force)``)
     kl = mix4_t(text_lo, 0, 1, 0)
     kh = mix4_t(text_hi, 0, 1, 0)
     logit_f = torch.where(alive, state["logit"], DEAD)

@@ -253,8 +253,6 @@ class TorchBeamSearchDecoderCTC:
         device: Union[None, str, torch.device] = None,
     ) -> None:
         self._device = _resolve_device(device)
-        if alphabet.is_bpe:
-            raise _not_ported("a BPE alphabet")
         if language_model is None:
             members: List[LanguageModel] = []
         elif isinstance(language_model, MultiLanguageModel):
@@ -311,6 +309,7 @@ class TorchBeamSearchDecoderCTC:
             emit_paths=emit_paths,
             token_timeline=token_timeline,
             use_hotwords=use_hotwords,
+            is_bpe=self._alphabet.is_bpe,
             orders=tuple(m.order for m in self._lm_members),
         )
 
@@ -848,10 +847,13 @@ class TorchBeamSearchDecoderCTC:
         """Wait for a launched batch, copy its outputs to the host and build
         its OutputBeam lists.
 
-        One :func:`replay_token_paths_batch` pass covers every (utterance,
-        rank) row: the engine backtraces on the device, the alphabet is a
-        char alphabet and no path carries a ``-2`` force-commit marker
-        (streaming is not ported).
+        The engine backtraces on the device, so the host replays one token
+        path per (utterance, rank) row. For a char alphabet (multi-character
+        labels included) one :func:`replay_token_paths_batch` pass covers
+        every row; no path carries a ``-2`` force-commit marker (streaming is
+        not ported). A BPE alphabet replays row by row through
+        :func:`replay_token_path`, which knows the piece and break rules, and
+        the trailing partial word is appended (finalization semantics).
         """
         if handle is None:
             return []
@@ -876,10 +878,14 @@ class TorchBeamSearchDecoderCTC:
             for u, fi in enumerate(frame_ids_list):
                 per_utt[u, : len(fi)] = fi
             fid = per_utt[ui]
-        space_id = self._labels.index(" ") if " " in self._labels else -100
-        pairs = replay_token_paths_batch(
-            toks_flat, self._labels, self._blank_id, space_id, frame_ids=fid
-        )
+        if self._alphabet.is_bpe:
+            pairs = [self._replay_bpe(row, None if fid is None else fid[j])
+                     for j, row in enumerate(toks_flat)]
+        else:
+            space_id = self._labels.index(" ") if " " in self._labels else -100
+            pairs = replay_token_paths_batch(
+                toks_flat, self._labels, self._blank_id, space_id, frame_ids=fid
+            )
         offsets = handle["offsets"]
         for row, (u, r) in enumerate(zip(ui.tolist(), ri.tolist())):
             words, frames = pairs[row]
@@ -904,6 +910,18 @@ class TorchBeamSearchDecoderCTC:
                 )
             )
         return results
+
+    def _replay_bpe(self, toks: np.ndarray,
+                    frame_ids: Optional[np.ndarray]) -> Tuple[List[str], List[Tuple[int, int]]]:
+        """One BPE token path's words and frame spans, the trailing partial word included."""
+        words, frames, (partial, pframes) = replay_token_path(
+            toks.tolist(), self._labels, True,
+            frame_ids=None if frame_ids is None else frame_ids.tolist(),
+        )
+        if partial:
+            words.append(partial)
+            frames.append(pframes)
+        return words, frames
 
     def decode_beams_batches(
         self,

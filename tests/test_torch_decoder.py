@@ -8,6 +8,7 @@ frameworks; scores accumulate over up to 40 frames).
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -142,8 +143,9 @@ def test_unported_options_raise(decoders, option):
 def test_unported_engines_and_formats_raise(arpa_path, tmp_path):
     with pytest.raises(NotImplementedError, match="host"):
         P.build_ctcdecoder(SAMPLE_LABELS, engine="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="BPE"):
-        P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(["▁a", "▁b", "c", ""]), device="cpu")
+    # a BPE alphabet is ported (tests/test_torch_bpe.py): it builds and decodes on the CPU
+    bpe = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(["▁a", "▁b", "c", ""]), device="cpu")
+    assert bpe.decode(np.eye(4, dtype=np.float32)[[0, 2, 3, 1]] * 5.0, beam_width=4) == "ac b"
     ctclm = os.path.join(tmp_path, "model.ctclm")
     with open(ctclm, "wb") as fh:
         fh.write(b"\0")

@@ -21,12 +21,15 @@ from .torch_cases import (
     ARPA,
     ARPA_2GRAM,
     DEAD,
+    LM_WORDS,
     UNIGRAMS,
     assert_outputs,
     assert_same_beams,
     chunk_token_planes,
     expand_inputs,
     merge_inputs,
+    piece_logits,
+    piece_vocabulary,
     torch_merge_args,
     torch_planes,
     word_logits,
@@ -377,3 +380,48 @@ def test_gpu_two_member_hotword_decode_matches_cpu(tmp_path):
             assert used[tg.gather_rows] == (2 if model is not None else 0) * steps
             assert used[tg.probe_rows] == probes_per_step * steps + probes_per_finalize * finalizes
             assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,chunk", [(32, 129, False), (16, 5, True)])
+def test_cuda_bpe_form_at_the_bpe_path_shapes(n, k, chunk):
+    """``expand_merge_prune`` with ``lmax`` 5 and the forced break, at the bpe path's
+    dense step [32, 129, 100] and its serving chunk [16, 5, 100] (window off), every cluster size."""
+    dev = _cuda()
+    rng = np.random.RandomState(500 + k)
+    beam, tok, cids, pscore, prune = expand_inputs(rng, n, k, 100, 5)
+    if chunk:
+        tok = chunk_token_planes(rng, tok, 129)
+        prune = np.full(n, -np.inf, dtype=np.float32)
+    eargs = (
+        {key: val.to(dev) for key, val in torch_planes(beam).items()},
+        {key: val.to(dev) for key, val in torch_planes(tok).items()},
+        torch.as_tensor(cids).to(dev), torch.as_tensor(pscore).to(dev),
+        torch.as_tensor(prune).to(dev), True,
+    )
+    want = [w.cpu() for w in tm.expand_merge_prune_ref(*eargs)]
+    for cluster in (0, 1, 2, 4, 8):
+        got = [g.cpu() for g in tm.expand_merge_prune(*eargs, cluster=cluster)]
+        torch.cuda.synchronize()
+        assert not torch.isnan(got[0]).any()
+        assert_outputs(got, want)
+
+
+@pytest.mark.cuda
+def test_gpu_bpe_decode_matches_cpu_decode(tmp_path):
+    """A piece vocabulary (labels up to 5 chars, ``▁⁇▁`` mid-utterance) on CUDA vs on the CPU."""
+    _cuda()
+    path = str(tmp_path / "bb3.arpa")
+    with open(path, "w") as fh:
+        fh.write(ARPA)
+    alphabet = P.Alphabet.build_alphabet(piece_vocabulary(LM_WORDS))
+    lm = P.LanguageModel(open_ngram_file(path), UNIGRAMS)
+    gpu = P.TorchBeamSearchDecoderCTC(alphabet, lm)
+    cpu = P.TorchBeamSearchDecoderCTC(alphabet, lm, device="cpu")
+    batch = [piece_logits(seed, alphabet.labels, 6) for seed in range(3)]
+    for kw in (dict(beam_width=16), dict(beam_width=16, token_chunking=3, blank_collapse=True,
+                                         length_bucketing=2, hotwords=["guns", "sunny bun"])):
+        expand_before = tm.expand_merge_prune.launches
+        got = gpu.decode_beams_batch(batch, prune_history=True, **kw)
+        assert tm.expand_merge_prune.launches > expand_before
+        assert_same_batch(cpu.decode_beams_batch(batch, prune_history=True, **kw), got)

@@ -173,3 +173,71 @@ def assert_same_beams(want, got, tol=SCORE_TOL):
         assert state_contexts(gb.last_lm_state) == state_contexts(wb.last_lm_state)
         assert abs(gb.logit_score - wb.logit_score) <= tol
         assert abs(gb.lm_score - wb.lm_score) <= tol
+
+
+# ---- BPE and multi-character labels
+# The JAX package's own BPE alphabet (its engine tests), right-bounded unknown piece included.
+BPE_LABELS = ["▁bug", "▁bun", "ny", "s", "g", "un", "▁⁇▁", ""]
+LM_WORDS = UNIGRAMS + ["guns"]  # every word of ARPA
+
+
+def piece_vocabulary(words, extra_letters="aeot"):
+    """A ``▁``-style piece vocabulary grown from ``words`` (raw labels, blank last).
+
+    ``<unk>`` (the alphabet makes it ``▁⁇▁``) and ``▁``; every letter of
+    ``words`` and of ``extra_letters``, bare and ``▁``-prefixed; and every
+    2-4-letter substring of ``words``, ``▁``-prefixed where it starts a word.
+    For the ARPA words: 47 pieces, the longest ``▁`` + 4 letters.
+    """
+    letters = sorted(set("".join(words)) | set(extra_letters))
+    multi = set()
+    for w in words:
+        for n in range(2, 5):
+            for i in range(len(w) - n + 1):
+                multi.add(("▁" if i == 0 else "") + w[i : i + n])
+    return ["<unk>", "▁"] + letters + ["▁" + c for c in letters] + sorted(multi) + [""]
+
+
+def split_word(word, labels, prefixed=True):
+    """Greedy longest-match pieces of ``word``; the first ``▁``-prefixed unless ``prefixed`` is False."""
+    ids, i = [], 0
+    while i < len(word):
+        for n in range(min(4, len(word) - i), 0, -1):
+            piece = ("▁" if i == 0 and prefixed else "") + word[i : i + n]
+            if piece in labels:
+                ids.append(labels.index(piece))
+                i += n
+                break
+        else:
+            raise ValueError(f"{word!r} cannot be split into pieces of {labels}")
+    return ids
+
+
+def piece_logits(seed, labels, n_words, forced_break=True):
+    """Noisy peaked logits over a piece alphabet: words of ARPA split into pieces.
+
+    Each piece holds 1-2 frames, a blank 0-1 frames after it. With
+    ``forced_break`` the middle word follows ``▁⁇▁`` and starts with a plain
+    (not ``▁``-prefixed) piece, so only the unknown piece's right bound
+    breaks the word there. ``labels`` are normalized (``▁⁇▁``, blank ``""``).
+    """
+    rng = np.random.RandomState(seed)
+    blank, unk = labels.index(""), labels.index("▁⁇▁")
+    path = []
+    for j in range(n_words):
+        word = LM_WORDS[rng.randint(len(LM_WORDS))]
+        forced = forced_break and j == n_words // 2
+        pieces = ([unk] if forced else []) + split_word(word, labels, prefixed=not forced)
+        for p in pieces:
+            path += [p] * rng.randint(1, 3) + [blank] * rng.randint(0, 2)
+    mat = rng.randn(len(path), len(labels)).astype(np.float32) * 1.3
+    mat[np.arange(len(path)), path] += 3.0
+    return mat
+
+
+def one_hot(labels, pieces):
+    """A one-hot logit matrix spelling ``pieces`` (normalized labels), one frame each."""
+    mat = np.zeros((len(pieces), len(labels)), dtype=np.float32)
+    for i, piece in enumerate(pieces):
+        mat[i, labels.index(piece)] = 1.0
+    return mat
