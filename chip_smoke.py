@@ -41,14 +41,14 @@ Phases (any failed check exits non-zero and prints no result line):
    launch counters must show one ``expand_merge_prune``, one ``gather_rows``
    (trie rows) and one ``probe_rows`` launch per frame step, and per
    finalization one ``merge_prune`` launch and two ``probe_rows`` launches
-   (the last word and ``</s>``). The first 2 utterances decode
+   (the last word and ``</s>``). The first utterance decodes
    again with a ``device="cpu"`` decoder (the plain versions): identical
    texts, lm_score within 1e-3;
 6. serving path: the same utterances through ``decode_batch(...,
    token_chunking=True, blank_collapse=True, length_bucketing=16)`` (two
    length groups) and through ``decode_beams_batches`` over the batch and the
    batch reversed. Texts equal the dense path's, lm_score within 1e-3 of it,
-   the first 2 utterances identical on the CPU, the pipelined generator gives
+   the first utterance identical on the CPU, the pipelined generator gives
    the serving call's results batch by batch, and the launch counters equal the virtual steps
    that the host prep implies. One more batch is launched and collected in
    separate timed stages (host prep, enqueue, wait, copy and assembly), and
@@ -67,7 +67,7 @@ Phases (any failed check exits non-zero and prints no result line):
    member plus one for ``</s>`` where the member scores it. Member B's
    ``gather_rows`` and ``probe_rows`` are held bit-exact on its own tables
    with a real step's nodes and queries, warm and with the L2 flushed; the
-   first 2 utterances, and every utterance whose top text the hotwords
+   first utterance, and every utterance whose top text the hotwords
    change, decode identically on the CPU (``MultiLMState`` last states);
    WER and the top texts the hotwords change are logged; the dense call is
    profiled;
@@ -79,9 +79,30 @@ Phases (any failed check exits non-zero and prints no result line):
    version at every cluster size; the dense call (K = 129), the serving call
    and ``decode_beams_batches`` (the batch and the batch reversed) with member A, and one dense
    call with hot2lm's two members and hotwords, each with its launch counts;
-   serving and pipelined texts equal the dense texts; the first 2 utterances
+   serving and pipelined texts equal the dense texts; the first utterance
    identical on the CPU (member A, and the two members with the hotwords),
-   dense; WER beside greedy WER; the dense call profiled.
+   dense; WER beside greedy WER; the dense call profiled;
+10. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
+   frames (0.5 s of audio), beam 100, K = 29, each decoder's tables put back
+   on the card for it. The first 4 utterances, each on its own state with
+   member A: the last view (``is_end``) equals the full decode of the
+   utterance (texts, spans, lm_score within 1e-3), and the launch counters
+   equal one step per frame and one finalize per chunk. Each kernel against
+   its plain version on the inputs a stream gives it (frame 60's step
+   [1, 29, 100], its trie nodes [1, 100] and n-gram queries [1, 100, 3], and
+   the finalize of its chunk [1, 1, 100], which does not commit: the key
+   carries the partial, last-token and force lanes), timed. Utterance 0 with
+   ``force_next_word`` at its middle chunk: every chunk's top view equals the
+   host oracle's (``BeamSearchDecoderCTC``; words, partial words, spans,
+   scores within 2e-3). Its first 4 chunks give identical views on the CPU.
+   hot2lm's two members and 28 hotwords: the stream equals the full decode;
+   with the hotword list written anew from the middle chunk on (the same
+   unigram set, so the reference's score caches and the device agree), the
+   host oracle's top views. The bpe path's utterance 0 (V = 129): the stream
+   equals the full decode. Logged: wall ms per ``partial_decode_beams`` call
+   (median, maximum, by chunk position), host ms per frame step, peak device
+   memory, the profile of one stream's first 200 frames, the host oracle's
+   wall time.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -105,7 +126,7 @@ GROUP_ROWS = 16  # rows of one length group of the serving call
 BEAM = 100
 K_TOKENS = len(LIBRI_LABELS)
 ATOL, RTOL = 1e-5, 1e-6
-CPU_CHECK = 2  # utterances decoded again on the CPU (its plain versions are the host's costliest step)
+CPU_CHECK = 1  # utterances decoded again on the CPU (its plain versions are the host's costliest step)
 LM_SCORE_TOL = 1e-3
 RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
@@ -138,6 +159,10 @@ BPE_QUOTA = {2: 13, 3: 12, 4: 12}  # multi-letter pieces by length, word-initial
 BPE_V, BPE_LMAX = 129, 5  # logit columns; the longest label, ▁ + 4 letters
 BPE_FRAME_SEC = 0.04
 BPE_SEED = 3
+# the stream path: chunks of 0.5 s of audio at 0.02 s a frame
+STREAM_UTTS, STREAM_CHUNK = 4, 25
+STREAM_CPU_CHUNKS = 4  # chunks of one stream held against the CPU (the plain versions take ~0.1 s a frame there)
+HOST_TOL = 2e-3  # the float64 host oracle against the float32 device
 
 
 _T0 = time.perf_counter()
@@ -352,6 +377,49 @@ def by_cluster(torch, label: str, fn, want, prune, picked_ms: float) -> dict:
     return out
 
 
+def merge_case(torch, merge, label: str, args):
+    """``merge_prune`` on ``args`` against its plain version: (record, the plain version's outputs)."""
+    got = merge.merge_prune(*args)
+    torch.cuda.synchronize()
+    check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
+    want = merge.merge_prune_ref(*args)
+    err = compare(label, got, want, args[5])
+    ms, call = time_call(torch, lambda: merge.merge_prune(*args))
+    plain, plain_call = time_call(torch, lambda: merge.merge_prune_ref(*args))
+    n, k, b = args[0].shape
+    n_valid = int(args[2].sum())
+    b_ms, b_by = bound_ms(nbytes(args) + nbytes(got), 3.0 * b * n_valid)
+    log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
+        f"(call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
+        f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
+                shape=[n, k, b], call_ms=call, plain_call_ms=plain_call), want
+
+
+def expand_case(torch, merge, label: str, eargs):
+    """``expand_merge_prune`` on ``eargs`` against its plain version: (record, the plain version's outputs)."""
+    beam, tok, cids, pscore, prune, _ = eargs
+    got = merge.expand_merge_prune(*eargs)
+    torch.cuda.synchronize()
+    want = merge.expand_merge_prune_ref(*eargs)
+    err = compare(label, got, want, prune)
+    ms, call = time_call(torch, lambda: merge.expand_merge_prune(*eargs))
+    plain, plain_call = time_call(torch, lambda: merge.expand_merge_prune_ref(*eargs))
+    ins = list(beam.values()) + list(tok.values()) + [cids, pscore, prune]
+    n, k, b = pscore.shape
+    lmax = cids.shape[0]
+    alive = beam["logit"] > -1e29
+    n_valid = int((alive[:, None, :] & (tok["admit"][:, :, None] != 0)).sum())
+    # pairwise key tests + ~26 scalar ops per candidate to build it, and 4
+    # per character of its partial-word hash
+    ops = 3.0 * b * n_valid + (26.0 + 4.0 * lmax) * n * k * b
+    b_ms, b_by = bound_ms(nbytes(ins) + nbytes(got), ops)
+    log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (call {call:.4f}), "
+        f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by}), {n_valid} valid candidates")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None, max_abs_err=err,
+                shape=[n, k, b], call_ms=call, plain_call_ms=plain_call), want
+
+
 def kernel_phases(torch, merge) -> dict:
     """Each merge kernel vs its plain version on the card; times; bounds."""
     dev = torch.device("cuda")
@@ -363,27 +431,14 @@ def kernel_phases(torch, merge) -> dict:
                             (GROUP_ROWS, 1, BEAM, False), (WIDE_ROWS, 1, WIDE_BEAM, False),
                             (WIDE_ROWS, K_TOKENS, WIDE_BEAM, True)):
         args = merge_inputs(torch, dev, np.random.RandomState(100 + k + (n != N_UTTS) * 1000), n, k, b, window)
-        got = merge.merge_prune(*args)
-        torch.cuda.synchronize()
         label = f"merge_prune[{n},{k},{b}]" + ("" if window else " window off")
-        check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
-        want = merge.merge_prune_ref(*args)
-        err = compare(label, got, want, args[5])
-        ms, call = time_call(torch, lambda: merge.merge_prune(*args))
-        plain, plain_call = time_call(torch, lambda: merge.merge_prune_ref(*args))
-        n_valid = int(args[2].sum())
-        b_ms, b_by = bound_ms(nbytes(args) + nbytes(got), 3.0 * b * n_valid)
-        log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms "
-            f"(call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
-            f"bound {b_ms:.5f} ms ({b_by})")
         key = f"n={n},k={k}" + ("" if b == BEAM else f",b={b}") + ("" if window else ",window off")
-        rec[("merge_prune", key)] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=[n, k, b], call_ms=call, plain_call_ms=plain_call)
+        rec[("merge_prune", key)], want = merge_case(torch, merge, label, args)
         if k > 1:
             rec[("merge_prune", key)]["ms_by_cluster"] = by_cluster(
-                torch, label, lambda c: merge.merge_prune(*args, cluster=c), want, args[5], ms)
-        del args, got, want
+                torch, label, lambda c: merge.merge_prune(*args, cluster=c), want, args[5],
+                rec[("merge_prune", key)]["ms"])
+        del args, want
     # (N, K, B, lmax, BPE, chunk): the dense step, the serving chunk step at the
     # dense batch's rows and at a length group's, the bpe path's dense step
     # (K = V = 129) and chunk step, the widest beam
@@ -397,35 +452,21 @@ def kernel_phases(torch, merge) -> dict:
             chunk, BPE_V if is_bpe else K_TOKENS,
         )
         eargs = (beam, tok, cids, pscore, prune, is_bpe)
-        got = merge.expand_merge_prune(*eargs)
-        torch.cuda.synchronize()
         label = f"expand_merge_prune[{n},{k},{b}] lmax={lmax} bpe={is_bpe}"
         if chunk:
             label += " chunk planes, window off"
+            got = merge.expand_merge_prune(*eargs)
             check(not bool(torch.isnan(got[0]).any()), f"{label}: NaN in the scores")
             check(bool((got[0][-1] == -1e30).all()), f"{label}: a dead utterance has live candidates")
             dead_in = ~((beam["logit"] > -1e29)[:, None, :] & (tok["admit"] != 0)[:, :, None])
             check(bool((got[0][dead_in] == -1e30).all()), f"{label}: a DEAD member got through")
-        want = merge.expand_merge_prune_ref(*eargs)
-        err = compare(label, got, want, prune)
-        ms, call = time_call(torch, lambda: merge.expand_merge_prune(*eargs))
-        plain, plain_call = time_call(torch, lambda: merge.expand_merge_prune_ref(*eargs))
-        ins = list(beam.values()) + list(tok.values()) + [cids, pscore, prune]
-        alive = beam["logit"] > -1e29
-        n_valid = int((alive[:, None, :] & (tok["admit"][:, :, None] != 0)).sum())
-        # pairwise key tests + ~26 scalar ops per candidate to build it, and 4
-        # per character of its partial-word hash
-        ops = 3.0 * b * n_valid + (26.0 + 4.0 * lmax) * n * k * b
-        b_ms, b_by = bound_ms(nbytes(ins) + nbytes(got), ops)
-        log(f"{label}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (call {call:.4f}), "
-            f"plain {plain:.4f} ms (call {plain_call:.4f}), bound {b_ms:.5f} ms ({b_by}), {n_valid} valid candidates")
+            del got
         key = f"n={n},k={k},lmax={lmax}" + ("" if b == BEAM else f",b={b}") + (",chunk,window off" if chunk else "")
-        rec[("expand_merge_prune", key)] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            shape=[n, k, b], call_ms=call, plain_call_ms=plain_call)
+        rec[("expand_merge_prune", key)], want = expand_case(torch, merge, label, eargs)
         rec[("expand_merge_prune", key)]["ms_by_cluster"] = by_cluster(
-            torch, label, lambda c: merge.expand_merge_prune(*eargs, cluster=c), want, prune, ms)
-        del eargs, got, want, beam, tok, cids, pscore
+            torch, label, lambda c: merge.expand_merge_prune(*eargs, cluster=c), want, prune,
+            rec[("expand_merge_prune", key)]["ms"])
+        del eargs, want, beam, tok, cids, pscore
     torch.cuda.empty_cache()
     return rec
 
@@ -901,7 +942,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     whose top text the hotwords change, agree with a CPU decode
     (``MultiLMState`` last states). Logged: WER beside the single-LM path's,
     the top texts the hotwords change, a dense profile. Returns the record,
-    the two members and the hotwords.
+    the two-member decoder and the hotwords.
     """
     from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.csrc.build import BUILD_DIR
@@ -1033,7 +1074,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
         "gather_member_b": b_gather["hot2lm member B dense step: trie rows"],
         "probe_member_b": b_probe["hot2lm member B dense"],
     }
-    return record, members, hot
+    return record, multi, hot
 
 
 def bpe_vocabulary(words) -> list:
@@ -1146,7 +1187,7 @@ def record_expand_step(torch, decoder, logits, step: int, **decode_kw):
     return calls[step]
 
 
-def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card) -> dict:
+def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     """The ``bpe`` path: a 128-piece vocabulary on the dense and serving decode.
 
     The pieces come from :func:`bpe_vocabulary` over the parity LM's words
@@ -1159,6 +1200,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card) 
     pipelined and two-member calls; serving and pipelined texts equal the
     dense texts; the first ``CPU_CHECK`` utterances decode identically on
     the CPU, dense, with member A and with the two members and hotwords.
+    Returns the decoder, the logits and the record.
     """
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.utils.metrics import word_error_rate
@@ -1288,7 +1330,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card) 
 
     prof = profile_head(torch, "profile bpe dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
                         logits, card)
-    return {
+    return decoder, logits, {
         "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC, "setup_s": setup_s,
         "frame_steps": steps, "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
         "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches, "wer": wer,
@@ -1299,6 +1341,302 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card) 
         "hot2lm": {"latency_s": h_latency, "launches": h_launches, "wer": h_wer},
         "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff, "profile": prof,
     }
+
+
+def park(decoder) -> None:
+    """Free ``decoder``'s device tables (its host tables stay), so later peaks count only their own."""
+    decoder._tabs = None
+    decoder._hot_cache.clear()
+    decoder._empty_hot_tables = None
+
+
+def unpark(decoder) -> None:
+    """Upload ``decoder``'s tables to the card again (the host tables are built once)."""
+    from pyctcdecode_torch.engine import build_table_args
+
+    decoder._tabs = build_table_args(decoder._tokens, decoder._device_lm, decoder.device)
+
+
+def chunked(mat) -> list:
+    return [mat[i : i + STREAM_CHUNK] for i in range(0, mat.shape[0], STREAM_CHUNK)]
+
+
+def run_stream(decoder, chunks, force_at=None, hot_calls=None, **start_kw):
+    """One stream over ``chunks`` (``is_end`` on the last): its views and each call's wall ms.
+
+    ``hot_calls``: the hotword list of each call (the state is made with
+    hotwords enabled). ``partial_decode_beams`` waits for the device and
+    copies its outputs back, so a call's wall time is all of its work.
+    """
+    state = decoder.get_starting_state(beam_width=BEAM, hotwords_enabled=hot_calls is not None, **start_kw)
+    views, ms = [], []
+    for i, chunk in enumerate(chunks):
+        kw = {} if hot_calls is None else dict(hotwords=hot_calls[i])
+        t0 = time.perf_counter()
+        views.append(decoder.partial_decode_beams(
+            state, chunk, force_next_word=(i == force_at), is_end=(i == len(chunks) - 1), **kw))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return views, ms
+
+
+def host_stream(host, chunks, force_at=None, hot_calls=None):
+    """The host oracle's stream over ``chunks`` (``is_end`` on the last): its views, and its wall s."""
+    from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT
+    from pyctcdecode_torch.decoder import Beam
+    from pyctcdecode_torch.models.hotwords import HotwordScorer
+
+    beams, lm_cache, p_cache = host.get_starting_state()
+    offset, views = 0, []
+    t0 = time.perf_counter()
+    for i, chunk in enumerate(chunks):
+        scorer = None if hot_calls is None else HotwordScorer.build_scorer(hot_calls[i], DEFAULT_HOTWORD_WEIGHT)
+        out = host.partial_decode_beams(chunk, lm_cache, p_cache, beams, offset, beam_width=BEAM,
+                                        hotword_scorer=scorer, force_next_word=(i == force_at),
+                                        is_end=(i == len(chunks) - 1))
+        beams = [Beam.from_lm_beam(b) for b in out]
+        offset += chunk.shape[0]
+        views.append(out)
+    return views, time.perf_counter() - t0
+
+
+def record_stream_calls(torch, decoder, chunks, step: int) -> dict:
+    """The arguments each kernel wrapper gets in a stream over ``chunks`` (the last one ends it).
+
+    ``expand_merge_prune``, ``gather_rows`` and ``probe_rows`` at frame
+    ``step``'s step; ``merge_prune`` at the finalize of the chunk that holds
+    that frame, which must not be the last (so it does not commit: the merge
+    key carries the partial, last-token and force lanes). A one-member
+    decoder: one ``gather_rows`` a step, one ``probe_rows`` a step and two a
+    finalize.
+    """
+    from pyctcdecode_torch import engine
+    from pyctcdecode_torch.models import device_tables
+
+    chunk_of = step // STREAM_CHUNK
+    check(chunk_of < len(chunks) - 1, "the recorded step lies in the stream's last chunk")
+    check(len(decoder._lm_members) == 1 and decoder.language_model.score_boundary,
+          "the recorded stream's decoder is not one member that scores </s>")
+    want = {"expand_merge_prune": step, "gather_rows": step, "probe_rows": step + 2 * chunk_of,
+            "merge_prune": chunk_of}
+    sites = {"expand_merge_prune": engine, "merge_prune": engine, "gather_rows": device_tables,
+             "probe_rows": device_tables}
+    originals = {name: getattr(site, name) for name, site in sites.items()}
+    seen = dict.fromkeys(sites, 0)
+    calls = {}
+
+    def keep(a):
+        # a step's planes are copied; the LM tables (millions of words, never
+        # written, and lists of them) are kept by reference
+        if isinstance(a, dict):
+            return {k: v.clone() for k, v in a.items()}
+        if isinstance(a, torch.Tensor) and a.numel() < (1 << 20):
+            return a.clone()
+        return a
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if seen[name] == want[name]:
+                calls[name] = tuple(keep(a) for a in args)
+            seen[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for name, site in sites.items():
+        setattr(site, name, recorder(name))
+    try:
+        run_stream(decoder, chunks)
+    finally:
+        for name, site in sites.items():
+            setattr(site, name, originals[name])
+    torch.cuda.synchronize()
+    check(set(calls) == set(sites), f"a stream of {len(chunks)} chunks did not reach every recorded call")
+    return calls
+
+
+def check_views(tag: str, want, got, tol: float, top_only: bool = False) -> float:
+    """Two streams' views chunk by chunk: words, partial words and spans identical, scores within ``tol``."""
+    check(len(want) == len(got), f"{tag}: {len(got)} views for {len(want)} chunks")
+    worst = 0.0
+    for i, (w, g) in enumerate(zip(want, got)):
+        check(len(w) > 0 and (top_only or len(w) == len(g)), f"{tag}: chunk {i}: beam counts differ")
+        for wb, gb in zip(w[:1] if top_only else w, g):
+            check((wb.text, wb.partial_word) == (gb.text, gb.partial_word), f"{tag}: chunk {i}: words differ")
+            check((wb.text_frames, wb.partial_frames) == (gb.text_frames, gb.partial_frames),
+                  f"{tag}: chunk {i}: frame spans differ")
+            d = max(abs(wb.lm_score - gb.lm_score), abs(wb.logit_score - gb.logit_score))
+            worst = max(worst, d)
+            check(d <= tol, f"{tag}: chunk {i}: scores differ by {d}")
+    return worst
+
+
+def check_stream_is_full_decode(tag: str, full, view) -> float:
+    """The last (``is_end``) view of a stream against the full decode: same beams, lm_score within 1e-3."""
+    check(len(full) == len(view) > 0, f"{tag}: {len(view)} beams for the full decode's {len(full)}")
+    worst = 0.0
+    for f, v in zip(full, view):
+        check(f.text == v.text and [wf[1] for wf in f.text_frames] == v.text_frames,
+              f"{tag}: the stream's beams differ from the full decode's")
+        worst = max(worst, abs(f.lm_score - v.lm_score))
+        check(worst <= LM_SCORE_TOL, f"{tag}: lm_score differs from the full decode's by {worst}")
+    return worst
+
+
+def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logits, card: str) -> dict:
+    """The ``stream`` path: ``get_starting_state`` / ``partial_decode_beams`` in 25-frame chunks.
+
+    ``decoders``: the char decoder with member A (``"char"``), the hot2lm
+    two-member decoder (``"hot2lm"``) and the bpe decoder (``"bpe"``), their
+    device tables parked. Checks, all at beam 100 on the card: each of the
+    first ``STREAM_UTTS`` utterances' streams equals its full decode, with
+    the launch counts of its frame steps and one finalize per chunk; the
+    first utterance's stream with ``force_next_word`` at the middle chunk
+    equals the host oracle's top view at every chunk (within 2e-3); the
+    first ``STREAM_CPU_CHUNKS`` chunks of it on a ``device="cpu"`` decoder
+    give identical views; the hot2lm stream with the hotwords equals the full
+    decode, and with the hotword list written anew from the middle chunk on
+    (the same unigram set: the carried partial words walk the new trie) the
+    host oracle's views; the bpe stream equals the full decode. Logged:
+    per-chunk wall ms (median, maximum, by chunk position), host ms per frame
+    step, peak device memory, a profile of the first 200 frames of one
+    stream, the host oracle's wall time.
+    """
+    wrappers = counters(merge, gather)
+    char = decoders["char"]
+    unpark(char)
+    lm_a = char.language_model
+    utts = corpus.logits[:STREAM_UTTS]
+    rec: dict = {"chunk_frames": STREAM_CHUNK, "utterances": STREAM_UTTS}
+
+    # the char streams, each against its full decode
+    chunk_ms, launches, frames_done, worst = [], None, 0, 0.0
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    for u, mat in enumerate(utts):
+        chunks = chunked(mat)
+        reset_counts(wrappers)
+        views, ms = run_stream(char, chunks)
+        got = read_counts(wrappers)
+        check_counts(f"stream utterance {u}", got, expected_counts([lm_a], mat.shape[0], len(chunks)))
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        worst = max(worst, check_stream_is_full_decode(f"stream utterance {u}", char.decode_beams(mat, beam_width=BEAM),
+                                                       views[-1]))
+        chunk_ms.append(ms)
+        frames_done += mat.shape[0]
+    streams_s = sum(sum(ms) for ms in chunk_ms) / 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flat = [x for ms in chunk_ms for x in ms]
+    by_pos = [statistics.median(ms[i] for ms in chunk_ms if i < len(ms)) for i in range(max(map(len, chunk_ms)))]
+    log(f"[stream] {STREAM_UTTS} utterances ({frames_done} frames) in chunks of {STREAM_CHUNK}, beam {BEAM}, K "
+        f"{K_TOKENS}, member A: every stream equals its full decode (max lm_score diff {worst:.3g}); "
+        f"partial_decode_beams wall ms per chunk median {statistics.median(flat):.2f}, max {max(flat):.2f}; by "
+        f"chunk position (median over the utterances) {[round(x, 1) for x in by_pos]}; host ms per frame step "
+        f"{streams_s / frames_done * 1e3:.2f}; peak device memory {peak_gb:.3f} GB; "
+        f"{time.perf_counter() - t_all:.1f} s with the full decodes [{card}]")
+    rec.update(frames=frames_done, launches=launches, chunk_ms=chunk_ms, chunk_ms_median=statistics.median(flat),
+               chunk_ms_max=max(flat), chunk_ms_by_position=by_pos, streams_s=streams_s,
+               host_ms_per_step=streams_s / frames_done * 1e3, peak_device_gb=peak_gb,
+               max_lm_score_diff_vs_full=worst)
+
+    # each kernel on the inputs the stream gives it: frame 60's step, and the
+    # finalize of its chunk (not committing), held against the plain versions
+    chunks = chunked(utts[0])
+    calls = record_stream_calls(torch, char, chunks[:4], step=60)
+    kern = {}
+    kern["expand_merge_prune"], _ = expand_case(
+        torch, merge, f"expand_merge_prune stream step {list(calls['expand_merge_prune'][3].shape)}",
+        calls["expand_merge_prune"])
+    kern["merge_prune"], _ = merge_case(
+        torch, merge, f"merge_prune stream finalize {list(calls['merge_prune'][0].shape)}, window off",
+        calls["merge_prune"])
+    step_calls = {"stream": (1, {"gather": calls["gather_rows"], "probe": calls["probe_rows"]})}
+    kern["gather_rows"] = gather_phases(torch, gather, step_calls, synthetic=False)["stream step: trie rows"]
+    kern["probe_rows"] = probe_phases(torch, gather, step_calls)["stream"]
+    rec["kernels"] = kern
+    del calls, step_calls
+
+    # the host oracle, with a forced commit at the middle chunk
+    mid = len(chunks) // 2
+    host = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_a)
+    h_views, host_s = host_stream(host, chunks, force_at=mid)
+    d_views, _ = run_stream(char, chunks, force_at=mid)
+    d_host = check_views("stream vs host oracle", h_views, d_views, HOST_TOL, top_only=True)
+    log(f"[stream] utterance 0 with force_next_word at chunk {mid} of {len(chunks)}: every chunk's top view equals "
+        f"the host oracle's (max score diff {d_host:.3g}); the host oracle (one core) took {host_s:.3f} s for "
+        f"{utts[0].shape[0]} frames, {host_s / utts[0].shape[0] * 1e3:.2f} ms a frame")
+    rec.update(host_oracle_s=host_s, host_oracle_frames=int(utts[0].shape[0]), max_score_diff_vs_host=d_host,
+               forced_chunk=mid)
+
+    # the first chunks of utterance 0 on the CPU (the plain versions)
+    t0 = time.perf_counter()
+    head = chunks[:STREAM_CPU_CHUNKS]
+    cpu = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_a, device="cpu")
+    d_cpu = check_views("stream GPU vs CPU", run_stream(cpu, head)[0], run_stream(char, head)[0], LM_SCORE_TOL)
+    log(f"[check] stream: the first {len(head)} chunks of utterance 0 give identical views on the CPU (max score "
+        f"diff {d_cpu:.3g}), {time.perf_counter() - t0:.1f} s")
+    rec["cpu_chunks"], rec["cpu_max_score_diff"] = len(head), d_cpu
+    del cpu
+
+    # one stream's first 200 frames under the profiler
+    head = chunks[: PROFILE_FRAMES // STREAM_CHUNK]
+    latencies = []
+    for _ in range(3):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        run_stream(char, head)
+        latencies.append(time.perf_counter() - t0)
+    p_launches = read_counts(wrappers)
+    steps = p_launches["expand_merge_prune"]
+    latency = statistics.median(latencies)
+    prof = device_profile(torch, lambda: run_stream(char, head), steps, latency, p_launches)
+    log(f"[profile stream] the first {steps} frames of utterance 0 in {len(head)} chunks: unprofiled latency median "
+        f"{latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}")
+    log_profile("profile stream", prof, latency, card)
+    if prof is not None:
+        prof.update(steps=steps, latency_s=latency, launches=p_launches)
+    rec["profile"] = prof
+    park(char)
+
+    # hot2lm: two members and the hotwords; then the hotword list written anew mid-stream
+    multi = decoders["hot2lm"]
+    unpark(multi)
+    members = list(multi.language_model._language_models)
+    chunks = chunked(utts[0])
+    reset_counts(wrappers)
+    views, ms = run_stream(multi, chunks, hot_calls=[hot] * len(chunks))
+    h_launches = read_counts(wrappers)
+    check_counts("stream hot2lm", h_launches, expected_counts(members, utts[0].shape[0], len(chunks)))
+    d_full = check_stream_is_full_decode("stream hot2lm", multi.decode_beams(utts[0], beam_width=BEAM, hotwords=hot),
+                                         views[-1])
+    rewritten = sorted({w for phrase in hot for w in phrase.split()}, reverse=True)
+    calls = [hot] * mid + [rewritten] * (len(chunks) - mid)
+    h_views, h_host_s = host_stream(P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS),
+                                                           P.MultiLanguageModel(members)), chunks, hot_calls=calls)
+    d_views, h_ms = run_stream(multi, chunks, hot_calls=calls)
+    d_hhost = check_views("stream hot2lm vs host oracle", h_views, d_views, HOST_TOL, top_only=True)
+    log(f"[stream] hot2lm, utterance 0, {len(hot)} hotwords: equals the full decode (max lm_score diff "
+        f"{d_full:.3g}); chunk ms median {statistics.median(ms):.2f}, max {max(ms):.2f}; with the hotword list "
+        f"written anew from chunk {mid} on ({len(rewritten)} words, the same unigram set) every chunk's top view "
+        f"equals the host oracle's (max score diff {d_hhost:.3g}, host oracle {h_host_s:.3f} s) [{card}]")
+    rec["hot2lm"] = dict(launches=h_launches, chunk_ms=ms, rewritten_chunk_ms=h_ms, max_lm_score_diff_vs_full=d_full,
+                         max_score_diff_vs_host=d_hhost, host_oracle_s=h_host_s)
+    park(multi)
+
+    # bpe: the 128-piece vocabulary, 25 frames of 0.04 s a chunk
+    bpe = decoders["bpe"]
+    unpark(bpe)
+    mat = bpe_logits[0]
+    chunks = chunked(mat)
+    reset_counts(wrappers)
+    views, ms = run_stream(bpe, chunks)
+    b_launches = read_counts(wrappers)
+    check_counts("stream bpe", b_launches, expected_counts([bpe.language_model], mat.shape[0], len(chunks)))
+    d_bpe = check_stream_is_full_decode("stream bpe", bpe.decode_beams(mat, beam_width=BEAM), views[-1])
+    log(f"[stream] bpe, utterance 0 ({mat.shape[0]} frames of {BPE_FRAME_SEC} s, {len(chunks)} chunks, V {BPE_V}): "
+        f"equals the full decode (max lm_score diff {d_bpe:.3g}); chunk ms median {statistics.median(ms):.2f}, max "
+        f"{max(ms):.2f}, host ms per frame step {sum(ms) / mat.shape[0]:.2f} [{card}]")
+    rec["bpe"] = dict(launches=b_launches, chunk_ms=ms, frames=int(mat.shape[0]), max_lm_score_diff_vs_full=d_bpe)
+    park(bpe)
+    return rec
 
 
 def main() -> int:
@@ -1495,13 +1833,21 @@ def main() -> int:
                           logits, card)
 
     # ---- the hot2lm path: two LM members and hotwords (the single-LM
-    # decoders go first, so that the peak memory is the new decoder's own)
-    del cpu_dec, decoder, handles, staged
-    hot_rec, members, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+    # decoders' tables go first, so that the peak memory is the new decoder's own)
+    del cpu_dec, handles, staged
+    park(decoder)
+    hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+    park(multi)
 
     # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
-    bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
-    del members
+    members = list(multi.language_model._language_models)
+    bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
+    park(bpe_dec)
+
+    # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
+    stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
+                              corpus, hot, bpe_logits, card)
+    del decoder, multi, bpe_dec, members
 
     kernels = []
     for kname, src_file, r, r_serving, site in (
@@ -1520,6 +1866,7 @@ def main() -> int:
             [v["max_abs_err"] for v in (probe_rec if kname == "probe_rows" else gather_rec).values()] + \
             [hot_rec["probe_member_b" if kname == "probe_rows" else "gather_member_b"]["max_abs_err"]]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+        errs.append(stream_rec["kernels"][kname]["max_abs_err"])
         kernels.append({
             "name": kname, "route": "cuda", "source": f"pyctcdecode_torch/csrc/{src_file}",
             "replaces": site, "launches": launches[kname], "max_abs_err": max(errs),
@@ -1532,6 +1879,10 @@ def main() -> int:
             "launches_bpe": bpe_rec["launches"][kname],
             "launches_bpe_serving": bpe_rec["serving"]["launches"][kname],
             "launches_bpe_hot2lm": bpe_rec["hot2lm"]["launches"][kname],
+            "launches_stream": stream_rec["launches"][kname],
+            "launches_stream_hot2lm": stream_rec["hot2lm"]["launches"][kname],
+            "launches_stream_bpe": stream_rec["bpe"]["launches"][kname],
+            "stream": {key: stream_rec["kernels"][kname].get(key) for key in keys},
         })
         if kname == "expand_merge_prune":
             for tag, r_bpe in (("bpe", rec[("expand_merge_prune", f"n={N_UTTS},k={BPE_V},lmax={BPE_LMAX}")]),
@@ -1556,7 +1907,8 @@ def main() -> int:
         "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
-        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "card": smi,
+        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
+        "card": smi,
         "seconds": time.perf_counter() - t_start,
     }
     if args.out:

@@ -2,7 +2,10 @@
 
 Mirrors the reference entry point ``build_ctcdecoder``
 (ref ``pyctcdecode/decoder.py:1051-1099``) and the JAX package's
-``api.build_ctcdecoder``; the decoder runs on CUDA unless ``device="cpu"``.
+``api.build_ctcdecoder``. The device decoder runs on CUDA unless
+``device="cpu"``; ``engine="host"`` returns the host oracle. There is no
+automatic choice between the two: an engine picked for want of a device
+would hide that the device is missing.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from .constants import (
     DEFAULT_SCORE_LM_BOUNDARY,
     DEFAULT_UNK_LOGP_OFFSET,
 )
+from .decoder import BeamSearchDecoderCTC
 from .models.language_model import LanguageModel
 from .models.ngram import load_unigram_set_from_arpa, open_ngram_file
 from .torch_decoder import TorchBeamSearchDecoderCTC
@@ -37,7 +41,7 @@ def build_ctcdecoder(
     lm_score_boundary: bool = DEFAULT_SCORE_LM_BOUNDARY,
     engine: str = "torch",
     device: Union[None, str, torch.device] = None,
-) -> TorchBeamSearchDecoderCTC:
+) -> Union[TorchBeamSearchDecoderCTC, BeamSearchDecoderCTC]:
     """Build a ready-to-use decoder (main entry point).
 
     Args:
@@ -50,17 +54,16 @@ def build_ctcdecoder(
         beta: per-word length bonus.
         unk_score_offset: log-score offset for OOV words.
         lm_score_boundary: whether the LM scores <s>/</s> boundaries.
-        engine: ``"torch"``; the exact host engine (``"host"``) is not
-            ported yet and raises.
-        device: ``None`` (CUDA, raising when absent) or an explicit device
-            such as ``"cpu"``.
+        engine: ``"torch"`` for the device engine, ``"host"`` for the
+            exact host engine (:class:`~pyctcdecode_torch.decoder.BeamSearchDecoderCTC`).
+        device: the device engine's device: ``None`` (CUDA, raising when
+            absent) or an explicit device such as ``"cpu"``. The host
+            engine takes none.
     """
     if engine not in _ENGINES:
         raise ValueError(f"engine must be one of {_ENGINES}; got {engine!r}")
-    if engine == "host":
-        raise NotImplementedError(
-            "the host oracle engine is not ported to pyctcdecode_torch yet"
-        )
+    if engine == "host" and device is not None:
+        raise TypeError("device applies to the torch engine only; the host engine runs on the CPU")
     ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
     if unigrams is None and kenlm_model_path is not None:
         unigrams = load_unigram_set_from_arpa(kenlm_model_path)
@@ -77,4 +80,6 @@ def build_ctcdecoder(
             unk_score_offset=unk_score_offset,
             score_boundary=lm_score_boundary,
         )
+    if engine == "host":
+        return BeamSearchDecoderCTC(alphabet, language_model)
     return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device)

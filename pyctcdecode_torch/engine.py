@@ -726,25 +726,40 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
     return step
 
 
-def _finalize(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict) -> Dict:
-    """End-of-utterance ranking (ref decoder.py:558-602).
+def _finalize(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict, state: Dict,
+              do_commit: bool = True, is_end: bool = True) -> Dict:
+    """Rank the current hypotheses (ref decoder.py:558-602).
 
-    Force-commits trailing partial words, scores the final word with
-    ``is_last_word`` semantics for every member (``</s>`` credit where the
-    member has ``score_boundary``; members averaged) plus the hotword
-    boost, merges beams by committed text (the ``merge_prune`` kernel with K = 1,
-    extra 0 and no prune window; the donor's extra is added after, as the
-    reference does) and ranks with the window prune.
+    ``do_commit`` force-commits trailing partial words and merges beams by
+    committed text (``force_next_word`` / end-of-decode semantics); without
+    it the partial words survive and keep their partial score, and the
+    merge key also carries the partial, last-token and force lanes (a
+    streaming chunk). ``is_end`` scores the final word, the empty word
+    (``<unk>``) where nothing commits, with ``is_last_word`` semantics:
+    ``</s>`` credit where the member has ``score_boundary``. Members are
+    averaged and the hotword boost is added. Beams merge on the
+    ``merge_prune`` kernel with K = 1, extra 0 and no prune window; the
+    donor's extra is added after, as the reference does; then the window
+    prune and top-B.
+
+    Returns the ranked ``src`` / ``logit`` / ``score`` ``[N, B]``, each
+    member's context view after the scored word (``ctx{i}``,
+    ``ctx_len{i}``, by rank), and under ``"carry"`` the per-slot planes
+    that :func:`_committed_state` folds into the next chunk's state.
     """
     n, b = state["logit"].shape
     device = state["logit"].device
     alive = state["logit"] > DEAD_THRESH
-    commit = state["p_len"] > 0
+    has_partial = state["p_len"] > 0
+    commit = has_partial if do_commit else torch.zeros_like(has_partial)
+    # the word scored here: the committed partial, or the empty word where
+    # nothing commits but the stream ends (None: every beam)
+    score_word = None if is_end else commit
     t_lo, t_hi = hash_text_commit_t(state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"])
     text_lo = torch.where(commit, t_lo, state["text_lo"])
     text_hi = torch.where(commit, t_hi, state["text_hi"])
     fused_sum = None
-    ctx_views = []  # per member: (context, length) after the last word
+    ctx_out = []  # per member: (context, length, backoffs) after the scored word
     for i, lm in enumerate(lms):
         lm_prm = prm["lm"][i]
         flags = state[f"p_flags{i}"]
@@ -759,25 +774,38 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict) -> Dic
         )
         raw = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
         if lm_prm["score_boundary"]:
+            # probed on every finalize, as the reference does; credited at the end only
             eos = torch.full_like(wid, lm["eos_id"])
             eos10, _, _, _ = lm_score_words(lm, ctx2, ctx2_len, eos, ctx2_bo)
-            raw = raw + eos10
+            if is_end:
+                raw = raw + eos10
         fused = lm_prm["alpha"] * raw * _LOG10 + lm_prm["beta"]
         fused_sum = fused if fused_sum is None else fused_sum + fused
-        ctx_views.append((ctx2, ctx2_len))
+        ctx_out.append((ctx2, ctx2_len, ctx2_bo))
     fused_scored = state["fused"]
     if fused_sum is not None:
-        fused_scored = fused_scored + (fused_sum / len(lms) if len(lms) > 1 else fused_sum)
+        word = fused_sum / len(lms) if len(lms) > 1 else fused_sum
+        if score_word is not None:
+            word = torch.where(score_word, word, 0.0)
+        fused_scored = fused_scored + word
     if cfg.use_hotwords:
         fused_scored = fused_scored + _hot_gain(prm, state["h_bits"], commit)
 
-    # merge key: committed text only. The reference's key also carries the
-    # partial, last token and force lanes for a finalize that does not commit
-    # (a streaming chunk); this one ends the utterance and always commits, so
-    # those lanes are 0, 1 and 0 (force included: ``where(do_commit, False,
-    # force)``)
-    kl = mix4_t(text_lo, 0, 1, 0)
-    kh = mix4_t(text_hi, 0, 1, 0)
+    if do_commit:
+        # merge key: committed text only; the partial, last-token and force
+        # lanes are 0, 1 and 0 (force included: ``where(do_commit, False, force)``)
+        extra = fused_scored
+        kl = mix4_t(text_lo, 0, 1, 0)
+        kh = mix4_t(text_hi, 0, 1, 0)
+    else:
+        # the partials survive with their partial score; the key is the whole beam's
+        h_entry = state["h_node"] | state["h_bits"] if cfg.use_hotwords else None
+        flag_list = [state[f"p_flags{i}"] for i in range(cfg.n_lms)]
+        extra = fused_scored + _partial_score(cfg, hot, prm, flag_list, h_entry, state["p_len"])
+        last_u = (state["last_tok"] + 2) & M32
+        force_u = state["force"].to(torch.int64)
+        kl = mix4_t(text_lo, state["p_lo"], last_u, force_u)
+        kh = mix4_t(text_hi, state["p_hi"], last_u, force_u)
     logit_f = torch.where(alive, state["logit"], DEAD)
     zeros = torch.zeros((n, 1, b), dtype=torch.float32, device=device)
     no_window = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
@@ -788,17 +816,68 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict) -> Dic
     merged_b = merged_b[:, 0]  # group logsumexp at group-first beams, else DEAD
     donor = src_m[:, 0].to(torch.int64)
     live = merged_b > DEAD_THRESH
-    lm_score = torch.where(live, merged_b + fused_scored.gather(1, donor), DEAD)
+    lm_score = torch.where(live, merged_b + extra.gather(1, donor), DEAD)
     # window prune relative to the best, then top-B (ref decoder.py:536-554)
     mx = lm_score.amax(dim=1, keepdim=True)
     sc = torch.where(lm_score >= mx + prm["beam_prune_logp"], lm_score, DEAD)
     score, top_idx = _top_b(sc, b)
     src = donor.gather(1, top_idx)
     out = {"src": src, "logit": merged_b.gather(1, top_idx), "score": score}
-    for i, (ctx2, ctx2_len) in enumerate(ctx_views):
-        out[f"ctx{i}"] = _rows(ctx2, src)
-        out[f"ctx_len{i}"] = _rows(ctx2_len, src)
+    for i, (ctx2, ctx2_len, _) in enumerate(ctx_out):
+        view, view_len = ctx2, ctx2_len
+        if score_word is not None:
+            view = torch.where(score_word[..., None], ctx2, state[f"ctx{i}"])
+            view_len = torch.where(score_word, ctx2_len, state[f"ctx_len{i}"])
+        out[f"ctx{i}"] = _rows(view, src)
+        out[f"ctx_len{i}"] = _rows(view_len, src)
+    out["carry"] = {"commit": commit, "text_lo": text_lo, "text_hi": text_hi,
+                    "fused": fused_scored, "ctx": ctx_out}
     return out
+
+
+def _committed_state(cfg: EngineConfig, state: Dict, fin: Dict) -> Dict:
+    """The carried state after a committing finalize: the ranked winners, word-aligned.
+
+    Rows are in rank order (slot r holds rank r). Text, history ring, word
+    count, fused score and contexts carry the commit; the partial, trie
+    node, flag and hot planes are zeroed; ``last_tok`` is -1 where alive
+    and ``-2 - r`` where dead, so that dead slots never merge.
+    """
+    n, b = state["logit"].shape
+    device = state["logit"].device
+    carry, src = fin["carry"], fin["src"]
+    commit = carry["commit"]
+    c2 = commit[..., None]
+    sel_alive = fin["score"] > DEAD_THRESH
+
+    def zeros() -> torch.Tensor:
+        return torch.zeros((n, b), dtype=torch.int64, device=device)
+
+    new = {
+        "text_lo": _rows(carry["text_lo"], src),
+        "text_hi": _rows(carry["text_hi"], src),
+        "p_lo": zeros(),
+        "p_hi": zeros(),
+        "p_len": zeros(),
+        "last_tok": torch.where(sel_alive, -1, -2 - torch.arange(b, device=device)),
+        "force": torch.zeros((n, b), dtype=torch.bool, device=device),
+        "logit": torch.where(sel_alive, fin["logit"], DEAD),
+        "fused": _rows(carry["fused"], src),
+        "n_words": _rows(state["n_words"] + commit.to(torch.int64), src),
+    }
+    for ring, lane in (("ring_lo", "p_lo"), ("ring_hi", "p_hi")):
+        shifted = torch.cat([state[ring][..., 1:], state[lane][..., None]], dim=-1)
+        new[ring] = _rows(torch.where(c2, shifted, state[ring]), src)
+    for i, (ctx2, ctx2_len, ctx2_bo) in enumerate(carry["ctx"]):
+        new[f"p_node{i}"] = zeros()
+        new[f"p_flags{i}"] = zeros()
+        new[f"ctx{i}"] = _rows(torch.where(c2, ctx2, state[f"ctx{i}"]), src)
+        new[f"ctx_len{i}"] = _rows(torch.where(commit, ctx2_len, state[f"ctx_len{i}"]), src)
+        new[f"ctx_bo{i}"] = _rows(torch.where(c2, ctx2_bo, state[f"ctx_bo{i}"]), src)
+    if cfg.use_hotwords:
+        new["h_node"] = zeros()
+        new["h_bits"] = zeros()
+    return new
 
 
 def make_decode_fn(cfg: EngineConfig, tables: Dict):
@@ -838,7 +917,7 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
             state, (par, tok) = step(state, xs, t)
             parents.append(par.to(_parent_dtype(cfg.beam_width)))
             trace.append(tok.to(_path_dtype(cfg.vocab_size)))
-        fin = _finalize(cfg, tables["lms"], prm, state)
+        fin = _finalize(cfg, tables["lms"], hot, prm, state)
         r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
         cur = fin["src"][:, :r]
         paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=device)
@@ -857,3 +936,58 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
         return out
 
     return decode
+
+
+def make_stream_fns(cfg: EngineConfig, tables: Dict):
+    """Build the streaming primitives over uploaded ``tables``: one utterance, ``[1, B]`` planes.
+
+    Returns ``(init_fn, chunk_fn, finalize_fn)``:
+
+    * ``init_fn(start) -> state``: a fresh beam state (``start`` as for
+      :func:`make_decode_fn`);
+    * ``chunk_fn(state, logp [1, Tc, V] f32, params, hot) -> (state',
+      parents [1, Tc, B], trace [1, Tc, B])``: the frame steps of one chunk
+      (frame indices relative to the chunk), with the backpointers narrowed
+      to :func:`_parent_dtype` / :func:`_path_dtype`;
+    * ``finalize_fn(state, params, do_commit, is_end, hot) -> (ranked,
+      committed)``: the ranked view ``{"src", "score", "logit"}`` ``[1, B]``
+      of the current hypotheses (:func:`_finalize`), and the carried state
+      after the commit (:func:`_committed_state`) when ``do_commit``, else
+      None.
+
+    Chunks run exactly their frames: the reference pads them to bucketed
+    sizes so that its compiled programs are reused, which an eager loop
+    does not need.
+    """
+    if cfg.token_timeline:
+        raise ValueError(
+            "the streaming API does not support token_timeline decoding "
+            "(chunk_fn consumes dense logit chunks; use the batch APIs "
+            "for timeline mode)"
+        )
+    device = tables["tok"]["kind"].device
+
+    def init_fn(start: Sequence[Dict]) -> Dict:
+        return _init_state(cfg, start, 1, device)
+
+    def chunk_fn(state: Dict, logp: torch.Tensor, params: np.ndarray, hot: Optional[Dict] = None):
+        n, tc, _ = logp.shape
+        parents = torch.empty((n, tc, cfg.beam_width), dtype=_parent_dtype(cfg.beam_width), device=device)
+        trace = torch.empty((n, tc, cfg.beam_width), dtype=_path_dtype(cfg.vocab_size), device=device)
+        if tc:
+            prm = _params_dict(cfg, params)
+            step = _make_step(cfg, tables, hot, prm, torch.full((n,), tc, dtype=torch.int64, device=device))
+            for t in range(tc):
+                state, (par, tok) = step(state, logp[:, t], t)
+                parents[:, t] = par
+                trace[:, t] = tok
+        return state, parents, trace
+
+    def finalize_fn(state: Dict, params: np.ndarray, do_commit: bool, is_end: bool,
+                    hot: Optional[Dict] = None):
+        prm = _params_dict(cfg, params)
+        fin = _finalize(cfg, tables["lms"], hot, prm, state, do_commit, is_end)
+        ranked = {key: fin[key] for key in ("src", "score", "logit")}
+        return ranked, (_committed_state(cfg, state, fin) if do_commit else None)
+
+    return init_fn, chunk_fn, finalize_fn

@@ -2,7 +2,7 @@
 from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
 from .hotwords import HotwordScorer
 from .language_model import LanguageModel, MultiLanguageModel
-from .ngram import NGramModel, open_ngram_file
+from .ngram import NGramModel, load_unigram_set_from_arpa, open_ngram_file, read_arpa
 
 __all__ = [
     "AbstractLanguageModel",
@@ -13,5 +13,7 @@ __all__ = [
     "MultiLanguageModel",
     "NGramLMState",
     "NGramModel",
+    "load_unigram_set_from_arpa",
     "open_ngram_file",
+    "read_arpa",
 ]

@@ -838,6 +838,11 @@ def build_hotword_tables(
     }
 
 
+def empty_hotword_tables(tokens: TokenArrays) -> Dict[str, np.ndarray]:
+    """No-hotword stand-in (root-only trie; every walk lands dead)."""
+    return build_hotword_tables([], tokens.char2id, tokens)
+
+
 # --------------------------------------------------------------------------
 # device probes (torch; any leading shape)
 # --------------------------------------------------------------------------

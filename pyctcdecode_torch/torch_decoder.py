@@ -2,7 +2,8 @@
 
 :class:`TorchBeamSearchDecoderCTC` mirrors the public API of the JAX
 reference's ``TPUBeamSearchDecoderCTC`` (``decode``, ``decode_beams``,
-``decode_batch``, ``decode_beams_batch``, ``decode_beams_batches``) and runs
+``decode_batch``, ``decode_beams_batch``, ``decode_beams_batches``, and the
+streaming pair ``get_starting_state`` / ``partial_decode_beams``) and runs
 the per-frame pipeline of :mod:`pyctcdecode_torch.engine` on one device. The
 host side normalizes logits, and replays the device's token paths into words
 and word-level frame spans (ref output semantics, decoder.py:604-667).
@@ -21,6 +22,7 @@ plain PyTorch version. Nothing falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
@@ -35,16 +37,19 @@ from .constants import (
     DEFAULT_PRUNE_BEAMS,
     DEFAULT_PRUNE_LOGP,
 )
-from .decoder import NULL_FRAMES, OutputBeam
-from .engine import EngineConfig, build_table_args, make_decode_fn
+from .decoder import NULL_FRAMES, LMBeam, OutputBeam, _not_ported
+from .engine import EngineConfig, build_table_args, make_decode_fn, make_stream_fns
 from .models.base import AbstractLMState, MultiLMState, NGramLMState
 from .models.device_tables import (
+    HOT_NODE_MASK,
     build_device_lm,
     build_hotword_tables,
     context_suffix_backoffs,
+    empty_hotword_tables,
 )
 from .models.hotwords import HotwordScorer
 from .models.language_model import LanguageModel, MultiLanguageModel
+from .ops.merge import DEAD_THRESH
 from .ops.tokens import build_token_arrays
 from .utils.logits import (
     normalize_batch,
@@ -239,8 +244,57 @@ def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return torch.device(device)
 
 
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported to pyctcdecode_torch yet")
+@dataclasses.dataclass
+class DeviceStreamState:
+    """Caller-held streaming decode state (ref decoder.py:669-728 analog).
+
+    ``beam_state`` (``[1, B]`` planes) lives on the device between chunks;
+    ``chunks`` holds the host copies of the per-chunk backpointers that
+    rebuild transcripts (cleared at each force-commit boundary, where the
+    transcripts fold into ``prefix_words`` / ``prefix_spans`` instead).
+    """
+
+    beam_state: Dict[str, torch.Tensor]
+    chunks: List[Tuple[np.ndarray, np.ndarray, int]]
+    processed_frames: int
+    beam_width: int
+    k_tokens: int
+    prune_history: bool
+    use_hotwords: bool = False
+    hot_sig: Any = None  # (sorted hotwords, weight) of the last chunk
+    last_partials: Optional[List[str]] = None  # carried slots' partial words
+    # committed transcript prefix per carried slot, folded at force-commit
+    # boundaries so that ``chunks`` (and the per-call backtrace cost) stays
+    # proportional to the frames since the last commit, not the stream length
+    prefix_words: Optional[List[List[str]]] = None
+    prefix_spans: Optional[List[List[Tuple[int, int]]]] = None
+
+
+def _backtrace_chunks(
+    chunks: Sequence[Tuple[np.ndarray, np.ndarray, int]], start_slots: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Walk backpointers across chunk boundaries, for all ``start_slots`` at once.
+
+    ``chunks``: ``(parents [Tc, B], trace [Tc, B], first frame)`` per chunk.
+    Returns the chosen tokens ``[R, T]`` of each slot's beam (oldest frame
+    first), the absolute frame ids ``[T]`` they share, and the slot each
+    beam reached at the start of the oldest chunk ``[R]`` (its origin in any
+    folded committed prefix). The reference walks one slot at a time; the
+    frame loop here advances every slot with one numpy gather.
+    """
+    cur = np.asarray(start_slots, dtype=np.int64)
+    total = sum(parents.shape[0] for parents, _, _ in chunks)
+    toks = np.empty((cur.size, total), dtype=np.int64)
+    frames = np.empty(total, dtype=np.int64)
+    end = total
+    for parents, trace, offset in reversed(chunks):
+        tc = parents.shape[0]
+        frames[end - tc : end] = offset + np.arange(tc)
+        for t in range(tc - 1, -1, -1):
+            toks[:, end - tc + t] = trace[t, cur]
+            cur = parents[t, cur].astype(np.int64)
+        end -= tc
+    return toks, frames, cur
 
 
 class TorchBeamSearchDecoderCTC:
@@ -282,6 +336,7 @@ class TorchBeamSearchDecoderCTC:
         self._tabs = build_table_args(self._tokens, self._device_lm, self._device)
         # hotword tables on the device, keyed by the unigram set
         self._hot_cache: Dict[Tuple[str, ...], Dict[str, Any]] = {}
+        self._empty_hot_tables: Optional[Dict[str, Any]] = None
         self._pinned: Optional[torch.Tensor] = None  # host staging of the outputs, see _fetch
 
     # -- configuration ---------------------------------------------------
@@ -327,16 +382,31 @@ class TorchBeamSearchDecoderCTC:
         key = tuple(sorted(scorer.unigrams))
         hot = self._hot_cache.get(key)
         if hot is None:
-            tables = build_hotword_tables(list(key), self._tokens.char2id, self._tokens)
-            hot = {
-                "next": torch.as_tensor(tables["next"], device=self._device).to(torch.int64),
-                "seed": torch.as_tensor(tables["seed"], device=self._device).to(torch.int64),
-                "dead": int(tables["dead"]),
-            }
+            hot = self._hot_to_device(build_hotword_tables(list(key), self._tokens.char2id, self._tokens))
             if len(self._hot_cache) >= 8:  # bound per-call table churn
                 self._hot_cache.pop(next(iter(self._hot_cache)))
             self._hot_cache[key] = hot
         return hot, float(weight)
+
+    def _hot_to_device(self, tables: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """Packed hot-trie tables on the device, the host's ``next`` table beside them.
+
+        The engine reads ``next``, ``seed`` and ``dead``; a stream whose
+        hotword set changes walks its carried partial words through
+        ``next_host`` (:meth:`partial_decode_beams`).
+        """
+        return {
+            "next": torch.as_tensor(tables["next"], device=self._device).to(torch.int64),
+            "seed": torch.as_tensor(tables["seed"], device=self._device).to(torch.int64),
+            "dead": int(tables["dead"]),
+            "next_host": tables["next"],
+        }
+
+    def _empty_hot(self) -> Dict[str, Any]:
+        """Root-only hotword trie (streaming chunks without hotwords)."""
+        if self._empty_hot_tables is None:
+            self._empty_hot_tables = self._hot_to_device(empty_hotword_tables(self._tokens))
+        return self._empty_hot_tables
 
     def _params_vector(self, token_min_logp: float, beam_prune_logp: float,
                        hotword_weight: float = 0.0) -> np.ndarray:
@@ -516,13 +586,193 @@ class TorchBeamSearchDecoderCTC:
             blank_collapse=blank_collapse,
         )[0].text
 
-    def get_starting_state(self, *args: Any, **kwargs: Any) -> Any:
-        """Streaming decode is not ported yet."""
-        raise _not_ported("streaming (get_starting_state)")
+    # -- streaming API ---------------------------------------------------------
+    def _get_stream_fns(self, beam_width: int, k: int, prune_history: bool, use_hotwords: bool):
+        return make_stream_fns(self._engine_cfg(beam_width, k, prune_history, use_hotwords), self._tabs)
 
-    def partial_decode_beams(self, *args: Any, **kwargs: Any) -> Any:
-        """Streaming decode is not ported yet."""
-        raise _not_ported("streaming (partial_decode_beams)")
+    def get_starting_state(
+        self,
+        beam_width: int = DEFAULT_BEAM_WIDTH,
+        prune_history: bool = DEFAULT_PRUNE_BEAMS,
+        max_tokens_per_frame: Optional[Union[int, str]] = None,
+        lm_start_state: Optional[AbstractLMState] = None,
+        hotwords_enabled: bool = False,
+    ) -> DeviceStreamState:
+        """Fresh streaming state on the device (ref decoder.py:669-679).
+
+        The host engine's starting state is (beams, score caches); here it
+        is one beam state of ``[1, B]`` planes on the device and an empty
+        backpointer log. The decode geometry (beam width, token preselect,
+        history pruning, hotword planes) is fixed at creation, as in the
+        reference, whose compiled programs it shapes.
+        """
+        if max_tokens_per_frame == "auto":
+            raise ValueError(
+                "streaming decode geometry is fixed before any logits are "
+                "seen; pass an integer max_tokens_per_frame (or None for "
+                "the exact full-vocabulary preselect)"
+            )
+        v = len(self._labels)
+        k = v if max_tokens_per_frame is None else min(int(max_tokens_per_frame), v)
+        init_fn, _, _ = self._get_stream_fns(beam_width, k, prune_history, hotwords_enabled)
+        with torch.inference_mode():
+            state = init_fn(self._start_ctx(lm_start_state))
+        return DeviceStreamState(
+            beam_state=state,
+            chunks=[],
+            processed_frames=0,
+            beam_width=beam_width,
+            k_tokens=k,
+            prune_history=prune_history,
+            use_hotwords=hotwords_enabled,
+        )
+
+    def _rewalk_hot(self, partials: Sequence[str], hot: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:
+        """Each carried slot's partial word walked through a new hot trie, on the host.
+
+        Returns the slots' hot nodes and packed bits, as the device walk
+        would have left them.
+        """
+        nxt, dead = hot["next_host"], hot["dead"]
+        nodes = np.zeros(len(partials), dtype=np.int64)
+        bits = np.zeros(len(partials), dtype=np.int64)
+        for slot, word in enumerate(partials):
+            node, entry = 0, 0
+            for ch in word:
+                cid = self._tokens.char2id.get(ch)
+                if cid is None:
+                    node, entry = dead, dead
+                    break
+                entry = int(nxt[node, cid])
+                node = entry & HOT_NODE_MASK
+            nodes[slot] = node
+            bits[slot] = entry & ~HOT_NODE_MASK
+        return nodes, bits
+
+    def partial_decode_beams(
+        self,
+        stream_state: DeviceStreamState,
+        logits_chunk: np.ndarray,
+        beam_prune_logp: float = DEFAULT_PRUNE_LOGP,
+        token_min_logp: float = DEFAULT_MIN_TOKEN_LOGP,
+        hotwords: Optional[Iterable[str]] = None,
+        hotword_weight: float = DEFAULT_HOTWORD_WEIGHT,
+        force_next_word: bool = False,
+        is_end: bool = False,
+    ) -> List[LMBeam]:
+        """Consume one chunk of logits; returns the ranked view of the current hypotheses.
+
+        Device analog of ref ``decoder.py:681-728``: ``stream_state`` is
+        updated in place (the beam planes stay on the device between
+        calls). The returned :class:`LMBeam` list holds committed words in
+        ``.text`` and the trailing partial in ``.partial_word``, unless
+        ``force_next_word`` or ``is_end`` commits it; ``is_end`` also
+        scores the end of the sentence. A commit folds the transcripts into
+        per-slot prefixes and drops the backpointer log. Chunked decoding
+        equals the full decode.
+        """
+        logits_chunk = np.asarray(logits_chunk)
+        if logits_chunk.ndim != 2 or logits_chunk.shape[1] != len(self._labels):
+            raise ValueError(
+                f"Input logits of shape {logits_chunk.shape}, but vocabulary "
+                f"is size {len(self._labels)}"
+            )
+        # materialized once: a generator would be used up by the first pass
+        hotwords = list(hotwords) if hotwords is not None else None
+        ss = stream_state
+        _, chunk_fn, finalize_fn = self._get_stream_fns(
+            ss.beam_width, ss.k_tokens, ss.prune_history, ss.use_hotwords
+        )
+        if ss.use_hotwords:
+            hot, weight = self._hot_tables(hotwords, hotword_weight)
+            if hot is None:
+                hot, weight = self._empty_hot(), 0.0
+            # a new hotword set invalidates the carried hot-trie nodes: walk
+            # each carried slot's partial word through the new trie (the
+            # reference rebuilds prefix membership from strings every call)
+            new_sig = (tuple(sorted(hotwords)) if hotwords else (), float(weight))
+            if ss.hot_sig is not None and new_sig != ss.hot_sig:
+                nodes, bits = self._rewalk_hot(ss.last_partials or [""] * ss.beam_width, hot)
+                ss.beam_state = dict(ss.beam_state)
+                ss.beam_state["h_node"] = torch.as_tensor(nodes, device=self._device)[None]
+                ss.beam_state["h_bits"] = torch.as_tensor(bits, device=self._device)[None]
+            ss.hot_sig = new_sig
+        else:
+            if hotwords:
+                raise ValueError(
+                    "stream state was created without hotword support; pass "
+                    "hotwords_enabled=True to get_starting_state"
+                )
+            hot, weight = None, 0.0
+        params = self._params_vector(token_min_logp, beam_prune_logp, weight)
+        t = logits_chunk.shape[0]
+        logp = (normalize_batch([logits_chunk])[0] if t
+                else np.zeros((0, len(self._labels)), dtype=np.float32))
+        committed = force_next_word or is_end
+        with torch.inference_mode():
+            state1, parents, trace = chunk_fn(
+                ss.beam_state, torch.as_tensor(logp, device=self._device)[None], params, hot
+            )
+            ranked, committed_state = finalize_fn(state1, params, committed, is_end, hot)
+            host = self._fetch(dict(ranked, parents=parents, trace=trace), 1)
+        if t:
+            ss.chunks.append((host["parents"][0].copy(), host["trace"][0].copy(), ss.processed_frames))
+        scores, logits_out = host["score"][0], host["logit"][0]
+        n_live = int(np.cumprod(scores > DEAD_THRESH).sum())
+        view_slots = host["src"][0][:n_live].astype(np.int64)
+        toks, frame_ids, origins = _backtrace_chunks(ss.chunks, view_slots)
+        frame_list = frame_ids.tolist()
+        beams: List[LMBeam] = []
+        rank_words: List[List[str]] = []  # per rank, the replay's own words (the fold's source)
+        rank_spans: List[List[Tuple[int, int]]] = []
+        for rank in range(n_live):
+            row = toks[rank]
+            words, spans, (partial, pframes) = replay_token_path(
+                row.tolist(), self._labels, self._alphabet.is_bpe, frame_ids=frame_list
+            )
+            if ss.prefix_words is not None:
+                # the folded committed prefix of this beam's origin slot
+                words = ss.prefix_words[origins[rank]] + words
+                spans = ss.prefix_spans[origins[rank]] + spans
+            emitted = np.flatnonzero(row >= 0)
+            last_label = self._labels[row[emitted[-1]]] if emitted.size else None
+            if committed:
+                if partial:
+                    words = words + [partial]
+                    spans = spans + [pframes]
+                partial, pframes, last_label = "", NULL_FRAMES, None
+            rank_words.append(words)
+            rank_spans.append(spans)
+            beams.append(LMBeam(
+                text=" ".join(words),
+                next_word="",
+                partial_word=partial,
+                last_char=last_label,
+                text_frames=spans,
+                partial_frames=pframes,
+                logit_score=float(logits_out[rank]),
+                lm_score=float(scores[rank]),
+            ))
+
+        if committed:
+            # the committed state's rows are in rank order: fold each rank's
+            # transcript into its slot's prefix and drop the backpointer log,
+            # so the next backtrace walks only the frames after this boundary
+            ss.beam_state = committed_state
+            ss.prefix_words = rank_words + [[] for _ in range(ss.beam_width - n_live)]
+            ss.prefix_spans = rank_spans + [[] for _ in range(ss.beam_width - n_live)]
+            ss.chunks = []
+            ss.last_partials = [""] * ss.beam_width
+        else:
+            ss.beam_state = state1
+            # partial words by CARRIED slot (rank r lives in slot src[r];
+            # dead slots keep ""), for a hotword swap's rewalk next chunk
+            partials = [""] * ss.beam_width
+            for rank, slot in enumerate(view_slots.tolist()):
+                partials[slot] = beams[rank].partial_word
+            ss.last_partials = partials
+        ss.processed_frames += t
+        return beams
 
     @staticmethod
     def _without_pool_arg(first: Any, rest: Tuple[Any, ...]) -> Any:
@@ -850,8 +1100,8 @@ class TorchBeamSearchDecoderCTC:
         The engine backtraces on the device, so the host replays one token
         path per (utterance, rank) row. For a char alphabet (multi-character
         labels included) one :func:`replay_token_paths_batch` pass covers
-        every row; no path carries a ``-2`` force-commit marker (streaming is
-        not ported). A BPE alphabet replays row by row through
+        every row; no path emits a ``-2`` force-commit marker (a stream folds
+        its commits on the host, :meth:`partial_decode_beams`). A BPE alphabet replays row by row through
         :func:`replay_token_path`, which knows the piece and break rules, and
         the trailing partial word is appended (finalization semantics).
         """

@@ -141,7 +141,9 @@ def test_unported_options_raise(decoders, option):
 
 
 def test_unported_engines_and_formats_raise(arpa_path, tmp_path):
-    with pytest.raises(NotImplementedError, match="host"):
+    # the host engine is ported (tests/test_torch_host_decoder.py); it takes no device
+    assert type(P.build_ctcdecoder(SAMPLE_LABELS, engine="host")) is P.BeamSearchDecoderCTC
+    with pytest.raises(TypeError, match="torch engine only"):
         P.build_ctcdecoder(SAMPLE_LABELS, engine="host", device="cpu")
     # a BPE alphabet is ported (tests/test_torch_bpe.py): it builds and decodes on the CPU
     bpe = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(["▁a", "▁b", "c", ""]), device="cpu")
@@ -154,8 +156,9 @@ def test_unported_engines_and_formats_raise(arpa_path, tmp_path):
     dec = P.build_ctcdecoder(SAMPLE_LABELS, arpa_path, device="cpu")
     assert dec.device == torch.device("cpu")
     assert dec.decode(TEST_LOGITS, beam_width=8) == "bugs bunny"
-    with pytest.raises(NotImplementedError, match="streaming"):
-        dec.get_starting_state()
+    # streaming is ported (tests/test_torch_stream.py)
+    state = dec.get_starting_state(beam_width=8)
+    assert dec.partial_decode_beams(state, TEST_LOGITS, is_end=True)[0].text == "bugs bunny"
     # hotwords are ported (tests/test_torch_hotwords.py); a nested ensemble still raises
     assert dec.decode(TEST_LOGITS, beam_width=8, hotwords=["bugs"]) == "bugs bunny"
     nested = P.MultiLanguageModel([P.MultiLanguageModel([dec.language_model] * 2), dec.language_model])

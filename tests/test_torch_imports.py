@@ -136,3 +136,41 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkey
                 torch.zeros((8, 64), dtype=torch.int32, device="cuda"),
                 torch.zeros((3,), dtype=torch.int64, device="cuda"),
             )
+
+
+def test_host_oracle_and_stream_modules_stand_alone():
+    """The copied host oracle and the stream code import nothing of JAX or the reference package."""
+    check = _CHECK.replace(
+        "import pyctcdecode_torch.csrc.build",
+        "import pyctcdecode_torch.csrc.build, pyctcdecode_torch.decoder\n"
+        "from pyctcdecode_torch.engine import make_stream_fns\n"
+        "from pyctcdecode_torch.torch_decoder import DeviceStreamState, _backtrace_chunks\n"
+        "from pyctcdecode_torch import BeamSearchDecoderCTC, Beam, LMBeam, OutputBeam, NGramModel",
+    )
+    assert check != _CHECK
+    out = subprocess.run(
+        [sys.executable, "-c", check], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+    scanned = {os.path.relpath(path, REPO) for path in _port_sources()}
+    assert {"pyctcdecode_torch/decoder.py", "pyctcdecode_torch/engine.py",
+            "pyctcdecode_torch/torch_decoder.py"} <= scanned
+
+
+def test_streaming_and_the_host_engine_no_longer_raise():
+    import numpy as np
+
+    import pyctcdecode_torch as P
+
+    from .helpers import SAMPLE_LABELS, TEST_LOGITS
+
+    dec = P.build_ctcdecoder(SAMPLE_LABELS, device="cpu")
+    state = dec.get_starting_state(beam_width=4)
+    assert isinstance(state, P.torch_decoder.DeviceStreamState)
+    view = dec.partial_decode_beams(state, np.asarray(TEST_LOGITS), is_end=True)
+    assert view[0].text == "bunny bunny"
+    host = P.build_ctcdecoder(SAMPLE_LABELS, engine="host")
+    assert host.decode(TEST_LOGITS) == "bunny bunny"
+    host.cleanup()

@@ -241,3 +241,49 @@ def one_hot(labels, pieces):
     for i, piece in enumerate(pieces):
         mat[i, labels.index(piece)] = 1.0
     return mat
+
+
+# ---- streaming
+def stream_planes(beam_state):
+    """A stream's carried beam state as numpy ``[1, B, ...]`` planes.
+
+    The port keeps ``[1, B]`` torch planes; the JAX package keeps one
+    utterance's ``[B]`` arrays, which get the batch axis here.
+    """
+    return {
+        key: val.cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)[None]
+        for key, val in beam_state.items()
+    }
+
+
+def assert_same_stream_state(want, got, tol=SCORE_TOL):
+    """Two carried beam states: the same planes and live slots; at live slots,
+    integer planes (hash lanes, masked to 32 bits) equal and float planes within ``tol``."""
+    want, got = stream_planes(want), stream_planes(got)
+    assert set(got) == set(want)
+    live = want["logit"] > -1e29
+    np.testing.assert_array_equal(got["logit"] > -1e29, live)
+    assert live.any()
+    for key, w in want.items():
+        g = got[key]
+        assert g.shape == w.shape, key
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g[live], w[live], atol=tol, rtol=0, err_msg=key)
+        else:
+            lanes = [x[live].astype(np.int64) & 0xFFFFFFFF for x in (g, w)]
+            np.testing.assert_array_equal(lanes[0], lanes[1], err_msg=key)
+
+
+def assert_same_views(want, got, tol=SCORE_TOL):
+    """Two ranked streaming views (``LMBeam`` lists): words, partial words, spans and
+    last labels identical; scores within ``tol``."""
+    assert len(got) == len(want)
+    assert len(want) > 0
+    for wb, gb in zip(want, got):
+        assert gb.text == wb.text
+        assert gb.partial_word == wb.partial_word
+        assert gb.text_frames == wb.text_frames
+        assert gb.partial_frames == wb.partial_frames
+        assert gb.last_char == wb.last_char
+        assert abs(gb.logit_score - wb.logit_score) <= tol
+        assert abs(gb.lm_score - wb.lm_score) <= tol
