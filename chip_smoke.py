@@ -33,7 +33,11 @@ Phases (any failed check exits non-zero and prints no result line):
    nowhere in the package). ``probe_rows`` (the hashes, bucket-row reads and
    fingerprint readout of every n-gram order >= 2 in one launch) against its
    plain version, bit-exact, on the queries of the same two real steps, warm
-   and with the L2 cache flushed;
+   and with the L2 cache flushed; then, for the ``kenlm`` phase, the same
+   3-gram written as a KenLM PROBING binary (the port's writer) and read by
+   ``build_ctcdecoder``: that decoder's dense step issues the same queries,
+   and ``probe_rows`` in its KenLM hash mode on them (and on seeded queries
+   that hit every order) is held bit-exact and timed the same way;
 5. dense path: the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M
    trigrams, written from a seed under ``build/``) behind
    ``pyctcdecode_torch.build_ctcdecoder``; ``decode_batch`` of 32 synthetic
@@ -102,7 +106,17 @@ Phases (any failed check exits non-zero and prints no result line):
    equals the full decode. Logged: wall ms per ``partial_decode_beams`` call
    (median, maximum, by chunk position), host ms per frame step, peak device
    memory, the profile of one stream's first 200 frames, the host oracle's
-   wall time.
+   wall time;
+11. kenlm: the decoder over member A's PROBING binary (phase 4) saved with
+   ``save_to_dir`` and loaded back with
+   ``TorchBeamSearchDecoderCTC.load_from_dir`` (timed beside the ARPA
+   decoder's build); its ``probe_rows`` on a real dense step bit-exact; the
+   32 utterances dense and serving: texts, frames and LM states equal the
+   ARPA decoder's (the binary keeps its word ids), ``lm_score`` within
+   1e-4, the launch counts the code implies. Member B as a QUANT_TRIE binary (8 + 8 bits) through a saved
+   directory: 2 utterances on the card equal the host oracle's loaded from
+   the same directory (top texts; scores within 2e-3). The dense decode
+   profiled.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -163,6 +177,10 @@ BPE_SEED = 3
 STREAM_UTTS, STREAM_CHUNK = 4, 25
 STREAM_CPU_CHUNKS = 4  # chunks of one stream held against the CPU (the plain versions take ~0.1 s a frame there)
 HOST_TOL = 2e-3  # the float64 host oracle against the float32 device
+# the kenlm path: member A as a KenLM PROBING binary, member B as QUANT_TRIE
+KENLM_TOL = 1e-4  # the binary holds the ARPA's f32 probabilities: the same sums, in the same order
+QUANT_BITS = (8, 8)  # kenlm build_binary's default -q 8 -b 8
+QUANT_UTTS = 2
 
 
 _T0 = time.perf_counter()
@@ -631,16 +649,18 @@ def probe_phases(torch, gather, step_calls: dict, ngrams=None) -> dict:
 
     On the queries of a real step of each path, and, given ``ngrams`` (the
     LM's host tables, one dict of id tuples per order), on seeded queries
-    that hit every order's table of the dense step's LM. No single PyTorch
+    that hit every order's table of the first path's LM. No single PyTorch
     call computes the probe, so there is no library time.
     """
-    dev = torch.device("cuda")
+    cases = {path: (rows, calls["probe"]) for path, (rows, calls) in step_calls.items()}
+    dev = next(iter(cases.values()))[1][0].device
     rec = {}
     flush = make_flush(torch, dev)
-    cases = {path: (rows, calls["probe"]) for path, (rows, calls) in step_calls.items()}
     if ngrams is not None:
-        tables, slots, sub_width = step_calls["dense"][1]["probe"][2:]
-        cases["seeded"] = (N_UTTS, (*seeded_probe_queries(torch, dev, ngrams, N_UTTS), tables, slots, sub_width))
+        first = next(iter(step_calls))
+        tables, slots, sub_width = step_calls[first][1]["probe"][2:]
+        seeded = "seeded" if first == "dense" else f"{first} seeded"
+        cases[seeded] = (N_UTTS, (*seeded_probe_queries(torch, dev, ngrams, N_UTTS), tables, slots, sub_width))
     for path, (rows, (full, ctx_len, tables, slots, sub_width)) in cases.items():
         label = f"probe_rows {path} step"
         orders = len(tables)
@@ -653,7 +673,7 @@ def probe_phases(torch, gather, step_calls: dict, ngrams=None) -> dict:
             check(torch.equal(g, w), f"{label}: {name} differs from the plain version")
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         hits = [int(f.sum()) for f in got[0]]
-        check(path != "seeded" or min(hits) > 0, f"{label}: an order's table was never hit")
+        check(not path.endswith("seeded") or min(hits) > 0, f"{label}: an order's table was never hit")
         ms, call = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width))
         plain, plain_call = time_call(torch, lambda: gather.probe_rows_ref(full, ctx_len, tables, slots, sub_width))
         c_ms, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width), flush=flush)
@@ -668,7 +688,11 @@ def probe_phases(torch, gather, step_calls: dict, ngrams=None) -> dict:
             distinct.append(int(h.unique().numel()))
             moved += distinct[-1] * tab["bucket"].shape[1] * tab["bucket"].element_size()
         q = ctx_len.numel()
-        b_ms, b_by = bound_ms(moved, 3.0 * 3 * sum(range(2, orders + 2)) * q + 40.0 * orders * q)
+        # per query and order: the three hashes (FNV-1a: 3 ops an id a lane; KenLM: ~10 integer
+        # ops a chain step and ~10 a mix32_pair) and ~40 for the readout
+        ops = sum(3.0 * 3 * (t + 2) if tab.get("hash_mode", "fnv") == "fnv" else 10.0 * (t + 1) + 30.0
+                  for t, tab in enumerate(tables))
+        b_ms, b_by = bound_ms(moved, (ops + 40.0 * orders) * q)
         log(f"{label}: ids {list(full.shape)}, {orders} tables, distinct bucket rows {distinct}, hits {hits}: "
             f"exact; kernel {ms:.4f} ms (call {call:.4f}), plain {plain:.4f} ms (call {plain_call:.4f}), "
             f"L2 flushed: kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
@@ -1639,6 +1663,204 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     return rec
 
 
+def kenlm_build_phase(torch, P, gather, lm_a, dense_call, head) -> dict:
+    """Member A as a KenLM PROBING binary, a decoder over it, and ``probe_rows`` in its KenLM mode.
+
+    Runs right after the FNV probe's timing, on the same recorded dense step:
+    the binary is written with the port's writer (timed) and
+    ``build_ctcdecoder`` reads it (timed); the new decoder's own step 60 must
+    issue the ARPA decoder's queries (the same word ids, the same beams), and
+    ``probe_rows`` on them with the KenLM-keyed tables is held bit-exact
+    against its plain version and timed beside the FNV probe of that step,
+    also on seeded queries that hit every order. The decoder's device tables
+    are parked for the ``kenlm`` phase.
+    """
+    from pyctcdecode_torch.csrc.build import BUILD_DIR
+    from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel, write_kenlm_binary
+
+    bin_path = os.path.join(str(BUILD_DIR), "parity_3gram.bin")
+    t0 = time.perf_counter()
+    write_kenlm_binary(lm_a.ngram_model.tables, bin_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = P.build_ctcdecoder(LIBRI_LABELS, bin_path)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    lm_k = built.language_model
+    modes = [t["hash_mode"] for t in built._tabs["lms"][0]["fp"]]
+    check(isinstance(lm_k.ngram_model, KenLMBinaryModel) and modes == ["kenlm64", "kenlm64"],
+          f"build_ctcdecoder did not read the binary into KenLM-keyed tables ({modes})")
+    check(lm_k.ngram_model.tables.vocab == lm_a.ngram_model.tables.vocab, "the binary's word ids differ from the ARPA's")
+    log(f"[kenlm] member A as a KenLM PROBING binary ({os.path.getsize(bin_path) / 1e6:.1f} MB) in {write_s:.2f} s; "
+        f"build_ctcdecoder over it (read + device tables) {built_s:.2f} s")
+    call = record_step_reads(torch, built, head, step=60)["probe"]
+    check(torch.equal(call[0], dense_call[0]) and torch.equal(call[1], dense_call[1]),
+          "the KenLM decoder's step 60 queries differ from the ARPA decoder's")
+    probe = probe_phases(torch, gather, {"kenlm dense": (N_UTTS, {"probe": call})}, lm_a.ngram_model.tables.ngrams)
+    park(built)
+    return {"decoder": built, "bin_path": bin_path, "write_s": write_s, "build_ctcdecoder_s": built_s,
+            "binary_mb": os.path.getsize(bin_path) / 1e6, "probe": probe}
+
+
+def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, dense_beams, serve_beams,
+                arpa_build_s: float, card: str) -> dict:
+    """The ``kenlm`` path: decoders saved and loaded as directories, over KenLM binaries.
+
+    ``early``: :func:`kenlm_build_phase`'s record, with the decoder built
+    over member A's PROBING binary. That decoder is saved with
+    ``save_to_dir`` and loaded back with ``TorchBeamSearchDecoderCTC.load_from_dir``
+    (the load timed from call to decoder ready, beside the ARPA decoder's
+    build). The 32 utterances decode dense and serving: texts, frames and LM
+    states (as words) equal the ARPA decoder's, scores within 1e-4, launch
+    counts as the code implies (the binary keeps the ARPA's word ids, so
+    the LM states compare as they are); the loaded decoder's ``probe_rows`` on a
+    real dense step is held bit-exact against its plain version. Member B
+    (the half-size 3-gram) is written as QUANT_TRIE (8 + 8 bits), saved and
+    loaded the same way, and its first 2 utterances decode on the card as
+    the port's host oracle loaded from the same directory does (top texts
+    equal, scores within 2e-3; quantized scores differ from the ARPA's by
+    design). The dense decode is profiled.
+    """
+    import shutil
+
+    from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
+    from pyctcdecode_torch.csrc.build import BUILD_DIR
+    from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel
+    from pyctcdecode_torch.models.kenlm_trie import write_kenlm_trie
+
+    t_phase = time.perf_counter()
+    wrappers = counters(merge, gather)
+    lm_a = arpa_dec.language_model
+    arpa_vocab = lm_a.ngram_model.tables.vocab
+    logits = corpus.logits
+    t_max = max(m.shape[0] for m in logits)
+    audio_s = corpus.audio_seconds
+    build = str(BUILD_DIR)
+    rec: dict = {"probe": early["probe"]}
+
+    # the decoder over member A's PROBING binary: save_to_dir; load_from_dir
+    save_dir = os.path.join(build, "kenlm_decoder")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    os.makedirs(save_dir)
+    early["decoder"].save_to_dir(save_dir)
+    t0 = time.perf_counter()
+    kdec = P.TorchBeamSearchDecoderCTC.load_from_dir(save_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lm_k = kdec.language_model
+    k_vocab = lm_k.ngram_model.tables.vocab
+    modes = [t["hash_mode"] for t in kdec._tabs["lms"][0]["fp"]]
+    check(kdec.device.type == "cuda" and modes == ["kenlm64", "kenlm64"], f"the loaded decoder: {kdec.device}, {modes}")
+    check(isinstance(lm_k.ngram_model, KenLMBinaryModel) and lm_k.order == 3, "load_from_dir did not read the binary")
+    check(lm_k.unigram_set == {w for w in lm_a.unigram_set if not (w.startswith("<") and w.endswith(">"))},
+          "the binary's unigrams differ from the ARPA's")
+    check(k_vocab == arpa_vocab, "the binary's word ids differ from the ARPA's")
+    sizes = [t["size"] for t in kdec._tabs["lms"][0]["fp"]]
+    log(f"[kenlm] save_to_dir {sorted(os.listdir(save_dir))} + "
+        f"{sorted(os.listdir(os.path.join(save_dir, 'language_model')))}; load_from_dir to a decoder on the card "
+        f"{load_s:.2f} s (the ARPA build_ctcdecoder: {arpa_build_s:.2f} s; build_ctcdecoder over the binary: "
+        f"{early['build_ctcdecoder_s']:.2f} s); bucket rows per order {sizes}")
+    rec.update(write_s=early["write_s"], build_ctcdecoder_s=early["build_ctcdecoder_s"], load_from_dir_s=load_s,
+               arpa_build_s=arpa_build_s, binary_mb=early["binary_mb"], bucket_rows=sizes)
+
+    # the loaded decoder's probe on a real dense step, bit-exact (timed in kenlm_build_phase)
+    full, ctx_len, k_tabs, slots, sub_width = record_step_reads(torch, kdec, [m[:61] for m in logits], step=60)["probe"]
+    got = gather.probe_rows(full, ctx_len, k_tabs, slots, sub_width)
+    want = gather.probe_rows_ref(full, ctx_len, k_tabs, slots, sub_width)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "the loaded decoder's probe_rows differs from its plain version")
+    log(f"[kenlm] probe_rows of the loaded decoder on its dense step 60 {list(full.shape)}: equal to the plain version")
+    del full, ctx_len, k_tabs, got, want
+
+    # the 32 utterances dense and serving, against the ARPA decoder's
+    dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
+    beams_kw = dict(prune_history=True, top_n=1)
+    latencies = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        reset_counts(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_dense = kdec.decode_beams_batch(logits, **dense_kw, **beams_kw)
+        latencies.append(time.perf_counter() - t0)
+        launches = read_counts(wrappers)
+        check_counts("kenlm dense", launches, expected_counts([lm_k], t_max, 1))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the binary keeps the ARPA's word ids (checked above), so the LM states compare as they are
+    d_dense = check_same_results("kenlm dense vs ARPA dense", dense_beams, k_dense, KENLM_TOL)
+    latency = statistics.median(latencies)
+    log(f"[kenlm] dense decode_beams_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, from the loaded directory: texts, "
+        f"text_frames and LM states equal the ARPA decoder's, max lm_score diff {d_dense:.3g}; latency "
+        f"{', '.join(f'{x:.3f}' for x in latencies)} s, {audio_s / latency:.1f} audio-s/s, {latency / t_max * 1e3:.2f} "
+        f"ms per frame step, peak device memory {peak_gb:.3f} GB [{card}]")
+    blank_id = LIBRI_LABELS.index("")
+    plan = serving_plan(kdec, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
+    serve_kw = dict(beam_width=BEAM, **SERVING)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    k_serve = kdec.decode_beams_batch(logits, **serve_kw, **beams_kw)
+    s_latency = time.perf_counter() - t0
+    s_launches = read_counts(wrappers)
+    check_counts("kenlm serving", s_launches, expected_counts([lm_k], plan["steps"], len(plan["groups"])))
+    d_serve = check_same_results("kenlm serving vs ARPA serving", serve_beams, k_serve, KENLM_TOL)
+    log(f"[kenlm] serving decode_beams_batch (chunks of {CHUNK}, collapse, {len(plan['groups'])} groups): equal to "
+        f"the ARPA decoder's serving results, max lm_score diff {d_serve:.3g}; {s_latency:.3f} s, "
+        f"{audio_s / s_latency:.1f} audio-s/s [{card}]")
+    rec.update(latency_s=latency, latencies_s=latencies, audio_s_per_s=audio_s / latency, peak_device_gb=peak_gb,
+               launches=launches, max_lm_score_diff_vs_arpa=d_dense,
+               serving=dict(latency_s=s_latency, launches=s_launches, steps=plan["steps"],
+                            max_lm_score_diff_vs_arpa=d_serve))
+
+    rec["profile"] = profile_head(torch, "profile kenlm dense", wrappers,
+                                  lambda b: kdec.decode_batch(b, **dense_kw), logits, card)
+    park(kdec)
+
+    # member B as QUANT_TRIE, through a saved directory, on the card and on the host oracle
+    q_path = os.path.join(build, "parity_3gram_half.binary")
+    t0 = time.perf_counter()
+    write_kenlm_trie(lm_b.ngram_model.tables, q_path, quant_bits=QUANT_BITS)
+    q_write_s = time.perf_counter() - t0
+    host_built = P.build_ctcdecoder(LIBRI_LABELS, q_path, engine="host", alpha=lm_b.alpha, beta=lm_b.beta,
+                                    unk_score_offset=lm_b.unk_score_offset, lm_score_boundary=lm_b.score_boundary)
+    q_dir = os.path.join(build, "kenlm_decoder_quant")
+    shutil.rmtree(q_dir, ignore_errors=True)
+    os.makedirs(q_dir)
+    host_built.save_to_dir(q_dir)
+    host_built.cleanup()
+    t0 = time.perf_counter()
+    qdec = P.TorchBeamSearchDecoderCTC.load_from_dir(q_dir)
+    torch.cuda.synchronize()
+    q_load_s = time.perf_counter() - t0
+    qhost = P.BeamSearchDecoderCTC.load_from_dir(q_dir)
+    lm_q = qdec.language_model
+    check(lm_q.serializable_attrs == lm_b.serializable_attrs, "member B's fusion settings did not survive the directory")
+    sub = logits[:QUANT_UTTS]
+    reset_counts(wrappers)
+    q_beams = qdec.decode_beams_batch(sub, beam_width=BEAM, prune_history=False)
+    q_launches = read_counts(wrappers)
+    check_counts("kenlm quant_trie", q_launches, expected_counts([lm_q], max(m.shape[0] for m in sub), 1))
+    t0 = time.perf_counter()
+    h_beams = [qhost.decode_beams(m, beam_width=BEAM, prune_history=False) for m in sub]
+    host_s = time.perf_counter() - t0
+    qhost.cleanup()
+    d_host = 0.0
+    for i, (h, q) in enumerate(zip(h_beams, q_beams)):
+        check(h[0].text == q[0].text, f"kenlm quant_trie: utterance {i}: top text differs from the host oracle's")
+        d = max(abs(h[0].lm_score - q[0].lm_score), abs(h[0].logit_score - q[0].logit_score))
+        check(d <= HOST_TOL, f"kenlm quant_trie: utterance {i}: scores differ from the host oracle's by {d}")
+        d_host = max(d_host, d)
+    log(f"[kenlm] member B as QUANT_TRIE ({QUANT_BITS[0]} prob + {QUANT_BITS[1]} backoff bits, "
+        f"{os.path.getsize(q_path) / 1e6:.1f} MB) written in {q_write_s:.2f} s; load_from_dir to the card "
+        f"{q_load_s:.2f} s; {QUANT_UTTS} utterances: top texts equal the host oracle's from the same directory "
+        f"(max score diff {d_host:.3g}; the host oracle {host_s:.3f} s) [{card}]")
+    rec["quant_trie"] = dict(write_s=q_write_s, load_from_dir_s=q_load_s, mb=os.path.getsize(q_path) / 1e6,
+                             launches=q_launches, max_score_diff_vs_host=d_host, host_oracle_s=host_s,
+                             bits=list(QUANT_BITS))
+    park(qdec)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[kenlm] phase in {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=None, help="directory for the run's JSON record")
@@ -1681,8 +1903,10 @@ def main() -> int:
     log(f"[main] parity ARPA ready in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     decoder = P.build_ctcdecoder(LIBRI_LABELS, arpa)
+    torch.cuda.synchronize()
+    arpa_build_s = time.perf_counter() - t0
     lm = decoder.language_model
-    log(f"[main] build_ctcdecoder (parse + device tables) in {time.perf_counter() - t0:.1f} s")
+    log(f"[main] build_ctcdecoder (parse + device tables) in {arpa_build_s:.1f} s")
     check(decoder.device.type == "cuda", "decoder is not on CUDA")
     check(lm.order == 3, "the parity LM is not a 3-gram")
     rng = np.random.RandomState(11)
@@ -1709,6 +1933,8 @@ def main() -> int:
         f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
     gather_rec = gather_phases(torch, gather, step_calls)
     probe_rec = probe_phases(torch, gather, step_calls, lm.ngram_model.tables.ngrams)
+    # probe_rows' KenLM mode on the same step's queries (member A as a KenLM binary)
+    kenlm_early = kenlm_build_phase(torch, P, gather, lm, step_calls["dense"][1]["probe"], head)
     del step_calls
 
     # ---- dense path
@@ -1847,6 +2073,11 @@ def main() -> int:
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
                               corpus, hot, bpe_logits, card)
+
+    # ---- the kenlm path: decoder directories over KenLM binaries (load_from_dir), probe_rows' KenLM mode
+    kenlm_rec = kenlm_phase(torch, P, merge, gather, kenlm_early, decoder, members[1], corpus, dense_beams,
+                            serve_beams, arpa_build_s, card)
+    del kenlm_early
     del decoder, multi, bpe_dec, members
 
     kernels = []
@@ -1867,6 +2098,8 @@ def main() -> int:
             [hot_rec["probe_member_b" if kname == "probe_rows" else "gather_member_b"]["max_abs_err"]]
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
         errs.append(stream_rec["kernels"][kname]["max_abs_err"])
+        if kname == "probe_rows":
+            errs += [v["max_abs_err"] for v in kenlm_rec["probe"].values()]
         kernels.append({
             "name": kname, "route": "cuda", "source": f"pyctcdecode_torch/csrc/{src_file}",
             "replaces": site, "launches": launches[kname], "max_abs_err": max(errs),
@@ -1883,6 +2116,8 @@ def main() -> int:
             "launches_stream_hot2lm": stream_rec["hot2lm"]["launches"][kname],
             "launches_stream_bpe": stream_rec["bpe"]["launches"][kname],
             "stream": {key: stream_rec["kernels"][kname].get(key) for key in keys},
+            "launches_kenlm": kenlm_rec["launches"][kname],
+            "launches_kenlm_serving": kenlm_rec["serving"]["launches"][kname],
         })
         if kname == "expand_merge_prune":
             for tag, r_bpe in (("bpe", rec[("expand_merge_prune", f"n={N_UTTS},k={BPE_V},lmax={BPE_LMAX}")]),
@@ -1896,6 +2131,10 @@ def main() -> int:
         if kname in ("gather_rows", "probe_rows"):
             r_b = hot_rec["gather_member_b" if kname == "gather_rows" else "probe_member_b"]
             kernels[-1]["hot2lm_member_b"] = {key: r_b.get(key) for key in keys}
+        if kname == "probe_rows":  # the KenLM hash mode (the FNV mode on the same queries is "ms" above)
+            for tag, r_k in (("kenlm", kenlm_rec["probe"]["kenlm dense"]),
+                             ("kenlm_seeded", kenlm_rec["probe"]["kenlm dense seeded"])):
+                kernels[-1][tag] = {key: r_k.get(key) for key in keys + ("cold_ms", "hits")}
     record = {
         "kernels": kernels,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
@@ -1908,6 +2147,7 @@ def main() -> int:
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
         "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
+        "kenlm": kenlm_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,
     }

@@ -46,10 +46,13 @@ def build_ctcdecoder(
 
     Args:
         labels: raw model labels (logit column order).
-        kenlm_model_path: optional path to an ARPA n-gram LM (``.arpa`` or
-            ``.arpa.gz``); the kwarg name matches the reference API, but the
-            file is loaded by this package's own n-gram runtime.
-        unigrams: known word vocabulary (inferred from \\1-grams for ARPA).
+        kenlm_model_path: optional path to an n-gram LM: ARPA (``.arpa``,
+            ``.arpa.gz``), a KenLM binary (``.bin`` / ``.binary``: PROBING,
+            TRIE or QUANT_TRIE) or ``.ctclm``; the kwarg name matches the
+            reference API, but the file is loaded by this package's own
+            n-gram runtime.
+        unigrams: known word vocabulary (inferred from \\1-grams for ARPA,
+            from the vocabulary strings of a binary or ``.ctclm`` model).
         alpha: LM weight for shallow fusion.
         beta: per-word length bonus.
         unk_score_offset: log-score offset for OOV words.
@@ -65,8 +68,29 @@ def build_ctcdecoder(
     if engine == "host" and device is not None:
         raise TypeError("device applies to the torch engine only; the host engine runs on the CPU")
     ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
+    if kenlm_model_path is not None and kenlm_model_path.endswith(".arpa"):
+        logger.info(
+            "loading a plain-text ARPA model; the compiled .ctclm format "
+            "loads much faster for repeated use"
+        )
     if unigrams is None and kenlm_model_path is not None:
-        unigrams = load_unigram_set_from_arpa(kenlm_model_path)
+        if kenlm_model_path.endswith((".arpa", ".arpa.gz")):
+            unigrams = load_unigram_set_from_arpa(kenlm_model_path)
+        elif hasattr(ngram_model, "vocab_words"):
+            # KenLM binaries and .ctclm files carry their vocabulary strings;
+            # unlike the reference (whose kenlm binding cannot enumerate
+            # them, ref decoder.py:1080-1084) the word set is read directly
+            unigrams = [
+                w
+                for w in ngram_model.vocab_words()
+                if not (w.startswith("<") and w.endswith(">"))
+            ]
+        else:
+            logger.warning(
+                "no unigram vocabulary given and none can be read from a "
+                "non-ARPA model file; partial-word scoring will treat every "
+                "prefix as unknown"
+            )
     alphabet = Alphabet.build_alphabet(labels)
     if unigrams is not None:
         verify_alphabet_coverage(alphabet, unigrams)

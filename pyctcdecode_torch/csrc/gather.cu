@@ -24,8 +24,17 @@
 //   and writes only the node's own words of the packed row.
 // * probe_rows_kernel: one launch probes every n-gram order >= 2 of a
 //   scoring call. One warp per (query, order): each lane computes the
-//   query's three FNV-1a hashes in uint32 (base hash and the two clamped
-//   fingerprint lanes), lane l loads 16-byte vector l of the one 512-byte
+//   query's three hashes in uint32 (base hash and the two clamped
+//   fingerprint lanes) in its table's mode: FNV-1a over the ids (tables of
+//   ARPA models), or KenLM's 64-bit chain over the ids (tables read from a
+//   KenLM binary, which stores only each n-gram's chain hash). In the KenLM
+//   mode the base hash mixes both halves of the chain (mix32_pair) and
+//   each fingerprint lane mixes one half, so the lanes keep all 64 bits.
+//   The JAX reference spells the chain's 64-bit multiplies in 16-bit pieces
+//   (its TPU has no 64-bit integers); here each is one native uint64_t
+//   multiply, a few 32-bit IMADs. The mode is per table, and a table is one
+//   blockIdx.y, so a warp never diverges on it.
+//   Then lane l loads 16-byte vector l of the one 512-byte
 //   bucket row h % size, so the warp holds the whole row in registers (two
 //   sub-blocks of 16 lanes: 4 lanes of fp_lo, 4 of fp_hi, 4 of prob, 4 of
 //   backoff), compares its four words, and shuffles and ballots find the one
@@ -81,13 +90,30 @@ constexpr int BUCKET_WIDTH = 128;
 constexpr uint32_t FNV_OFFSET = 2166136261u;
 constexpr uint32_t FNV_PRIME = 16777619u;
 constexpr uint32_t FP_MAX = 0xFFFFFFFEu;  // 0xFFFFFFFF marks an empty slot
+constexpr uint32_t MODE_FNV = 0, MODE_KENLM64 = 1;  // ops/gather.py HASH_MODES
+constexpr uint64_t KENLM_MUL_A = 8978948897894561157ULL;  // kenlm CombineWordHash
+constexpr uint64_t KENLM_MUL_B = 17894857484156487943ULL;
+constexpr uint32_t KENLM_BASE_SEED = 0x243F6A88u;
 
 struct ProbeTables {  // table t holds the (t + 2)-grams
   const int4* bucket[MAX_TABLES];
   uint32_t size[MAX_TABLES];
   uint32_t seed_lo[MAX_TABLES];
   uint32_t seed_hi[MAX_TABLES];
+  uint32_t mode[MAX_TABLES];  // MODE_FNV or MODE_KENLM64
 };
+
+// Seeded 32-bit mix of a 64-bit key's halves (murmur3 finalizer core),
+// ops/hashing.py mix32_pair.
+__device__ __forceinline__ uint32_t mix32_pair(uint32_t lo, uint32_t hi, uint32_t seed) {
+  uint32_t h = lo ^ (hi * 0x85EBCA6Bu) ^ seed;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
 
 __device__ __forceinline__ int word_of(const int4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
@@ -107,11 +133,23 @@ __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ 
        q += warps) {
     uint32_t h = FNV_OFFSET, lo = tabs.seed_lo[t], hi = tabs.seed_hi[t];
     const int64_t* key = full + q * order + (order - n);
-    for (int j = 0; j < n; ++j) {
-      const uint32_t id = (uint32_t)key[j];
-      h = (h ^ id) * FNV_PRIME;
-      lo = (lo ^ id) * FNV_PRIME;
-      hi = (hi ^ id) * FNV_PRIME;
+    if (tabs.mode[t] == MODE_KENLM64) {
+      // newest word first, then the context nearest to oldest; w + 1 in
+      // uint32 (ops/hashing.py kenlm_chain)
+      uint64_t c = (uint64_t)(uint32_t)key[n - 1];
+      for (int j = n - 2; j >= 0; --j)
+        c = (c * KENLM_MUL_A) ^ ((uint64_t)((uint32_t)key[j] + 1u) * KENLM_MUL_B);
+      const uint32_t c_lo = (uint32_t)c, c_hi = (uint32_t)(c >> 32);
+      h = mix32_pair(c_lo, c_hi, KENLM_BASE_SEED);
+      lo = mix32_pair(c_lo, 0u, lo);
+      hi = mix32_pair(c_hi, 0u, hi);
+    } else {
+      for (int j = 0; j < n; ++j) {
+        const uint32_t id = (uint32_t)key[j];
+        h = (h ^ id) * FNV_PRIME;
+        lo = (lo ^ id) * FNV_PRIME;
+        hi = (hi ^ id) * FNV_PRIME;
+      }
     }
     lo = min(lo, FP_MAX);
     hi = min(hi, FP_MAX);
@@ -162,24 +200,29 @@ extern "C" int gather_rows_launch(const void* table, const int64_t* idx, const i
                                 (cudaStream_t)stream);
 }
 
-// buckets / sizes / seeds_lo / seeds_hi: host arrays of order - 1 entries,
-// table t for the (t + 2)-grams, each bucket int32 [size, 128] on the
-// device, 16-byte aligned. Refuses any other bucket geometry or order.
+// buckets / sizes / seeds_lo / seeds_hi / modes: host arrays of order - 1
+// entries, table t for the (t + 2)-grams, each bucket int32 [size, 128] on
+// the device, 16-byte aligned; modes[t] is MODE_FNV or MODE_KENLM64. Refuses
+// any other bucket geometry, order or mode.
 extern "C" int probe_rows_launch(const void* const* buckets, const uint32_t* sizes,
                                  const uint32_t* seeds_lo, const uint32_t* seeds_hi,
-                                 const int64_t* full, const int64_t* ctx_len, uint8_t* found,
-                                 float* prob, float* backoff, long long n_query, int order,
+                                 const uint32_t* modes, const int64_t* full,
+                                 const int64_t* ctx_len, uint8_t* found, float* prob,
+                                 float* backoff, long long n_query, int order,
                                  int slots, int sub_width, int bucket_width, void* stream) {
   if (slots != BUCKET_SLOTS || sub_width != SUB_WIDTH || bucket_width != BUCKET_WIDTH ||
       order < 2 || order - 1 > MAX_TABLES)
     return (int)cudaErrorInvalidValue;
   ProbeTables tabs;
   for (int t = 0; t < order - 1; ++t) {
-    if ((uintptr_t)buckets[t] % 16 != 0 || sizes[t] == 0) return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)buckets[t] % 16 != 0 || sizes[t] == 0 ||
+        (modes[t] != MODE_FNV && modes[t] != MODE_KENLM64))
+      return (int)cudaErrorInvalidValue;
     tabs.bucket[t] = reinterpret_cast<const int4*>(buckets[t]);
     tabs.size[t] = sizes[t];
     tabs.seed_lo[t] = seeds_lo[t];
     tabs.seed_hi[t] = seeds_hi[t];
+    tabs.mode[t] = modes[t];
   }
   const int warps = THREADS / 32;
   long long blocks = (n_query + warps - 1) / warps;

@@ -31,8 +31,11 @@ right-bounded" flag in a loop variable shared by every beam
 (``force_next_break``, ref decoder.py:442,474-482); here it is per-beam
 state, which only matters on alphabets with ``▁…▁`` double-bounded pieces.
 
-Serialization (``save_to_dir``, ``load_from_dir``, ``load_from_hf_hub``)
-waits for the language model's own and raises ``NotImplementedError``.
+Serialization (``save_to_dir``, ``parse_directory_contents``,
+``load_from_dir``, ``load_from_hf_hub``) keeps the reference's directory:
+``alphabet.json`` and, with a language model, ``language_model/`` (its
+``attrs.json``, ``unigrams.txt`` and model file: ARPA, ``.arpa.gz``, a
+KenLM binary or ``.ctclm``).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import math
 import multiprocessing as mp
 import os
 from multiprocessing.pool import Pool
+from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -57,6 +61,7 @@ from .constants import (
 )
 from .models.base import AbstractLanguageModel, AbstractLMState
 from .models.hotwords import HotwordScorer
+from .models.language_model import LanguageModel
 from .utils.logits import normalize_to_logp
 
 logger = logging.getLogger(__name__)
@@ -302,6 +307,9 @@ class BeamSearchDecoderCTC:
     """
 
     model_container: Dict[bytes, Optional[AbstractLanguageModel]] = {}
+
+    _ALPHABET_SERIALIZED_FILENAME = "alphabet.json"
+    _LANGUAGE_MODEL_SERIALIZED_DIRECTORY = "language_model"
 
     def __init__(
         self,
@@ -866,24 +874,77 @@ class BeamSearchDecoderCTC:
 
     # -- serialization ----------------------------------------------------------
     def save_to_dir(self, filepath: str) -> None:
-        """Not ported yet: it needs the language model's ``save_to_dir``."""
-        raise _not_ported("decoder serialization (save_to_dir)")
+        """Write alphabet.json (+ language_model/ when present) to a directory."""
+        alphabet_path = os.path.join(filepath, self._ALPHABET_SERIALIZED_FILENAME)
+        with open(alphabet_path, "w") as fh:
+            fh.write(self._alphabet.dumps())
+        lm = self._language_model
+        if lm is None:
+            logger.info("no language model attached; serializing the alphabet only")
+        else:
+            lm_path = os.path.join(filepath, self._LANGUAGE_MODEL_SERIALIZED_DIRECTORY)
+            os.makedirs(lm_path)
+            logger.info("writing the language model under %s", lm_path)
+            lm.save_to_dir(lm_path)
 
     @staticmethod
     def parse_directory_contents(filepath: str) -> Dict[str, Union[str, None]]:
-        """Not ported yet, with the rest of the serialization."""
-        raise _not_ported("decoder serialization (parse_directory_contents)")
+        """Validate a serialized-decoder directory layout."""
+        alphabet_name = BeamSearchDecoderCTC._ALPHABET_SERIALIZED_FILENAME
+        lm_dir_name = BeamSearchDecoderCTC._LANGUAGE_MODEL_SERIALIZED_DIRECTORY
+        contents = [
+            c
+            for c in os.listdir(filepath)
+            if not c.startswith(".") and not c.startswith("__")
+        ]
+        if alphabet_name not in contents:
+            raise ValueError(
+                f"not a serialized decoder directory: {alphabet_name} is "
+                f"absent from {filepath} (directory holds {contents})"
+            )
+        contents.remove(alphabet_name)
+        lm_directory: Optional[str] = None
+        if contents:
+            if lm_dir_name not in contents:
+                raise ValueError(
+                    f"unexpected extra entries {contents} in a serialized "
+                    f"decoder directory; only {lm_dir_name!r} may accompany "
+                    f"{alphabet_name!r}"
+                )
+            lm_directory = os.path.join(filepath, lm_dir_name)
+        return {
+            "alphabet": os.path.join(filepath, alphabet_name),
+            "language_model": lm_directory,
+        }
 
     @classmethod
     def load_from_dir(
         cls, filepath: str, unigram_encoding: Optional[str] = None
     ) -> "BeamSearchDecoderCTC":
-        """Not ported yet: it needs the language model's ``load_from_dir``."""
-        raise _not_ported("decoder serialization (load_from_dir)")
+        """Load a serialized decoder directory."""
+        filenames = cls.parse_directory_contents(filepath)
+        with open(filenames["alphabet"], "r") as fh:  # type: ignore[arg-type]
+            alphabet = Alphabet.loads(fh.read())
+        language_model: Optional[AbstractLanguageModel] = None
+        if filenames["language_model"] is not None:
+            language_model = LanguageModel.load_from_dir(
+                filenames["language_model"], unigram_encoding=unigram_encoding
+            )
+        return cls(alphabet, language_model=language_model)
 
     @classmethod
     def load_from_hf_hub(
         cls, model_id: str, cache_dir: Optional[str] = None, **kwargs: Any
     ) -> "BeamSearchDecoderCTC":
-        """Not ported yet, with the rest of the serialization."""
-        raise _not_ported("decoder serialization (load_from_hf_hub)")
+        """Load a decoder directory from the HuggingFace Hub (or its cache)."""
+        if cache_dir is None:
+            cache_dir = os.path.join(Path.home(), ".cache", "pyctcdecode_torch")
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as err:
+            raise ImportError(
+                "loading from the HuggingFace Hub requires the optional "
+                "huggingface_hub package (pip install huggingface-hub)"
+            ) from err
+        cached_directory = snapshot_download(model_id, cache_dir=cache_dir, **kwargs)
+        return cls.load_from_dir(cached_directory)

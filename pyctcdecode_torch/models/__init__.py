@@ -1,6 +1,7 @@
-"""Language models: the ARPA n-gram runtime, fusion wrappers, hotwords and device tables."""
+"""Language models: the n-gram runtimes (ARPA, .ctclm, KenLM binaries), fusion wrappers, hotwords and device tables."""
 from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
 from .hotwords import HotwordScorer
+from .kenlm_bin import KenLMBinaryModel
 from .language_model import LanguageModel, MultiLanguageModel
 from .ngram import NGramModel, load_unigram_set_from_arpa, open_ngram_file, read_arpa
 
@@ -8,6 +9,7 @@ __all__ = [
     "AbstractLanguageModel",
     "AbstractLMState",
     "HotwordScorer",
+    "KenLMBinaryModel",
     "LanguageModel",
     "MultiLMState",
     "MultiLanguageModel",

@@ -37,9 +37,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.gather import bucket_readout, gather_rows, probe_rows, query_hashes
-from ..ops.hashing import fnv1a, fnv1a_seeded
+from ..ops.gather import HASH_MODES, bucket_readout, gather_rows, probe_rows, query_hashes
+from ..ops.hashing import KENLM_BASE_SEED as _KENLM_BASE_SEED
+from ..ops.hashing import fnv1a, fnv1a_seeded, kenlm_chain, mix32_pair
 from ..ops.tokens import TokenArrays
+from .kenlm_bin import KenLMBinaryModel
 from .language_model import LanguageModel
 from .ngram import BOS_WORD, EOS_WORD, NGramModel, NGramTables
 
@@ -108,8 +110,9 @@ class FPTable:
     # strides: fp_lo (u32 bits, _FP_EMPTY = vacant), fp_hi, prob (f32
     # bits), backoff (f32 bits)
     bucket: np.ndarray
-    # "fnv": keys are id tuples hashed with seeded FNV lanes (ARPA models).
-    # "kenlm" (tables keyed by KenLM chain hashes) is not ported yet.
+    # "fnv": keys are id tuples hashed with seeded FNV lanes (ARPA and
+    # .ctclm models); "kenlm64": keys are KenLM 64-bit chain hashes (KenLM
+    # binaries), see build_fp_table_from_hashes
     hash_mode: str = "fnv"
 
 
@@ -235,13 +238,90 @@ def build_fp_table(
     )
 
 
+def build_fp_table_from_hashes(
+    keys64: np.ndarray, probs: np.ndarray, backoffs: np.ndarray, n: int
+) -> FPTable:
+    """Build one order's table straight from KenLM 64-bit chain hashes.
+
+    A KenLM PROBING binary never stores the n-gram tuples, so the usual
+    id-tuple build is impossible — but its chain hash is itself a 64-bit
+    fingerprint the device can recompute from query ids
+    (:func:`~pyctcdecode_torch.ops.hashing.kenlm_chain`). The base slot is
+    the JAX reference's, a seeded mix of both halves of the hash. Each
+    fingerprint lane is a seeded murmur3 finalizer of ONE half (a bijection
+    of it), so two distinct keys always differ in a lane and the table
+    matches on all 64 bits, as kenlm's own probing lookup does.
+
+    This departs from the JAX reference (``hash_mode="kenlm"``), whose two
+    lanes mix both halves through ``lo ^ hi * 0x85EBCA6B`` alone: base and
+    lanes then depend on one 32-bit value, keys that share it can never be
+    told apart by any reseed, and at a LibriSpeech-scale table (1.1-1.5M
+    n-grams per order, ~150-260 keys sharing it) its build gives up; a query
+    that shares it with a resident would read that resident. Tables built
+    that way are refused by :meth:`DeviceLM.from_numpy`.
+    """
+    keys64 = np.asarray(keys64, dtype=np.uint64)
+    # duplicate chain hashes (authentic probing binaries can contain
+    # colliding keys; kenlm's lookup resolves to one of them) would make
+    # the fingerprint reseed loop spin forever — keep the first
+    # occurrence, matching probing-lookup semantics
+    _, first_idx = np.unique(keys64, return_index=True)
+    if len(first_idx) != len(keys64):
+        keep = np.sort(first_idx)
+        keys64 = keys64[keep]
+        probs = np.asarray(probs)[keep]
+        backoffs = np.asarray(backoffs)[keep]
+    lo32 = (keys64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi32 = (keys64 >> np.uint64(32)).astype(np.uint32)
+    base_full = mix32_pair(np, lo32, hi32, np.uint32(_KENLM_BASE_SEED))
+
+    zero = np.uint32(0)
+
+    def lanes(seed_lo, seed_hi):
+        lo = mix32_pair(np, lo32, zero, np.uint32(seed_lo))
+        hi = mix32_pair(np, hi32, zero, np.uint32(seed_hi))
+        return (
+            np.minimum(lo, _FP_EMPTY - np.uint32(1)),
+            np.minimum(hi, _FP_EMPTY - np.uint32(1)),
+        )
+
+    return _assemble_fp(base_full, lanes, probs, backoffs, n, "kenlm64")
+
+
+def _query_hashes(tab: Dict, query: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Base hash + clamped fingerprint lanes for a query batch ``[Q, n]`` (numpy).
+
+    Mode "fnv" hashes the id tuple directly; mode "kenlm64" first folds the
+    ids through KenLM's 64-bit chain (the only key a PROBING binary
+    stores), then mixes both halves into the base hash and each half into
+    its lane (:func:`build_fp_table_from_hashes`).
+    """
+    if tab.get("hash_mode", "fnv") == "kenlm64":
+        klo, khi = kenlm_chain(np, query)
+        h = mix32_pair(np, klo, khi, np.uint32(_KENLM_BASE_SEED))
+        lo = mix32_pair(np, klo, np.uint32(0), tab["seed_lo"])
+        hi = mix32_pair(np, khi, np.uint32(0), tab["seed_hi"])
+    else:
+        h = fnv1a(np, query)
+        lo = fnv1a_seeded(np, query, tab["seed_lo"])
+        hi = fnv1a_seeded(np, query, tab["seed_hi"])
+    lo = np.minimum(lo, np.uint32(0xFFFFFFFE))
+    hi = np.minimum(hi, np.uint32(0xFFFFFFFE))
+    return h, lo, hi
+
+
 def probe_fp_host(table: FPTable, keys: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized numpy mirror of the device probe (build/host-state path)."""
     keys = np.asarray(keys, dtype=np.int32).reshape(-1, table.n)
     nq = keys.shape[0]
-    h = fnv1a(np, keys)
-    lo = np.minimum(fnv1a_seeded(np, keys, np.uint32(table.seed_lo)), _FP_EMPTY - np.uint32(1))
-    hi = np.minimum(fnv1a_seeded(np, keys, np.uint32(table.seed_hi)), _FP_EMPTY - np.uint32(1))
+    h, lo, hi = _query_hashes(
+        {
+            "hash_mode": table.hash_mode,
+            "seed_lo": np.uint32(table.seed_lo),
+            "seed_hi": np.uint32(table.seed_hi),
+        },
+        keys,
+    )
     base = (h % np.uint32(table.size)).astype(np.int64)
     all_rows = table.bucket.view(np.uint32)[base]  # [Q, _BUCKET_WIDTH]
     s_ = _BUCKET_SLOTS
@@ -606,15 +686,22 @@ class DeviceLM:
 
         ``fp_tables`` holds one dict per order with ``bucket``, ``size``,
         ``seed_lo``, ``seed_hi``, ``n``, ``hash_mode`` (and optionally
-        ``count``); ``trie`` holds :class:`PackedTrie`'s fields.
+        ``count``); ``trie`` holds :class:`PackedTrie`'s fields. The JAX
+        package's KenLM-keyed tables (``hash_mode="kenlm"``) are refused:
+        see :func:`build_fp_table_from_hashes`.
         """
         tables = []
         for t in fp_tables:
-            if t.get("hash_mode", "fnv") != "fnv":
-                raise NotImplementedError(
-                    f"hash_mode {t['hash_mode']!r} (KenLM-keyed tables) is not "
-                    f"ported yet"
+            hash_mode = t.get("hash_mode", "fnv")
+            if hash_mode == "kenlm":
+                raise ValueError(
+                    "hash_mode 'kenlm' tables (the JAX reference package's KenLM-keyed "
+                    "tables) fingerprint a 32-bit fold of the 64-bit chain, so distinct "
+                    "n-grams can share every lane; build the tables from the binary "
+                    "instead (build_device_lm, hash_mode 'kenlm64')"
                 )
+            if hash_mode not in HASH_MODES:
+                raise ValueError(f"unknown hash_mode {hash_mode!r}; expected one of {HASH_MODES}")
             tables.append(
                 FPTable(
                     n=int(t["n"]),
@@ -623,7 +710,7 @@ class DeviceLM:
                     seed_hi=int(t["seed_hi"]),
                     count=int(t.get("count", 0)),
                     bucket=np.asarray(t["bucket"], dtype=np.int32),
-                    hash_mode="fnv",
+                    hash_mode=hash_mode,
                 )
             )
         return cls(
@@ -700,6 +787,7 @@ class DeviceLM:
                     "seed_lo": int(t.seed_lo),
                     "seed_hi": int(t.seed_hi),
                     "size": int(t.size),
+                    "hash_mode": t.hash_mode,
                 }
                 for t in self.fp_tables
             ],
@@ -717,35 +805,57 @@ class DeviceLM:
 
 
 def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> DeviceLM:
-    """Compile a :class:`LanguageModel` over an ARPA :class:`NGramModel`.
+    """Compile a :class:`LanguageModel` into :class:`DeviceLM` tables.
 
-    KenLM binaries and the native C++ loader are not ported yet.
+    Two sources feed the same device layout: the Python
+    :class:`NGramTables` of an ARPA or ``.ctclm`` model (tables keyed by id
+    tuples, FNV mode) and the :class:`~.kenlm_bin.KenLMTables` of a KenLM
+    binary (tables built from its stored chain hashes, mode ``kenlm64``).
     """
     ngram = language_model.ngram_model
-    if not isinstance(ngram, NGramModel):
-        raise NotImplementedError(
-            f"device tables are built from ARPA n-gram models only; got "
-            f"{type(ngram).__name__}"
+    if isinstance(ngram, KenLMBinaryModel):
+        kt = ngram.tables
+        order = kt.order
+        unk_id = kt.unk_id
+        eos_id = kt.vocab.get(EOS_WORD, unk_id)
+        unk_prob10 = float(kt.uni[unk_id]["prob"])
+        vocab = kt.vocab
+        bos_state = kt.begin_sentence_state()
+        # kenlm's unigram array is dense by id: every id exists at order 1
+        n_vocab = max(len(vocab), 1)
+        uni = np.zeros((n_vocab, 4), dtype=np.float32)
+        uni[: len(kt.uni), 0] = kt.uni["prob"]
+        uni[: len(kt.uni), 1] = kt.uni["backoff"]
+        uni[: len(kt.uni), 2] = 1.0
+        fp_tables = [
+            build_fp_table_from_hashes(keys64, probs, backoffs, n_order)
+            for n_order, (keys64, probs, backoffs) in enumerate(kt.raw, start=2)
+        ]
+    elif isinstance(ngram, NGramModel):
+        tables_py: NGramTables = ngram.tables
+        order = tables_py.order
+        unk_id = tables_py.unk_id
+        eos_id = tables_py.vocab.get(EOS_WORD, unk_id)
+        uni_unk = tables_py.ngrams[0].get((unk_id,))
+        unk_prob10 = float(uni_unk[0]) if uni_unk is not None else -99.0
+        vocab = tables_py.vocab
+        bos_state = tables_py.begin_sentence_state()
+        uni = build_unigram_array(tables_py.ngrams[0], len(vocab))
+        fp_tables = []
+        for n_order in range(2, order + 1):
+            entries = tables_py.ngrams[n_order - 1]
+            keys = np.array(list(entries.keys()), dtype=np.int32).reshape(
+                len(entries), n_order
+            )
+            vals = np.array(list(entries.values()), dtype=np.float32).reshape(
+                len(entries), 2
+            )
+            fp_tables.append(build_fp_table(keys, vals[:, 0], vals[:, 1]))
+    else:
+        raise TypeError(
+            f"device tables are built from NGramModel or KenLMBinaryModel "
+            f"n-gram models; got {type(ngram).__name__}"
         )
-    tables_py: NGramTables = ngram.tables
-    order = tables_py.order
-    unk_id = tables_py.unk_id
-    eos_id = tables_py.vocab.get(EOS_WORD, unk_id)
-    uni_unk = tables_py.ngrams[0].get((unk_id,))
-    unk_prob10 = float(uni_unk[0]) if uni_unk is not None else -99.0
-    vocab = tables_py.vocab
-    bos_state = tables_py.begin_sentence_state()
-    uni = build_unigram_array(tables_py.ngrams[0], len(vocab))
-    fp_tables = []
-    for n_order in range(2, order + 1):
-        entries = tables_py.ngrams[n_order - 1]
-        keys = np.array(list(entries.keys()), dtype=np.int32).reshape(
-            len(entries), n_order
-        )
-        vals = np.array(list(entries.values()), dtype=np.float32).reshape(
-            len(entries), 2
-        )
-        fp_tables.append(build_fp_table(keys, vals[:, 0], vals[:, 1]))
 
     # the trie's char ids must extend the token char map with vocab-only chars
     char2id = dict(tokens.char2id)

@@ -1,7 +1,8 @@
 """Shallow-fusion language model wrapper.
 
-Parity surface: ref ``language_model.py:230-360, 455-502``. :class:`LanguageModel`
-wraps this package's own n-gram runtime (``models/ngram.py``), applying the
+Parity surface: ref ``language_model.py:230-502``. :class:`LanguageModel`
+wraps this package's own n-gram runtime (``models/ngram.py`` for ARPA and
+``.ctclm``, ``models/kenlm_bin.py`` for KenLM binaries), applying the
 fused-score formula
 
 ``alpha * (raw_log10 + unk_offset*[oov] + eos_log10) * ln(10) + beta``
@@ -13,12 +14,17 @@ partial-word scoring (prefix-trie miss penalty, length-scaled past
 :class:`MultiLanguageModel` averages the fused scores of two or more
 members. The device engine reads every member's ``alpha``, ``beta``,
 ``unk_score_offset`` and ``score_boundary`` per decode call; the host
-scoring methods document the same rules.
+scoring methods document the same rules. ``save_to_dir`` / ``load_from_dir``
+keep the reference's three-file directory (``attrs.json``,
+``unigrams.txt``, the model file).
 """
 from __future__ import annotations
 
+import json
 import logging
-from typing import Any, Collection, Dict, Optional, Sequence, Set, Tuple
+import os
+import shutil
+from typing import Any, Collection, Dict, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
@@ -32,12 +38,16 @@ from ..constants import (
 )
 from ..utils.trie import CharTrie
 from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
-from .ngram import NGramModel
+from .kenlm_bin import KenLMBinaryModel
+from .ngram import NGramModel, open_ngram_file
+
+# the n-gram runtimes a LanguageModel wraps: ARPA / .ctclm, and KenLM binaries
+NGramRuntime = Union[NGramModel, KenLMBinaryModel]
 
 logger = logging.getLogger(__name__)
 
 
-def _prepare_unigram_set(unigrams: Collection[str], model: NGramModel) -> Set[str]:
+def _prepare_unigram_set(unigrams: Collection[str], model: NGramRuntime) -> Set[str]:
     """Keep only unigrams known to the n-gram model's vocabulary."""
     if len(unigrams) < 1000:
         logger.warning(
@@ -57,11 +67,20 @@ def _prepare_unigram_set(unigrams: Collection[str], model: NGramModel) -> Set[st
 
 
 class LanguageModel(AbstractLanguageModel):
-    """n-gram LM with shallow-fusion weighting for beam-search decoding."""
+    """n-gram LM with shallow-fusion weighting for beam-search decoding.
+
+    ``ngram_model`` is an :class:`~.ngram.NGramModel` (ARPA or ``.ctclm``)
+    or a :class:`~.kenlm_bin.KenLMBinaryModel` (a KenLM binary); both
+    engines take either.
+    """
+
+    JSON_ATTRS = ("alpha", "beta", "unk_score_offset", "score_boundary")
+    _ATTRS_SERIALIZED_FILENAME = "attrs.json"
+    _UNIGRAMS_SERIALIZED_FILENAME = "unigrams.txt"
 
     def __init__(
         self,
-        ngram_model: NGramModel,
+        ngram_model: NGramRuntime,
         unigrams: Optional[Collection[str]] = None,
         alpha: float = DEFAULT_ALPHA,
         beta: float = DEFAULT_BETA,
@@ -88,7 +107,7 @@ class LanguageModel(AbstractLanguageModel):
 
     # -- introspection -------------------------------------------------------
     @property
-    def ngram_model(self) -> NGramModel:
+    def ngram_model(self) -> NGramRuntime:
         return self._model
 
     @property
@@ -160,6 +179,97 @@ class LanguageModel(AbstractLanguageModel):
             raw += self._model.raw_end_score(end_context)
         fused = self.alpha * raw * LOG_BASE_CHANGE_FACTOR + self.beta
         return fused, NGramLMState(end_context)
+
+    # -- serialization (ref language_model.py:362-452) -------------------------
+    @property
+    def serializable_attrs(self) -> Dict[str, Any]:
+        attrs = {}
+        for name in LanguageModel.JSON_ATTRS:
+            val = getattr(self, name)
+            if val is None:
+                raise ValueError(f"cannot serialize: tunable attribute {name!r} is unset")
+            attrs[name] = val
+        return attrs
+
+    def save_to_dir(self, filepath: str, unigram_encoding: Optional[str] = None) -> None:
+        """Write attrs.json + unigrams.txt + the LM file into ``filepath``."""
+        if self._model.path is None:
+            # check BEFORE writing: failing after attrs/unigrams land
+            # leaves a 2-of-3-files directory that load_from_dir rejects
+            # with a misleading layout error
+            raise ValueError("Language model has no backing file; cannot serialize.")
+        attrs_path = os.path.join(filepath, self._ATTRS_SERIALIZED_FILENAME)
+        with open(attrs_path, "w") as fh:
+            json.dump(self.serializable_attrs, fh)
+
+        unigrams_path = os.path.join(filepath, self._UNIGRAMS_SERIALIZED_FILENAME)
+        with open(unigrams_path, "w", encoding=unigram_encoding) as fh:
+            for unigram in sorted(self._unigram_set):
+                fh.write(unigram + "\n")
+
+        src = self._model.path
+        dst = os.path.join(filepath, os.path.basename(src))
+        logger.info("copying the n-gram model file %s -> %s (may be large)", src, dst)
+        if os.path.abspath(src) != os.path.abspath(dst):
+            shutil.copy2(src, dst)
+
+    @staticmethod
+    def parse_directory_contents(filepath: str) -> Dict[str, str]:
+        """Validate the strict 3-file LM directory layout."""
+        contents = [
+            c
+            for c in os.listdir(filepath)
+            if not c.startswith(".") and not c.startswith("__")
+        ]
+        if len(contents) != 3:
+            raise ValueError(
+                "a serialized LM directory holds exactly three files "
+                f"(attributes, unigrams, model); this one holds {contents}"
+            )
+        if LanguageModel._ATTRS_SERIALIZED_FILENAME not in contents:
+            raise ValueError(
+                f"missing {LanguageModel._ATTRS_SERIALIZED_FILENAME} in the LM "
+                f"directory; present: {contents}"
+            )
+        contents.remove(LanguageModel._ATTRS_SERIALIZED_FILENAME)
+        if LanguageModel._UNIGRAMS_SERIALIZED_FILENAME not in contents:
+            raise ValueError(
+                f"missing {LanguageModel._UNIGRAMS_SERIALIZED_FILENAME} in the LM "
+                f"directory; present: {contents}"
+            )
+        contents.remove(LanguageModel._UNIGRAMS_SERIALIZED_FILENAME)
+        lm_file = contents[0]
+        ext = os.path.splitext(lm_file)[1]
+        if ext == ".gz" and lm_file.endswith(".arpa.gz"):
+            ext = ".arpa"  # gzipped ARPA round-trips through save_to_dir
+        if ext not in {".arpa", ".bin", ".binary", ".ctclm"}:
+            raise ValueError(
+                f"unrecognized LM file {lm_file!r}: supported extensions are "
+                ".arpa, .bin, .binary and .ctclm"
+            )
+        return {
+            "json_attrs": os.path.join(filepath, LanguageModel._ATTRS_SERIALIZED_FILENAME),
+            "unigrams": os.path.join(filepath, LanguageModel._UNIGRAMS_SERIALIZED_FILENAME),
+            "ngram_model": os.path.join(filepath, lm_file),
+        }
+
+    @classmethod
+    def load_from_dir(
+        cls, filepath: str, unigram_encoding: Optional[str] = None
+    ) -> "LanguageModel":
+        """Load the strict 3-file LM directory layout (ref lm.py:434-452)."""
+        filenames = cls.parse_directory_contents(filepath)
+        with open(filenames["json_attrs"], "r") as fh:
+            attrs = json.load(fh)
+        if set(attrs.keys()) != set(cls.JSON_ATTRS):
+            raise ValueError(
+                f"attrs.json must define exactly {cls.JSON_ATTRS}; "
+                f"it defines {sorted(attrs.keys())}"
+            )
+        with open(filenames["unigrams"], "r", encoding=unigram_encoding) as fh:
+            unigrams = fh.read().splitlines()
+        model = open_ngram_file(filenames["ngram_model"])
+        return cls(model, unigrams, **attrs)
 
 
 class MultiLanguageModel(AbstractLanguageModel):

@@ -220,15 +220,14 @@ def load_unigram_set_from_arpa(arpa_path: str) -> Set[str]:
     return unigrams
 
 
-_ARPA_SUFFIXES = (".arpa", ".arpa.gz")
-
-
 class NGramModel:
     """KenLM-compatible model facade over :class:`NGramTables`.
 
     Provides the surface the decoding stack needs: ``order``, ``__contains__``
     (vocab membership), ``BaseScore``-equivalent :meth:`raw_score_word`, and
-    boundary state constructors.
+    boundary state constructors. Loading a ``.arpa`` file goes through
+    :func:`read_arpa`; the compiled ``.ctclm`` format is handled in
+    ``models/binfmt.py``.
     """
 
     def __init__(self, tables: NGramTables) -> None:
@@ -236,15 +235,24 @@ class NGramModel:
 
     @classmethod
     def from_file(cls, path: str) -> "NGramModel":
-        """Open a plain or gzipped ARPA file (see :func:`open_ngram_file`)."""
-        return open_ngram_file(path)
+        """Open an ARPA (possibly gzipped) or compiled .ctclm model file."""
+        ext = os.path.splitext(path)[1].lower()
+        if ext in (".arpa", ".gz") or path.endswith(".arpa.gz"):
+            return cls(read_arpa(path))
+        if ext in (".bin", ".binary", ".ctclm"):
+            from . import binfmt
+
+            return cls(binfmt.read_binary(path))
+        # default: try ARPA text
+        return cls(read_arpa(path))
 
     @property
     def tables(self) -> NGramTables:
         return self._tables
 
     def vocab_words(self) -> List[str]:
-        """The vocabulary in id order."""
+        """The vocabulary in id order (for unigram-set inference on
+        compiled ``.ctclm`` models, which have no ARPA text to scan)."""
         return sorted(self._tables.vocab, key=self._tables.vocab.__getitem__)
 
     @property
@@ -276,16 +284,36 @@ class NGramModel:
         return score
 
 
-def open_ngram_file(path: str) -> NGramModel:
-    """Open an n-gram model: plain (``.arpa``) or gzipped (``.arpa.gz``) ARPA.
+def open_ngram_file(path: str, backend: str = "auto") -> "object":
+    """Open an n-gram model file, dispatching on its kind.
 
-    KenLM binaries, the compiled ``.ctclm`` format and the native C++
-    loader are not ported yet and raise :class:`NotImplementedError`.
+    * ``.bin`` / ``.binary`` starting with KenLM's ``mmap lm `` magic: a
+      :class:`~.kenlm_bin.KenLMBinaryModel` (PROBING, TRIE or QUANT_TRIE);
+    * ``.ctclm`` (and a ``.bin`` / ``.binary`` without that magic): the
+      compiled format of ``models/binfmt.py``, as an :class:`NGramModel`;
+    * anything else: ARPA text, plain or gzipped, as an :class:`NGramModel`.
+
+    ``backend``: ``"auto"`` or ``"python"`` (the same reader here: the
+    models load in Python). ``"native"``, the JAX reference package's C++
+    ARPA loader, is not ported (ROADMAP § A) and raises
+    :class:`NotImplementedError`; its tables would equal the Python build's
+    slot for slot.
     """
-    if not path.endswith(_ARPA_SUFFIXES):
-        raise NotImplementedError(
-            f"pyctcdecode_torch reads ARPA models (.arpa, .arpa.gz) only; "
-            f"{path!r} needs a loader (KenLM binary, .ctclm) that is not "
-            f"ported yet"
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(
+            f"backend must be 'auto', 'native' or 'python'; got {backend!r}"
         )
-    return NGramModel(read_arpa(path))
+    if backend == "native":
+        raise NotImplementedError(
+            "backend='native' (the C++ ARPA loader) is not ported to "
+            "pyctcdecode_torch yet (ROADMAP § A); 'auto' and 'python' read "
+            "the same tables"
+        )
+    if os.path.splitext(path)[1].lower() in (".bin", ".binary"):
+        with open(path, "rb") as fh:
+            head = fh.read(16)
+        if head.startswith(b"mmap lm "):  # KenLM binary magic prefix
+            from .kenlm_bin import KenLMBinaryModel
+
+            return KenLMBinaryModel.from_file(path)
+    return NGramModel.from_file(path)

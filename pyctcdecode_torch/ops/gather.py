@@ -11,9 +11,16 @@ and one bucket-row read per n-gram order >= 2. Two entry points:
   reads a node's own words out of the multi-node trie rows with it.
 * :func:`probe_rows`: every order's bucket probe of one
   :func:`~pyctcdecode_torch.models.device_tables.lm_score_words` call in one
-  launch: the three FNV-1a hashes of each query, the read of bucket row
-  ``h % size`` and the fingerprint readout, returning ``(found, prob,
-  backoff)`` per order. The bucket rows are never written anywhere.
+  launch: the three hashes of each query (base slot and two fingerprint
+  lanes), the read of bucket row ``h % size`` and the fingerprint readout,
+  returning ``(found, prob, backoff)`` per order. The bucket rows are never
+  written anywhere. Each table carries its hash mode: ``"fnv"`` (seeded
+  FNV-1a over the ids; tables built from ARPA or ``.ctclm`` models) or
+  ``"kenlm64"`` (KenLM's 64-bit chain over the ids; tables built from a
+  KenLM binary's stored hashes): the base slot mixes both halves of the
+  chain, and each fingerprint lane is a seeded bijection of one half, so the
+  two lanes carry all 64 bits (see
+  :func:`~pyctcdecode_torch.models.device_tables.build_fp_table_from_hashes`).
 
 What bounds them on the H100: bytes by the roofline (each row read once,
 each result written once), but at a decode step's size (utterances x beams
@@ -36,13 +43,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .hashing import M32, fnv1a_seeded_t, fnv1a_t
+from .hashing import KENLM_BASE_SEED, M32, fnv1a_seeded_t, fnv1a_t, kenlm_chain_t, mix32_pair_t
 from .merge import _check, _launch, _launch_device, _ptr
 
 VECTOR_BYTES = 16  # the kernels move int4 vectors where the shapes allow
 FP_MAX = 0xFFFFFFFE  # fingerprint lanes are clamped below the empty-slot sentinel
 PROBE_GEOMETRY = (16, 64, 128)  # (slots, sub-block words, row words) the probe kernel takes
 PROBE_MAX_TABLES = 8
+HASH_MODES = ("fnv", "kenlm64")  # a table's hash mode, by its code in the kernel's launch
 
 Probe = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,12 +71,31 @@ def gather_rows_ref(table: torch.Tensor, idx: torch.Tensor, slot: Optional[torch
     return table.reshape(-1)[start[..., None] + cols]
 
 
+def hash_mode_code(tab: Dict) -> int:
+    """The kernel's code of ``tab``'s hash mode (``"fnv"`` when unset); raises on any other."""
+    mode = tab.get("hash_mode", "fnv")
+    if mode not in HASH_MODES:
+        raise ValueError(f"unknown hash_mode {mode!r}; expected one of {HASH_MODES}")
+    return HASH_MODES.index(mode)
+
+
 def query_hashes(tab: Dict, query: torch.Tensor) -> Probe:
-    """Base hash + clamped fingerprint lanes for queries ``[..., n]``."""
-    h = fnv1a_t(query)
-    lo = fnv1a_seeded_t(query, tab["seed_lo"]).clamp(max=FP_MAX)
-    hi = fnv1a_seeded_t(query, tab["seed_hi"]).clamp(max=FP_MAX)
-    return h, lo, hi
+    """Base hash + clamped fingerprint lanes for queries ``[..., n]``.
+
+    Mode ``"fnv"`` hashes the id tuple directly; mode ``"kenlm64"`` first
+    folds the ids through KenLM's 64-bit chain (the only key a PROBING
+    binary stores): the base hash mixes both halves, each lane one half.
+    """
+    if HASH_MODES[hash_mode_code(tab)] == "kenlm64":
+        klo, khi = kenlm_chain_t(query)
+        h = mix32_pair_t(klo, khi, KENLM_BASE_SEED)
+        lo = mix32_pair_t(klo, 0, tab["seed_lo"])
+        hi = mix32_pair_t(khi, 0, tab["seed_hi"])
+    else:
+        h = fnv1a_t(query)
+        lo = fnv1a_seeded_t(query, tab["seed_lo"])
+        hi = fnv1a_seeded_t(query, tab["seed_hi"])
+    return h, lo.clamp(max=FP_MAX), hi.clamp(max=FP_MAX)
 
 
 def bucket_readout(rows: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, valid: torch.Tensor,
@@ -124,7 +151,7 @@ def _library() -> ctypes.CDLL:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gather_rows_launch.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, vp]
     lib.gather_rows_launch.restype = ci
-    lib.probe_rows_launch.argtypes = [vp] * 9 + [cll] + [ci] * 4 + [vp]
+    lib.probe_rows_launch.argtypes = [vp] * 10 + [cll] + [ci] * 4 + [vp]
     lib.probe_rows_launch.restype = ci
     return lib
 
@@ -191,8 +218,10 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
 
     ``full``: int64 ``[..., order]`` word ids, right-aligned (-1 pad);
     ``ctx_len``: int64 ``[...]``; ``tables``: ``order - 1`` dicts
-    ``{"bucket": int32 [size, row words], "size", "seed_lo", "seed_hi"}``,
-    table ``t`` keyed by the last ``t + 2`` ids; ``slots`` / ``sub_width``:
+    ``{"bucket": int32 [size, row words], "size", "seed_lo", "seed_hi"}``
+    and optionally ``"hash_mode"`` (``"fnv"``, the default, or ``"kenlm64"``;
+    tables of both modes may mix in one call), table ``t`` keyed by the
+    last ``t + 2`` ids; ``slots`` / ``sub_width``:
     the bucket geometry (slots per sub-block, words per sub-block). A query
     is valid at order n when ``ctx_len + 1 >= n``. Returns ``(found bool,
     prob f32, backoff f32)``, each ``[order - 1, ...]``.
@@ -211,6 +240,7 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
     if order < 2 or len(tables) != order - 1:
         raise ValueError(f"tables: expected {order - 1} for ids of width {order}, got {len(tables)}")
     for t, tab in enumerate(tables):
+        hash_mode_code(tab)
         _check(f"tables[{t}]['bucket']", tab["bucket"], torch.int32, None, dev)
         if tab["bucket"].dim() != 2 or tab["bucket"].shape[0] != tab["size"]:
             raise ValueError(f"tables[{t}]: bucket {tuple(tab['bucket'].shape)} has not {tab['size']} rows")
@@ -237,9 +267,10 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
         (ctypes.c_uint32 * n_tab)(*(int(tab[key]) & M32 for tab in tables))
         for key in ("size", "seed_lo", "seed_hi")
     )
+    modes = (ctypes.c_uint32 * n_tab)(*(hash_mode_code(tab) for tab in tables))
     _launch(
         "probe_rows", dev, _library().probe_rows_launch,
-        buckets, sizes, seeds_lo, seeds_hi, _ptr(full), _ptr(ctx_len), _ptr(found),
+        buckets, sizes, seeds_lo, seeds_hi, modes, _ptr(full), _ptr(ctx_len), _ptr(found),
         _ptr(prob), _ptr(backoff), ctx_len.numel(), order, *PROBE_GEOMETRY,
     )
     probe_rows.launches += 1

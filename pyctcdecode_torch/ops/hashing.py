@@ -20,6 +20,8 @@ Hash design:
 * a committed word's hash pair is folded into the text hash pair with a
   second multiplier pair (:data:`TXT_A`, :data:`TXT_B`),
 * n-gram table slots use FNV-1a over the key's word ids.
+* KenLM-keyed tables (models read from KenLM binaries) use KenLM's own
+  64-bit chain hash over word ids, mixed down to 32-bit lanes.
 """
 from __future__ import annotations
 
@@ -119,8 +121,128 @@ def hash_text_commit(xp: Any, t_lo: Any, t_hi: Any, w_lo: Any, w_hi: Any) -> Tup
     return lo, hi
 
 
+# --------------------------------------------------------------------------
+# KenLM-compatible hashing (KenLM binary models, models/kenlm_bin.py)
+#
+# KenLM's PROBING format keys its n-gram hash tables by a 64-bit rolling
+# hash over word ids (kenlm lm/search_hashed.hh ``detail::CombineWordHash``)
+# and its vocabulary by MurmurHash64A of the word string (kenlm
+# lm/vocab.cc ``detail::HashForVocab``). Reading those tables means
+# reproducing both hashes exactly: on the host in numpy uint64; in the
+# engine as u32 lane pairs (:func:`kenlm_chain`, :func:`kenlm_chain_t`),
+# the 64-bit multiply spelled out in 32x32->64 pieces.
+# --------------------------------------------------------------------------
+KENLM_MUL_A = 8978948897894561157  # CombineWordHash multipliers
+KENLM_MUL_B = 17894857484156487943
+KENLM_BASE_SEED = 0x243F6A88  # mix32_pair seed of a KenLM-keyed table's base slot
+_MASK64 = (1 << 64) - 1
+
+
+def murmur64(data: bytes, seed: int = 0) -> int:
+    """MurmurHash64A (Appleby) over ``data`` — kenlm's vocab string hash."""
+    m = 0xC6A4A7935BD1E995
+    r = 47
+    h = (seed ^ ((len(data) * m) & _MASK64)) & _MASK64
+    n8 = len(data) & ~7
+    for i in range(0, n8, 8):
+        k = int.from_bytes(data[i : i + 8], "little")
+        k = (k * m) & _MASK64
+        k ^= k >> r
+        k = (k * m) & _MASK64
+        h = ((h ^ k) * m) & _MASK64
+    tail = data[n8:]
+    if tail:
+        h ^= int.from_bytes(tail, "little")
+        h = (h * m) & _MASK64
+    h ^= h >> r
+    h = (h * m) & _MASK64
+    h ^= h >> r
+    return h
+
+
+def kenlm_chain_host(keys: "np.ndarray") -> "np.ndarray":
+    """KenLM n-gram hash over NATURAL-order id rows ``[..., n]`` (u64).
+
+    kenlm folds from the PREDICTED (newest) word backward through the
+    context: its hashed search starts the node at the new word's id and
+    applies ``CombineWordHash(c, w) = c * A ^ (w + 1) * B`` (mod 2^64)
+    per context word, nearest first (``lm/model.cc`` ScoreExceptBackoff;
+    ``lm/search_hashed.cc`` ReadNGrams stores keys over the
+    REVERSED-order ``vocab_ids`` the ARPA reader fills). So for a
+    natural-order row (w1..wn): ``chain = fold(combine, start=wn) over
+    w(n-1)..w1``. A fold run oldest-first stays self-consistent across a
+    reader, a writer and a scorer of one's own, so round-trip tests cannot
+    see it; authentic kenlm PROBING binaries would miss every n>=2-gram.
+    """
+    keys = np.asarray(keys)
+    with np.errstate(over="ignore"):
+        h = keys[..., -1].astype(np.uint64)
+        a = np.uint64(KENLM_MUL_A)
+        b = np.uint64(KENLM_MUL_B)
+        one = np.uint64(1)
+        for j in range(keys.shape[-1] - 2, -1, -1):
+            w = keys[..., j].astype(np.uint64)
+            h = (h * a) ^ ((w + one) * b)
+    return h
+
+
+def umul32_wide(xp: Any, a: Any, b: Any) -> Tuple[Any, Any]:
+    """Full 32x32 -> 64 unsigned multiply as a (lo, hi) u32 pair."""
+    mask = _u32(xp, 0xFFFF)
+    a0 = a & mask
+    a1 = a >> _u32(xp, 16)
+    b0 = b & mask
+    b1 = b >> _u32(xp, 16)
+    m00 = a0 * b0
+    m01 = a0 * b1
+    m10 = a1 * b0
+    m11 = a1 * b1
+    mid = (m00 >> _u32(xp, 16)) + (m01 & mask) + (m10 & mask)
+    lo = (m00 & mask) | ((mid & mask) << _u32(xp, 16))
+    hi = m11 + (m01 >> _u32(xp, 16)) + (m10 >> _u32(xp, 16)) + (mid >> _u32(xp, 16))
+    return lo, hi
+
+
+def _mul64_by_const(xp, lo, hi, c_lo: int, c_hi: int):
+    """Low 64 bits of a (lo, hi) u32-pair value times a 64-bit constant."""
+    p_lo, p_hi = umul32_wide(xp, lo, _u32(xp, c_lo))
+    p_hi = p_hi + lo * _u32(xp, c_hi) + hi * _u32(xp, c_lo)
+    return p_lo, p_hi
+
+
+def kenlm_chain(xp: Any, keys: Any) -> Tuple[Any, Any]:
+    """KenLM n-gram hash over id rows ``[..., n]`` as a (lo, hi) u32 pair.
+
+    Bit-identical to :func:`kenlm_chain_host` for ids below ``2**32 - 1``;
+    ``w + 1`` is taken in u32 (it wraps at ``0xFFFFFFFF``), as the device
+    computes it.
+    """
+    keys = xp.asarray(keys)
+    a_lo = KENLM_MUL_A & M32
+    a_hi = KENLM_MUL_A >> 32
+    b_lo = KENLM_MUL_B & M32
+    b_hi = KENLM_MUL_B >> 32
+    h_lo = keys[..., -1].astype(xp.uint32)
+    h_hi = xp.zeros_like(h_lo)
+    for j in range(keys.shape[-1] - 2, -1, -1):
+        w1 = keys[..., j].astype(xp.uint32) + _u32(xp, 1)
+        t_lo, t_hi = _mul64_by_const(xp, h_lo, h_hi, a_lo, a_hi)
+        u_lo, u_hi = umul32_wide(xp, w1, _u32(xp, b_lo))
+        u_hi = u_hi + w1 * _u32(xp, b_hi)
+        h_lo = t_lo ^ u_lo
+        h_hi = t_hi ^ u_hi
+    return h_lo, h_hi
+
+
 def mix32_pair(xp: Any, lo: Any, hi: Any, seed: Any) -> Any:
-    """Seeded 32-bit mix of a u32 hash pair (murmur3 finalizer core)."""
+    """Seeded 32-bit mix of a u32 hash pair (murmur3 finalizer core).
+
+    KenLM-keyed probe tables derive their base slot and both fingerprint
+    lanes from the one 64-bit kenlm key; independent seeds keep the three
+    derived values uncorrelated, and a build-time fingerprint collision can
+    bump the seeds without touching the key (the contract of
+    :func:`fnv1a_seeded` for id-keyed tables).
+    """
     h = lo ^ (hi * _u32(xp, 0x85EBCA6B)) ^ xp.asarray(seed, dtype=xp.uint32)
     h ^= h >> _u32(xp, 16)
     h = h * _u32(xp, 0x85EBCA6B)
@@ -185,11 +307,54 @@ def hash_text_commit_t(
     return lo, hi
 
 
+def _mul_lo32_t(a: torch.Tensor, c: int) -> torch.Tensor:
+    """Low 32 bits of lanes ``a`` times a Python-int u32 ``c``, from 16-bit halves of ``c``."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & M32
+
+
 def mix32_pair_t(lo: torch.Tensor, hi: torch.Tensor, seed: int) -> torch.Tensor:
     """Torch :func:`mix32_pair` with a Python-int seed."""
-    h = lo ^ ((hi * 0x85EBCA6B) & M32) ^ (int(seed) & M32)
+    h = lo ^ _mul_lo32_t(hi, 0x85EBCA6B) ^ (int(seed) & M32)
     h = h ^ (h >> 16)
-    h = (h * 0x85EBCA6B) & M32
+    h = _mul_lo32_t(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
-    h = (h * 0xC2B2AE35) & M32
+    h = _mul_lo32_t(h, 0xC2B2AE35)
     return h ^ (h >> 16)
+
+
+def umul32_wide_t(a: torch.Tensor, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Torch :func:`umul32_wide` of lanes ``a`` by a Python-int u32 ``c``.
+
+    Built from 16-bit halves, so every product and sum stays below
+    ``2**34``: no int64 overflows or goes negative.
+    """
+    a0, a1 = a & 0xFFFF, a >> 16
+    c0, c1 = c & 0xFFFF, c >> 16
+    m00, m01, m10, m11 = a0 * c0, a0 * c1, a1 * c0, a1 * c1
+    mid = (m00 >> 16) + (m01 & 0xFFFF) + (m10 & 0xFFFF)
+    lo = (m00 & 0xFFFF) | ((mid & 0xFFFF) << 16)
+    hi = (m11 + (m01 >> 16) + (m10 >> 16) + (mid >> 16)) & M32
+    return lo, hi
+
+
+def kenlm_chain_t(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Torch :func:`kenlm_chain`: ``(lo, hi)`` int64 lanes of each row's chain.
+
+    ``keys``: integer ``[..., n]``; each id is taken as its u32 bit pattern
+    and ``w + 1`` wraps in u32, as in :func:`kenlm_chain`. Every 64-bit
+    product is built from 32-bit pieces of masked lanes and 16-bit halves of
+    the constants, so no int64 overflows and no right shift meets a
+    negative value.
+    """
+    a_lo, a_hi = KENLM_MUL_A & M32, KENLM_MUL_A >> 32
+    b_lo, b_hi = KENLM_MUL_B & M32, KENLM_MUL_B >> 32
+    h_lo = keys[..., -1].to(torch.int64) & M32
+    h_hi = torch.zeros_like(h_lo)
+    for j in range(keys.shape[-1] - 2, -1, -1):
+        w1 = ((keys[..., j].to(torch.int64) & M32) + 1) & M32
+        t_lo, t_hi = umul32_wide_t(h_lo, a_lo)
+        t_hi = (t_hi + _mul_lo32_t(h_lo, a_hi) + _mul_lo32_t(h_hi, a_lo)) & M32
+        u_lo, u_hi = umul32_wide_t(w1, b_lo)
+        u_hi = (u_hi + _mul_lo32_t(w1, b_hi)) & M32
+        h_lo, h_hi = t_lo ^ u_lo, t_hi ^ u_hi
+    return h_lo, h_hi

@@ -16,6 +16,11 @@ the ``OutputBeam`` lists. ``length_bucketing`` launches one decode per length
 group, and ``decode_beams_batches`` keeps several batches launched before it
 collects the oldest.
 
+``save_to_dir`` / ``load_from_dir`` / ``load_from_hf_hub`` read and write
+the host engine's directory layout (``alphabet.json``, ``language_model/``),
+so a directory saved by either engine, or by the JAX reference package,
+loads in the other.
+
 The device is explicit: ``device=None`` means CUDA and raises when no CUDA
 device is present; ``device="cpu"`` runs the same engine with every kernel's
 plain PyTorch version. Nothing falls back to the CPU on its own.
@@ -24,6 +29,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+from pathlib import Path
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -37,7 +44,7 @@ from .constants import (
     DEFAULT_PRUNE_BEAMS,
     DEFAULT_PRUNE_LOGP,
 )
-from .decoder import NULL_FRAMES, LMBeam, OutputBeam, _not_ported
+from .decoder import NULL_FRAMES, BeamSearchDecoderCTC, LMBeam, OutputBeam, _not_ported
 from .engine import EngineConfig, build_table_args, make_decode_fn, make_stream_fns
 from .models.base import AbstractLMState, MultiLMState, NGramLMState
 from .models.device_tables import (
@@ -1253,3 +1260,72 @@ class TorchBeamSearchDecoderCTC:
             token_chunking=token_chunking,
         )
         return [b[0].text if b else "" for b in beams]
+
+    # -- serialization (the host engine's directory layout) -------------------
+    def save_to_dir(self, filepath: str) -> None:
+        """Write alphabet.json (+ language_model/ when present) to a directory."""
+        alphabet_path = os.path.join(filepath, BeamSearchDecoderCTC._ALPHABET_SERIALIZED_FILENAME)
+        with open(alphabet_path, "w") as fh:
+            fh.write(self._alphabet.dumps())
+        if self._lm is None:
+            logger.info("no language model attached; serializing the alphabet only")
+        else:
+            lm_path = os.path.join(filepath, BeamSearchDecoderCTC._LANGUAGE_MODEL_SERIALIZED_DIRECTORY)
+            os.makedirs(lm_path)
+            logger.info("writing the language model under %s", lm_path)
+            self._lm.save_to_dir(lm_path)
+
+    @staticmethod
+    def parse_directory_contents(filepath: str) -> Dict[str, Optional[str]]:
+        """Validate a serialized-decoder directory layout (the host engine's)."""
+        return BeamSearchDecoderCTC.parse_directory_contents(filepath)
+
+    @classmethod
+    def load_from_dir(
+        cls,
+        filepath: str,
+        unigram_encoding: Optional[str] = None,
+        *,
+        device: Union[None, str, torch.device] = None,
+    ) -> "TorchBeamSearchDecoderCTC":
+        """Load a serialized decoder directory onto the device engine.
+
+        ``device`` as for the constructor: ``None`` means CUDA and raises
+        without a GPU; ``device="cpu"`` runs the plain versions.
+        """
+        _resolve_device(device)  # refuse before reading a possibly large model
+        filenames = cls.parse_directory_contents(filepath)
+        with open(filenames["alphabet"], "r") as fh:  # type: ignore[arg-type]
+            alphabet = Alphabet.loads(fh.read())
+        language_model: Optional[LanguageModel] = None
+        if filenames["language_model"] is not None:
+            language_model = LanguageModel.load_from_dir(
+                filenames["language_model"], unigram_encoding=unigram_encoding
+            )
+        return cls(alphabet, language_model=language_model, device=device)
+
+    @classmethod
+    def load_from_hf_hub(
+        cls,
+        model_id: str,
+        cache_dir: Optional[str] = None,
+        *,
+        device: Union[None, str, torch.device] = None,
+        **kwargs: Any,
+    ) -> "TorchBeamSearchDecoderCTC":
+        """Load a decoder directory from the HuggingFace Hub (or its cache).
+
+        ``kwargs`` go to ``huggingface_hub.snapshot_download`` (for example
+        ``local_files_only=True``); ``device`` to :meth:`load_from_dir`.
+        """
+        if cache_dir is None:
+            cache_dir = os.path.join(Path.home(), ".cache", "pyctcdecode_torch")
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as err:
+            raise ImportError(
+                "loading from the HuggingFace Hub requires the optional "
+                "huggingface_hub package (pip install huggingface-hub)"
+            ) from err
+        cached_directory = snapshot_download(model_id, cache_dir=cache_dir, **kwargs)
+        return cls.load_from_dir(cached_directory, device=device)

@@ -17,7 +17,9 @@ from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_tpu import Alphabet as JAlphabet
 from pyctcdecode_tpu import LanguageModel as JLanguageModel
 from pyctcdecode_tpu import TPUBeamSearchDecoderCTC
+from pyctcdecode_tpu.models.binfmt import write_binary
 from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
+from pyctcdecode_tpu.models.ngram import read_arpa
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
 
@@ -148,11 +150,12 @@ def test_unported_engines_and_formats_raise(arpa_path, tmp_path):
     # a BPE alphabet is ported (tests/test_torch_bpe.py): it builds and decodes on the CPU
     bpe = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(["▁a", "▁b", "c", ""]), device="cpu")
     assert bpe.decode(np.eye(4, dtype=np.float32)[[0, 2, 3, 1]] * 5.0, beam_width=4) == "ac b"
+    # the compiled .ctclm format is ported (tests/test_torch_kenlm.py): one the JAX package wrote
     ctclm = os.path.join(tmp_path, "model.ctclm")
-    with open(ctclm, "wb") as fh:
-        fh.write(b"\0")
-    with pytest.raises(NotImplementedError, match="ARPA"):
-        P.build_ctcdecoder(SAMPLE_LABELS, ctclm, device="cpu")
+    write_binary(read_arpa(arpa_path), ctclm)
+    from_ctclm = P.build_ctcdecoder(SAMPLE_LABELS, ctclm, device="cpu")
+    assert type(from_ctclm.language_model.ngram_model) is P.NGramModel
+    assert from_ctclm.decode(TEST_LOGITS, beam_width=8) == "bugs bunny"
     dec = P.build_ctcdecoder(SAMPLE_LABELS, arpa_path, device="cpu")
     assert dec.device == torch.device("cpu")
     assert dec.decode(TEST_LOGITS, beam_width=8) == "bugs bunny"

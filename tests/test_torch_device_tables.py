@@ -166,8 +166,19 @@ def test_trie_fetch_rows_matches_jax(tables):
 
 
 def test_only_arpa_models_load(tmp_path):
+    """KenLM binaries load now (a PROBING one the JAX package wrote); the native loader is not ported."""
+    from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel
+    from pyctcdecode_tpu.models.kenlm_bin import write_kenlm_binary
+    from pyctcdecode_tpu.models.ngram import read_arpa
+
+    arpa = os.path.join(tmp_path, "small3.arpa")
+    make_parity_arpa(arpa, n_vocab=400, n_bigrams=3000, n_trigrams=2000)
     path = os.path.join(tmp_path, "model.bin")
-    with open(path, "wb") as fh:
-        fh.write(b"mmap lm http://kheafield.com/code format version 5\n")
-    with pytest.raises(NotImplementedError, match="ARPA"):
-        open_ngram_file(path)
+    write_kenlm_binary(read_arpa(arpa), path)
+    model = open_ngram_file(path)
+    assert isinstance(model, KenLMBinaryModel) and model.order == 3
+    tlm = TLanguageModel(model, sorted(t_unigrams(arpa)))
+    dlm = tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(LABELS)))
+    assert [t.hash_mode for t in dlm.fp_tables] == ["kenlm64", "kenlm64"]
+    with pytest.raises(NotImplementedError, match="native"):
+        open_ngram_file(arpa, backend="native")

@@ -237,11 +237,19 @@ def test_build_ctcdecoder_host_engine_and_exports(arpas):
 
 
 def test_serialization_waits_for_the_language_model(tmp_path):
-    dec = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS))
-    for call in (lambda: dec.save_to_dir(str(tmp_path)),
-                 lambda: P.BeamSearchDecoderCTC.parse_directory_contents(str(tmp_path)),
-                 lambda: P.BeamSearchDecoderCTC.load_from_dir(str(tmp_path)),
-                 lambda: P.BeamSearchDecoderCTC.load_from_hf_hub("any/model")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
-    dec.cleanup()
+    """The host engine's serialization is ported: a round trip with and without the LM."""
+    arpa = tmp_path / "bb3.arpa"
+    arpa.write_text(ARPA)
+    for name, lm in (("plain", None), ("lm", P.LanguageModel(open_ngram_file(str(arpa)), UNIGRAMS))):
+        dec = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), lm)
+        out = tmp_path / name
+        out.mkdir()
+        dec.save_to_dir(str(out))
+        parsed = P.BeamSearchDecoderCTC.parse_directory_contents(str(out))
+        assert parsed["alphabet"] == str(out / "alphabet.json")
+        assert (parsed["language_model"] is None) == (lm is None)
+        loaded = P.BeamSearchDecoderCTC.load_from_dir(str(out))
+        assert loaded.decode_beams(TEST_LOGITS) == dec.decode_beams(TEST_LOGITS)
+        assert loaded.decode(TEST_LOGITS) == ("bunny bunny" if lm is None else "bugs bunny")
+        loaded.cleanup()
+        dec.cleanup()

@@ -14,6 +14,7 @@ import pyctcdecode_torch
 import pyctcdecode_torch.engine, pyctcdecode_torch.evaluation, pyctcdecode_torch.ops.merge
 import pyctcdecode_torch.ops.gather, pyctcdecode_torch.utils.logits, pyctcdecode_torch.torch_decoder
 import pyctcdecode_torch.csrc.build
+import pyctcdecode_torch.models.kenlm_bin, pyctcdecode_torch.models.kenlm_trie, pyctcdecode_torch.models.binfmt
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyctcdecode_tpu'))
 assert not bad, bad
 print('clean')
@@ -99,7 +100,8 @@ def test_every_new_module_is_in_the_source_scan():
     for rel in ("pyctcdecode_torch/ops/gather.py", "pyctcdecode_torch/csrc/gather.cu",
                 "pyctcdecode_torch/csrc/build.py", "pyctcdecode_torch/utils/logits.py",
                 "pyctcdecode_torch/models/hotwords.py", "scripts/torch_decode_latency.py",
-                "chip_smoke.py"):
+                "pyctcdecode_torch/models/kenlm_bin.py", "pyctcdecode_torch/models/kenlm_trie.py",
+                "pyctcdecode_torch/models/binfmt.py", "chip_smoke.py"):
         assert rel in scanned, rel
 
 

@@ -239,6 +239,62 @@ def test_probe_rows_kernel_matches_plain_version(counts, lead):
         assert torch.equal(g.cpu(), w)
 
 
+def _mode_table(dev, rng, keys, mode):
+    """One order's table over id rows ``keys``: FNV-keyed, or KenLM-keyed (built from the chain hashes)."""
+    from pyctcdecode_torch.ops.hashing import kenlm_chain_host
+
+    probs = -rng.rand(len(keys)).astype(np.float32) - 0.1
+    backoffs = -rng.rand(len(keys)).astype(np.float32)
+    if mode == "kenlm64":
+        tab = tdt.build_fp_table_from_hashes(kenlm_chain_host(keys), probs, backoffs, keys.shape[1])
+    else:
+        tab = tdt.build_fp_table(keys.astype(np.uint32).view(np.int32), probs, backoffs)
+    assert tab.hash_mode == mode
+    return {"bucket": torch.as_tensor(np.ascontiguousarray(tab.bucket)).to(torch.int32).to(dev),
+            "size": tab.size, "seed_lo": tab.seed_lo, "seed_hi": tab.seed_hi, "hash_mode": mode}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes", [("kenlm64", "kenlm64"), ("fnv", "kenlm64"), ("kenlm64", "fnv", "kenlm64")])
+def test_probe_rows_kenlm_mode_matches_plain_version(modes):
+    """KenLM-keyed tables, alone and mixed with FNV tables in one launch, bit-exact.
+
+    Ids near ``2**31`` and ``2**32 - 2`` (the chain adds 1 to each id in
+    uint32), hits at every order, misses, every context length, -1 pads.
+    """
+    dev = _cuda()
+    rng = np.random.RandomState(21)
+    ids = np.concatenate([np.arange(600), (1 << 31) + np.arange(-50, 50), (1 << 32) - 2 - np.arange(50)])
+    tabs, keys_by_order = [], []
+    for n, mode in enumerate(modes, start=2):
+        keys = np.unique(rng.choice(ids, size=(3000 // n, n)).astype(np.int64), axis=0)
+        tabs.append(_mode_table(dev, rng, keys, mode))
+        keys_by_order.append(keys)
+    order = len(modes) + 1
+    q = 4 * 100
+    full = rng.choice(ids, size=(q, order)).astype(np.int64)
+    for t, keys in enumerate(keys_by_order):  # a share of the queries ends in a present (t + 2)-gram
+        rows = np.arange(t, q, 2 * len(modes))
+        full[rows, order - (t + 2):] = keys[rng.randint(0, len(keys), size=len(rows))]
+    ctx_len = rng.randint(0, order, size=q).astype(np.int64)
+    ctx_len[: q // 2] = order - 1
+    for row, n in zip(full, ctx_len):
+        row[: order - 1 - n] = -1
+    tfull = torch.as_tensor(full.reshape(4, 100, order)).to(dev)
+    tlen = torch.as_tensor(ctx_len.reshape(4, 100)).to(dev)
+    before = tg.probe_rows.launches
+    got = tg.probe_rows(tfull, tlen, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+    torch.cuda.synchronize()
+    assert tg.probe_rows.launches == before + 1
+    want = tg.probe_rows_ref(tfull, tlen, tabs, tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[0].any(dim=(1, 2)).all())  # every order has hits
+    with pytest.raises(ValueError, match="hash_mode"):
+        tg.probe_rows(tfull, tlen, [dict(tabs[0], hash_mode="murmur")] + tabs[1:],
+                      tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+
+
 @pytest.mark.cuda
 def test_probe_rows_refuses_another_bucket_geometry():
     dev = _cuda()
