@@ -45,20 +45,20 @@ Phases (any failed check exits non-zero and prints no result line):
    launch counters must show one ``expand_merge_prune``, one ``gather_rows``
    (trie rows) and one ``probe_rows`` launch per frame step, and per
    finalization one ``merge_prune`` launch and two ``probe_rows`` launches
-   (the last word and ``</s>``). The first utterance decodes
+   (the last word and ``</s>``). The shortest utterance decodes whole
    again with a ``device="cpu"`` decoder (the plain versions): identical
-   texts, lm_score within 1e-3;
+   texts, frames and LM states, lm_score within 1e-3;
 6. serving path: the same utterances through ``decode_batch(...,
    token_chunking=True, blank_collapse=True, length_bucketing=16)`` (two
    length groups) and through ``decode_beams_batches`` over the batch and the
    batch reversed. Texts equal the dense path's, lm_score within 1e-3 of it,
-   the first utterance identical on the CPU, the pipelined generator gives
+   the shortest utterance identical on the CPU, whole, the pipelined generator gives
    the serving call's results batch by batch, and the launch counters equal the virtual steps
    that the host prep implies. One more batch is launched and collected in
    separate timed stages (host prep, enqueue, wait, copy and assembly), and
    the output copy through the decoder's pinned buffer is timed beside a
    plain ``.cpu()`` of the same tensors;
-7. profile: each path decodes the first 200 frames of every utterance
+7. profile: each path decodes the first 100 frames of every utterance
    under ``torch.profiler`` (device time by kernel, device ops per step,
    device idle share against the same decode unprofiled);
 8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
@@ -88,7 +88,7 @@ Phases (any failed check exits non-zero and prints no result line):
    dense; WER beside greedy WER; the dense call profiled;
 10. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
    frames (0.5 s of audio), beam 100, K = 29, each decoder's tables put back
-   on the card for it. The first 4 utterances, each on its own state with
+   on the card for it. The first ``STREAM_UTTS`` utterances, each on its own state with
    member A: the last view (``is_end``) equals the full decode of the
    utterance (texts, spans, lm_score within 1e-3), and the launch counters
    equal one step per frame and one finalize per chunk. Each kernel against
@@ -98,7 +98,7 @@ Phases (any failed check exits non-zero and prints no result line):
    carries the partial, last-token and force lanes), timed. Utterance 0 with
    ``force_next_word`` at its middle chunk: every chunk's top view equals the
    host oracle's (``BeamSearchDecoderCTC``; words, partial words, spans,
-   scores within 2e-3). Its first 4 chunks give identical views on the CPU.
+   scores within 2e-3). Its first ``STREAM_CPU_CHUNKS`` chunks give identical views on the CPU.
    hot2lm's two members and 28 hotwords: the stream equals the full decode;
    with the hotword list written anew from the middle chunk on (the same
    unigram set, so the reference's score caches and the device agree), the
@@ -116,7 +116,40 @@ Phases (any failed check exits non-zero and prints no result line):
    1e-4, the launch counts the code implies. Member B as a QUANT_TRIE binary (8 + 8 bits) through a saved
    directory: 2 utterances on the card equal the host oracle's loaded from
    the same directory (top texts; scores within 2e-3). The dense decode
-   profiled.
+   profiled;
+12. native (runs right after the build, before phase 4): the C++ n-gram
+   engine built with ``g++``; ``build_ctcdecoder`` over member A's ARPA
+   (``"auto"`` reads plain ARPA with it: the decoder of every later path)
+   timed against the same decoder over the file read in Python; the device
+   tables equal (unigrams, trie, sizes, seeds exactly; each bucket row's
+   residents, whose slots may be ordered otherwise: counted); the first 4
+   utterances decode equal on both (lm_score difference 0);
+13. sharded (after the profiles of phase 7): ``ShardedCTCDecoder(shard_lm=True)``
+   over a world-size-1 NCCL group brought up by ``parallel.launch``, member
+   A's bucket planes row-sharded, every probe one collective round trip;
+   the dense call and the serving options (chunks, blank collapse), both
+   with ``collect_stats``: results equal phases 5 and 6's (lm_score
+   difference 0), counters equal the unsharded decoder's, launches as the
+   code implies; a ``device_profile`` of 100 frames unsharded with the
+   counters off and on and sharded (device ops a step; what the counters
+   and the collective round trip add); ``probe_rows`` over 2
+   and 4 row windows of member A's planes on a real dense step's queries,
+   each window against its plain version, summed bit-equal to the whole
+   probe, each timed warm and L2-flushed beside the whole table, with its
+   bound.
+
+Depth cuts of the earlier paths, to keep the script's time as the two
+phases above were added (constants below): the CPU cross-checks of phases
+8 and 9 decode the first ``CPU_FRAMES`` frames of their utterances (the
+card's batch texts are checked on the whole utterance; phases 5-6 hold the
+shortest utterance whole against the CPU), and hot2lm
+holds the first utterance the hotwords change against the CPU
+(``HOT_CPU_CHANGED``), not every one; ``decode_beams_batches`` runs the
+first ``PIPE_UTTS`` utterances and the same reversed; the dense calls run
+twice (one latency repeat), the main serving call twice; profiles decode
+the first ``PROFILE_FRAMES`` frames with ``PROFILE_RUNS`` unprofiled runs;
+the stream phase streams ``STREAM_UTTS`` utterances and holds
+``STREAM_CPU_CHUNKS`` chunks against the CPU.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -141,6 +174,8 @@ BEAM = 100
 K_TOKENS = len(LIBRI_LABELS)
 ATOL, RTOL = 1e-5, 1e-6
 CPU_CHECK = 1  # utterances decoded again on the CPU (its plain versions are the host's costliest step)
+CPU_FRAMES = 50  # frames of each utterance the CPU cross-checks decode (the card decodes the same cut)
+HOT_CPU_CHANGED = 1  # hot2lm: utterances whose top text the hotwords change, also held against the CPU
 LM_SCORE_TOL = 1e-3
 RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
@@ -156,11 +191,13 @@ PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's 
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 REPS = 30
+WINDOW_REPS = 10  # calls a row window's timing sums over (six windows, each warm and L2-flushed)
 PROFILE_TRIES = 4
-PROFILE_FRAMES = 200  # profiles decode the first frames of every utterance (the profiler slows the host ~10x)
+PROFILE_FRAMES = 100  # profiles decode the first frames of every utterance (the profiler slows the host ~10x)
+PROFILE_RUNS = 2  # unprofiled runs of a profiled call: its latency is their median
+PIPE_UTTS = 8  # utterances of each of the two batches through decode_beams_batches
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
-PRE_ROLL, PRE_ROLL_KERNEL = 64, "FillFunctor<double>"  # a decode fills no float64 tensor
 # the hot2lm path: member B's fusion settings (the JAX package's mixed-member
 # test settings) and the hotword list's make-up
 MEMBER_B = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, score_boundary=False)
@@ -174,13 +211,14 @@ BPE_V, BPE_LMAX = 129, 5  # logit columns; the longest label, ▁ + 4 letters
 BPE_FRAME_SEC = 0.04
 BPE_SEED = 3
 # the stream path: chunks of 0.5 s of audio at 0.02 s a frame
-STREAM_UTTS, STREAM_CHUNK = 4, 25
-STREAM_CPU_CHUNKS = 4  # chunks of one stream held against the CPU (the plain versions take ~0.1 s a frame there)
+STREAM_UTTS, STREAM_CHUNK = 2, 25
+STREAM_CPU_CHUNKS = 2  # chunks of one stream held against the CPU (the plain versions take ~0.1 s a frame there)
 HOST_TOL = 2e-3  # the float64 host oracle against the float32 device
 # the kenlm path: member A as a KenLM PROBING binary, member B as QUANT_TRIE
 KENLM_TOL = 1e-4  # the binary holds the ARPA's f32 probabilities: the same sums, in the same order
 QUANT_BITS = (8, 8)  # kenlm build_binary's default -q 8 -b 8
 QUANT_UTTS = 2
+NATIVE_UTTS = 4  # utterances decoded over both readers' tables in the native phase
 
 
 _T0 = time.perf_counter()
@@ -729,79 +767,74 @@ def parity_lm(build_dir: str, name: str = "parity_3gram.arpa", **sizes):
     return path, vocab
 
 
+def is_own(kernel: str, name: str) -> bool:
+    """Whether a trace row ``name`` is the package's kernel ``kernel`` (a function name in ``OWN_KERNELS``)."""
+    return any(f"{lead}{kernel}{tail}" in f" {name}" for lead in ("::", " ") for tail in ("(", "<"))
+
+
+def own_launches(report) -> dict:
+    """Launches of each of the package's kernels in a ``TraceReport``, keyed as the wrappers' counters."""
+    return {kernel[: -len("_kernel")]: sum(op.count for op in report.ops if is_own(kernel, op.name))
+            for kernel in OWN_KERNELS}
+
+
 def device_profile(torch, run, steps: int, latency_s: float, launches: dict) -> dict:
-    """Device time by kernel over one profiled call of ``run``.
+    """Device time by kernel over one call of ``run``, through ``utils.profiling.profile_call``.
 
-    Only device rows (kernels, memsets, copies) are summed. The profiler
-    slows the host a lot, so the idle share is taken against the
-    unprofiled batch latency: 1 - device busy / latency. A trace whose own
-    kernels' rows do not count ``launches`` (the launch counters of the
-    same call) is incomplete and taken again; each trace starts with
-    ``PRE_ROLL`` float64 fills, left out, since a trace may drop the first
-    kernels it sees. ``None`` when the profiler
-    returns no complete trace in any of its tries.
+    Device busy is the union of the device rows' intervals (kernels,
+    memsets, copies). The profiler slows the host a lot, so the idle share
+    is taken against the unprofiled latency: 1 - device busy / latency. A
+    trace whose own kernels' rows do not count ``launches`` (the launch
+    counters of the same call) is incomplete and taken again. ``None`` when
+    the profiler returns no complete trace in any of its tries.
     """
-    from torch.profiler import ProfilerActivity, profile
+    from pyctcdecode_torch.utils.profiling import profile_call
 
-    torch.cuda.synchronize()
-    pre = torch.empty(1, dtype=torch.float64, device="cuda")
-    rows = []
-    for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a pre-roll of tiny fills: where the trace drops its first kernels,
-            # it drops these (left out of the sums below) and not the decode's
-            for _ in range(PRE_ROLL):
-                pre.fill_(0.0)
-            torch.cuda.synchronize()
-            run()
-            torch.cuda.synchronize()
-        rows = [(ev.key, _device_us(ev), int(ev.count)) for ev in prof.key_averages()
-                if _is_device_row(ev) and _device_us(ev) > 0 and PRE_ROLL_KERNEL not in ev.key]
-        own = {}  # the package's own kernels on this decode's data: (device ms, launches)
-        for kernel in OWN_KERNELS:
-            hit = [r for r in rows
-                   if any(f"{lead}{kernel}{tail}" in f" {r[0]}" for lead in ("::", " ") for tail in ("(", "<"))]
-            own[kernel] = (sum(r[1] for r in hit) / 1e3, sum(r[2] for r in hit))
-        seen = {kernel[: -len("_kernel")]: count for kernel, (_, count) in own.items()}
-        if rows and seen == launches:
-            break
-        log(f"[profiler] {'incomplete' if rows else 'empty'} trace: own kernels' rows {seen}, launched "
-            f"{launches} (attempt {attempt + 1} of {PROFILE_TRIES})")
-        rows = []
-        time.sleep(attempt + 1.0)
-    if not rows:
+    def complete(report) -> bool:
+        seen = own_launches(report)
+        if seen != launches:
+            log(f"[profiler] incomplete trace: own kernels' rows {seen}, launched {launches}")
+        return seen == launches
+
+    try:
+        report = profile_call(run, tries=PROFILE_TRIES, complete=complete)
+    except RuntimeError as err:
+        log(f"[profiler] {err}")
         return None
-    rows.sort(key=lambda r: -r[1])
-    busy_s = sum(r[1] for r in rows) / 1e6
-    n_ops = sum(r[2] for r in rows)
+    own = {}  # the package's own kernels on this decode's data: (device ms, launches)
+    for kernel in OWN_KERNELS:
+        hit = [op for op in report.ops if is_own(kernel, op.name)]
+        own[kernel] = (sum(op.total_ms for op in hit), sum(op.count for op in hit))
+    busy_s = report.busy_ms / 1e3
     return {"device_busy_s": busy_s, "idle_share": 1.0 - busy_s / latency_s,
-            "device_ops_per_step": n_ops / steps, "top": rows[:15], "own": own}
+            "device_ops_per_step": report.launches / steps,
+            "top": [(op.name, op.total_ms, op.count) for op in report.ops[:15]], "own": own}
 
 
 def log_profile(tag: str, prof, latency: float, card: str) -> None:
     if prof is None:
-        log(f"[{tag}] not measured: the profiler returned no device rows")
+        log(f"[{tag}] not measured: the profiler returned no complete trace")
         return
     log(f"[{tag}] device busy {prof['device_busy_s']:.3f} s of the {latency:.3f} s batch: "
-        f"idle share {prof['idle_share']:.3f}; {prof['device_ops_per_step']:.0f} device ops per "
+        f"idle share {prof['idle_share']:.3f}; {prof['device_ops_per_step']:.1f} device ops per "
         f"step [{card}]")
     for kernel, (ms, count) in prof["own"].items():
         check(count > 0, f"{tag}: {kernel} is not in the profile")
         log(f"[{tag}]   {kernel}: {ms:.3f} ms over {count} launches, {ms / count:.5f} ms each")
-    for key, us, count in prof["top"]:
-        log(f"[{tag}]   {us / 1e3:9.2f} ms  x{count:6d}  {key[:100]}")
+    for key, ms, count in prof["top"]:
+        log(f"[{tag}]   {ms:9.2f} ms  x{count:6d}  {key[:100]}")
 
 
 def profile_head(torch, tag: str, wrappers: dict, run, logits, card: str) -> dict:
     """``device_profile`` of ``run`` on the first ``PROFILE_FRAMES`` frames of every utterance.
 
-    The same call unprofiled, three times, gives the latency (median) the idle
+    The same call unprofiled, ``PROFILE_RUNS`` times, gives the latency (median) the idle
     share is taken against and the launch counts the trace must show; its
     steps are its ``expand_merge_prune`` launches.
     """
     head = [m[:PROFILE_FRAMES] for m in logits]
     latencies = []
-    for _ in range(3):
+    for _ in range(PROFILE_RUNS):
         reset_counts(wrappers)
         t0 = time.perf_counter()
         run(head)
@@ -820,14 +853,17 @@ def profile_head(torch, tag: str, wrappers: dict, run, logits, card: str) -> dic
 
 def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict,
               audio_s: float, card: str) -> dict:
-    """``decode_beams_batches`` at depth 1 over the batch and the batch reversed.
+    """``decode_beams_batches`` at depth 1 over the first ``PIPE_UTTS`` utterances and the same reversed.
 
     Checks the launch counts the two batches' serving plans imply, and that
-    each batch's results are ``serve_beams`` (the serving call's, in that
-    batch's order).
+    each batch's results are ``serve_beams``' (the serving call's, in that
+    batch's order). ``audio_s`` is the whole batch's; the two batches' share
+    is taken by frames.
     """
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
 
+    audio_s *= sum(m.shape[0] for m in logits[:PIPE_UTTS]) / sum(m.shape[0] for m in logits)
+    logits, serve_beams = logits[:PIPE_UTTS], serve_beams[:PIPE_UTTS]
     stream = [logits, logits[::-1]]
     reset_counts(wrappers)
     t0 = time.perf_counter()
@@ -841,7 +877,7 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
         members, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
     for i, want in enumerate((serve_beams, serve_beams[::-1])):
         check_same_results(f"{tag} pipelined batch {i}", want, piped[i], RERUN_TOL)
-    log(f"[{tag}] decode_beams_batches, the batch and the batch reversed at pipeline_depth 1: the serving "
+    log(f"[{tag}] decode_beams_batches, the first {PIPE_UTTS} utterances and the same reversed at pipeline_depth 1: the serving "
         f"call's results; {piped_s:.3f} s, {2 * audio_s / piped_s:.1f} audio-s/s [{card}]")
     return {"pipelined_s": piped_s, "pipelined_launches": launches}
 
@@ -952,6 +988,13 @@ def hotword_list(references, vocab) -> list:
     return unigrams + phrases + unknown
 
 
+def ngram_count(model, n: int) -> int:
+    """Entries of order ``n`` of an n-gram model read in Python or by the native engine."""
+    if hasattr(model, "tables"):
+        return len(model.tables.ngrams[n - 1])
+    return int(model.native.export_tables()[n - 1]["count"])
+
+
 def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_wer: float):
     """The ``hot2lm`` path: two parity-scale 3-gram members and hotwords, dense and serving.
 
@@ -978,9 +1021,9 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     arpa_b, vocab_b = parity_lm(str(BUILD_DIR), "parity_3gram_half.arpa",
                                 n_bigrams=LM_BIGRAMS // 2, n_trigrams=LM_TRIGRAMS // 2)
     check(vocab_b == vocab, "member B's vocabulary differs from member A's")
-    lm_b = P.LanguageModel(open_ngram_file(arpa_b), load_unigram_set_from_arpa(arpa_b), **MEMBER_B)
+    lm_b = P.LanguageModel(open_ngram_file(arpa_b, backend="python"), load_unigram_set_from_arpa(arpa_b), **MEMBER_B)
     check(lm_b.unigram_set == lm_a.unigram_set, "member B's unigram set differs from member A's")
-    n_bigrams = [len(m.ngram_model.tables.ngrams[1]) for m in (lm_a, lm_b)]
+    n_bigrams = [ngram_count(m.ngram_model, 2) for m in (lm_a, lm_b)]
     check(lm_b.order == 3 and n_bigrams[1] < n_bigrams[0], "member B is not the half-size 3-gram")
     members = [lm_a, lm_b]
     alphabet = P.Alphabet.build_alphabet(LIBRI_LABELS)
@@ -1017,7 +1060,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("hot2lm dense", launches, expected_counts(members, t_max, 1))
-    for _ in range(2):
+    for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = multi.decode_beams_batch(logits, **dense_kw, **beams_kw)
         latencies.append(time.perf_counter() - t0)
@@ -1071,13 +1114,13 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
 
     t0 = time.perf_counter()
     cpu = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members), device="cpu")
-    # the first utterances, and every one whose top text the hotwords change
-    checked = sorted(set(range(CPU_CHECK)) | set(changed_at))
-    sub = [logits[i] for i in checked]
+    # the first utterances, and the first whose top text the hotwords change
+    checked = sorted(set(range(CPU_CHECK)) | set(changed_at[:HOT_CPU_CHANGED]))
+    sub = [logits[i][:CPU_FRAMES] for i in checked]
     kw = dict(dense_kw, batch_pad=1)
     max_d = check_same_results("hot2lm: GPU vs CPU", cpu.decode_beams_batch(sub, **kw, **beams_kw),
                                multi.decode_beams_batch(sub, **kw, **beams_kw), LM_SCORE_TOL)
-    log(f"[check] hot2lm dense: utterances {checked} identical on the CPU, texts, text_frames and "
+    log(f"[check] hot2lm dense: the first {CPU_FRAMES} frames of utterances {checked} identical on the CPU, texts, text_frames and "
         f"MultiLMState last states (max lm_score diff {max_d:.3g}), {time.perf_counter() - t0:.1f} s")
     del cpu
 
@@ -1282,7 +1325,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("bpe dense", launches, expected_counts([lm_a], steps, 1))
-    for _ in range(2):
+    for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
         latencies.append(time.perf_counter() - t0)
@@ -1338,18 +1381,19 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     # the first utterances on the CPU (dense: the serving texts equal the dense
     # ones on the card), member A alone, then the two members with the hotwords
     t0 = time.perf_counter()
-    sub = logits[:CPU_CHECK]
+    sub = [m[:CPU_FRAMES] for m in logits[:CPU_CHECK]]
     cpu_diff = {}
     for tag, kw, gpu_dec, lm, batch_texts in (
             ("dense", dense_kw, decoder, lm_a, texts),
             ("hot2lm dense", hot_kw, multi, P.MultiLanguageModel(members), top_texts(h_beams))):
         kw = dict(kw, batch_pad=1)
+        whole = gpu_dec.decode_beams_batch(logits[:CPU_CHECK], **kw, **beams_kw)
+        check(top_texts(whole) == batch_texts[:CPU_CHECK], f"bpe {tag}: batch-of-{N_UTTS} texts differ")
         gpu_beams = gpu_dec.decode_beams_batch(sub, **kw, **beams_kw)
         cpu_beams = P.TorchBeamSearchDecoderCTC(alphabet, lm, device="cpu").decode_beams_batch(sub, **kw, **beams_kw)
         cpu_diff[tag] = check_same_results(f"bpe {tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
-        check(top_texts(gpu_beams) == batch_texts[:CPU_CHECK], f"bpe {tag}: batch-of-{N_UTTS} texts differ")
-        log(f"[check] bpe {tag}: first {CPU_CHECK} utterances identical on the CPU (max lm_score diff "
-            f"{cpu_diff[tag]:.3g}), {time.perf_counter() - t0:.1f} s so far")
+        log(f"[check] bpe {tag}: first {CPU_FRAMES} frames of the first {CPU_CHECK} utterances identical on the "
+            f"CPU (max lm_score diff {cpu_diff[tag]:.3g}), {time.perf_counter() - t0:.1f} s so far")
     del multi
 
     prof = profile_head(torch, "profile bpe dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
@@ -1600,10 +1644,10 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     rec["cpu_chunks"], rec["cpu_max_score_diff"] = len(head), d_cpu
     del cpu
 
-    # one stream's first 200 frames under the profiler
+    # one stream's first chunks under the profiler
     head = chunks[: PROFILE_FRAMES // STREAM_CHUNK]
     latencies = []
-    for _ in range(3):
+    for _ in range(PROFILE_RUNS):
         reset_counts(wrappers)
         t0 = time.perf_counter()
         run_stream(char, head)
@@ -1663,6 +1707,269 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     return rec
 
 
+def bucket_residents(bucket: np.ndarray) -> np.ndarray:
+    """Each bucket row's 32 slots as (fp_lo, fp_hi, prob, backoff) rows, sorted by fingerprint: ``[rows, 32, 4]``."""
+    from pyctcdecode_torch.models.device_tables import _BUCKET_SLOTS, _SUB_BUCKETS
+
+    u = bucket.view(np.uint32).reshape(len(bucket), _SUB_BUCKETS, 4, _BUCKET_SLOTS)
+    slots = u.transpose(0, 1, 3, 2).reshape(len(bucket), _SUB_BUCKETS * _BUCKET_SLOTS, 4)
+    key = (slots[..., 0].astype(np.uint64) << np.uint64(32)) | slots[..., 1].astype(np.uint64)
+    return np.take_along_axis(slots, np.argsort(key, axis=1, kind="stable")[..., None], axis=1)
+
+
+def native_phase(torch, P, arpa: str, logits, card: str):
+    """The ``native`` path: ``build_ctcdecoder`` over member A's ARPA read by the C++ engine.
+
+    Builds the engine (``g++``, timed), then ``build_ctcdecoder`` (``"auto"``
+    reads plain ARPA natively; timed from call to decoder ready) and the
+    same decoder over the same file read in Python (timed): the start-up a
+    user sees either way. The device tables must equal the Python build's:
+    unigrams, trie plane and seeds exactly; each order's bucket sizes and
+    fingerprint seeds exactly, and every bucket row's residents (the engine
+    hands entries over in another order, so slots within a row may differ:
+    counted and logged). The first ``NATIVE_UTTS`` utterances decode equal on
+    both (texts, frames, LM states, lm_score difference 0). Returns the
+    record, the native decoder (the main paths' decoder) and the Python-read
+    LanguageModel (its host tables serve the probe's seeded queries and the
+    KenLM writers).
+    """
+    from pyctcdecode_torch.csrc.native import load_native
+    from pyctcdecode_torch.models.native import NativeNGramModel
+    from pyctcdecode_torch.models.ngram import load_unigram_set_from_arpa, open_ngram_file
+
+    t0 = time.perf_counter()
+    check(load_native() is not None, "the native n-gram engine did not build")
+    lib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoder = P.build_ctcdecoder(LIBRI_LABELS, arpa)
+    torch.cuda.synchronize()
+    native_s = time.perf_counter() - t0
+    check(isinstance(decoder.language_model.ngram_model, NativeNGramModel),
+          "build_ctcdecoder did not read the ARPA with the native engine")
+    t0 = time.perf_counter()
+    lm_py = P.LanguageModel(open_ngram_file(arpa, backend="python"), load_unigram_set_from_arpa(arpa))
+    py_dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_py)
+    torch.cuda.synchronize()
+    python_s = time.perf_counter() - t0
+    check(lm_py.unigram_set == decoder.language_model.unigram_set, "the two readers' unigram sets differ")
+    nat, py = decoder._device_lm[0], py_dec._device_lm[0]
+    for attr in ("uni", "start_ctx", "start_ctx_backoffs", "seed_node"):
+        check(np.array_equal(getattr(nat, attr), getattr(py, attr)), f"native tables: {attr} differs")
+    check(np.array_equal(nat.trie_plane(), py.trie_plane()), "native tables: the trie plane differs")
+    rows_moved = []
+    for n, (a, b) in enumerate(zip(nat.fp_tables, py.fp_tables), start=2):
+        check((a.size, a.seed_lo, a.seed_hi, a.count) == (b.size, b.seed_lo, b.seed_hi, b.count),
+              f"native tables: order {n}'s size, seeds or count differ")
+        check(np.array_equal(bucket_residents(a.bucket), bucket_residents(b.bucket)),
+              f"native tables: order {n}'s buckets hold other residents")
+        rows_moved.append(int((a.bucket != b.bucket).any(axis=1).sum()))
+    kw = dict(beam_width=BEAM, prune_history=True, top_n=1)
+    want = py_dec.decode_beams_batch(logits[:NATIVE_UTTS], **kw)
+    got = decoder.decode_beams_batch(logits[:NATIVE_UTTS], **kw)
+    d = check_same_results("native vs python reader", want, got, 0.0)
+    del py_dec
+    torch.cuda.empty_cache()
+    log(f"[native] g++ build of the engine {lib_s:.2f} s; build_ctcdecoder over the ARPA read natively "
+        f"{native_s:.2f} s, over the same file read in Python {python_s:.2f} s; device tables equal but for "
+        f"the slot order within {rows_moved} bucket rows of {[t.size for t in nat.fp_tables]} (the same residents "
+        f"in every row); the first {NATIVE_UTTS} utterances decode equal (texts, frames, LM states, lm_score "
+        f"diff {d:.3g}) [{card}]")
+    rec = {"engine_build_s": lib_s, "build_ctcdecoder_native_s": native_s, "build_python_s": python_s,
+           "bucket_rows_slot_order_differs": rows_moved, "bucket_rows": [t.size for t in nat.fp_tables],
+           "utterances_checked": NATIVE_UTTS, "max_lm_score_diff": d}
+    return rec, decoder, lm_py
+
+
+def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_beams, windows: dict,
+                  card: str) -> dict:
+    """The ``sharded`` path: ``ShardedCTCDecoder(shard_lm=True)`` over a world-size-1 NCCL group.
+
+    The group comes up through ``parallel.launch`` (127.0.0.1, a free port);
+    member A's bucket planes are row-sharded over it, so every probe of a
+    step and of a finalize is one collective round trip (``all_gather`` of
+    the queries, one ``probe_rows`` launch on the local window,
+    ``all_reduce`` of the answers). ``decode_beams_batch`` dense and with the
+    serving options (chunks, blank collapse), both with ``collect_stats``:
+    texts, frames and LM states equal the dense and serving results from
+    earlier in the run (lm_score difference 0), the counters equal the
+    unsharded decoder's for the same call, the launches ``expected_counts``.
+    Profiled (``device_profile``): the dense decode's first
+    ``PROFILE_FRAMES`` frames, unsharded with the counters off and on, and
+    sharded (device ops a step, busy s, idle share against the unprofiled
+    latency); what the counters and the collective round trip add is the
+    difference to the unsharded decode with the counters off. ``windows`` is
+    :func:`window_phase`'s record, kept with this phase's.
+    """
+    import socket
+
+    import torch.distributed as dist
+
+    from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
+    from pyctcdecode_torch.parallel import ShardedCTCDecoder, make_data_mesh
+    from pyctcdecode_torch.parallel.launch import initialize_from_env
+    from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
+
+    t_phase = time.perf_counter()
+    wrappers = counters(merge, gather)
+    lm = decoder.language_model
+    logits = corpus.logits
+    t_max = max(m.shape[0] for m in logits)
+    audio_s = corpus.audio_seconds
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    check(initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0),
+          "the process group did not come up")
+    rec: dict = {}
+    try:
+        mesh = make_data_mesh()
+        check(dist.get_backend() == "nccl" and mesh.size() == 1, "not a world-size-1 NCCL mesh")
+        t0 = time.perf_counter()
+        sharded = ShardedCTCDecoder(decoder, mesh=mesh, shard_lm=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        fp = sharded._tabs["lms"][0]["fp"]
+        check(all(t["row0"] == 0 and t["bucket"].shape[0] == t["size"] for t in fp)
+              and "shard" in sharded._tabs["lms"][0], "the sharded tables are not one whole window")
+        t0 = time.perf_counter()  # NCCL makes its communicator at the first collective: not in a latency
+        sharded.decode_beams_batch([logits[0][:8]], beam_width=BEAM)
+        first_s = time.perf_counter() - t0
+        beams_kw = dict(beam_width=BEAM, prune_history=True, top_n=1, collect_stats=True)
+        serve_kw = dict(token_chunking=True, blank_collapse=True)
+        mats, _, _ = normalize_collapse_batch(logits, LIBRI_LABELS.index(""), DEFAULT_MIN_TOKEN_LOGP)
+        v_steps = int(max(token_timeline_batch(mats, DEFAULT_MIN_TOKEN_LOGP, CHUNK)[1]))
+        for tag, kw, steps, want_beams in (("dense", {}, t_max, dense_beams), ("serving", serve_kw, v_steps, serve_beams)):
+            reset_counts(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, stats = sharded.decode_beams_batch(logits, **beams_kw, **kw)
+            latency = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            check_counts(f"sharded {tag}", launches, expected_counts([lm], steps, 1))
+            d = check_same_results(f"sharded {tag} vs {tag}", want_beams, got, 0.0)
+            t0 = time.perf_counter()
+            _, want_stats = decoder.decode_beams_batch(logits, **beams_kw, **kw)
+            stats_latency = time.perf_counter() - t0
+            check(stats == want_stats, f"sharded {tag}: the counters differ from the unsharded decoder's")
+            totals = {key: sum(st[key] for st in stats) for key in stats[0]}
+            log(f"[sharded] {tag} decode_beams_batch {N_UTTS} x beam {BEAM}, shard_lm on, collect_stats: equal to "
+                f"the {tag} results (lm_score diff {d:.3g}), counters equal the unsharded decoder's; {latency:.3f} s, "
+                f"{audio_s / latency:.1f} audio-s/s, {steps} steps (unsharded with the counters: {stats_latency:.3f} s); "
+                f"counter totals {totals} [{card}]")
+            rec[tag] = dict(latency_s=latency, unsharded_stats_latency_s=stats_latency, launches=launches,
+                            steps=steps, counters_total=totals, max_lm_score_diff=d)
+        rec["setup_s"], rec["first_collective_call_s"] = setup_s, first_s
+
+        # device ops a step: unsharded with the counters off and on, and sharded
+        head = [m[:PROFILE_FRAMES] for m in logits]
+        plain_kw = dict(beam_width=BEAM, prune_history=True, top_n=1)
+        reports = {}
+        for tag, run in (("unsharded", lambda: decoder.decode_beams_batch(head, **plain_kw)),
+                         ("unsharded, counters on", lambda: decoder.decode_beams_batch(head, collect_stats=True, **plain_kw)),
+                         ("sharded", lambda: sharded.decode_beams_batch(head, **plain_kw))):
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            run()
+            lat = time.perf_counter() - t0
+            launches = read_counts(wrappers)
+            steps = launches["expand_merge_prune"]
+            prof = device_profile(torch, run, steps, lat, launches)
+            log(f"[sharded] profile, {tag}, the first {PROFILE_FRAMES} frames: {steps} steps, unprofiled latency "
+                f"{lat:.3f} s")
+            log_profile(f"sharded profile {tag}", prof, lat, card)
+            if prof is not None:
+                prof.update(frames=PROFILE_FRAMES, steps=steps, latency_s=lat, launches=launches)
+            reports[tag] = prof
+        off, on, shd = reports["unsharded"], reports["unsharded, counters on"], reports["sharded"]
+        added = counters_added = None
+        if off and shd:
+            added = dict(ops_per_step=shd["device_ops_per_step"] - off["device_ops_per_step"],
+                         device_ms_per_step=(shd["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
+                         latency_ratio=shd["latency_s"] / off["latency_s"])
+            log(f"[sharded] the collective round trip adds {added['ops_per_step']:.1f} device ops and "
+                f"{added['device_ms_per_step']:.5f} device ms a step (sharded minus unsharded), latency x"
+                f"{added['latency_ratio']:.3f} [{card}]")
+        if off and on:
+            counters_added = dict(ops_per_step=on["device_ops_per_step"] - off["device_ops_per_step"],
+                                  device_ms_per_step=(on["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
+                                  latency_ratio=on["latency_s"] / off["latency_s"])
+            log(f"[sharded] the counters add {counters_added['ops_per_step']:.1f} device ops and "
+                f"{counters_added['device_ms_per_step']:.5f} device ms a step, latency x"
+                f"{counters_added['latency_ratio']:.3f} [{card}]")
+        rec["profile"] = reports
+        rec["collectives_added"], rec["counters_added"] = added, counters_added
+        del sharded
+    finally:
+        dist.destroy_process_group()
+
+    rec["probe_windows"] = windows
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[sharded] phase in {rec['seconds']:.1f} s")
+    return rec
+
+
+def window_phase(torch, gather, decoder, probe_call, card: str) -> dict:
+    """``probe_rows`` on row windows: member A's two bucket planes cut into 2 and 4 row shards.
+
+    Each window (a process's block of a plane row-sharded over 2 or 4
+    processes) is probed with a real dense step's queries (``probe_call``),
+    held against its plain version, and the windows' answers summed must be
+    bit-equal to the whole probe; each window's launch is timed warm and
+    with the L2 cache flushed beside the unwindowed one, with its bound.
+    Runs right after the unwindowed probe's timing (late in a run the
+    profiler's traces of small calls go incomplete).
+    """
+    from pyctcdecode_torch.models.device_tables import shard_bucket_plane, shard_rows
+
+    full, ctx_len, tables, slots, sub_width = probe_call
+    whole = gather.probe_rows(full, ctx_len, tables, slots, sub_width)
+    flush = make_flush(torch, full.device)
+    w_ms, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width), WINDOW_REPS)
+    w_cold, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tables, slots, sub_width), WINDOW_REPS,
+                          flush=flush)
+    q = ctx_len.numel()
+    ops = sum(3.0 * 3 * (t + 2) for t in range(len(tables))) + 40.0 * len(tables)
+    windows = {"whole": dict(ms=w_ms, cold_ms=w_cold)}
+    host_planes = [t.bucket for t in decoder._device_lm[0].fp_tables]
+    for n_shards in (2, 4):
+        summed = None
+        per = []
+        for r in range(n_shards):
+            tabs_r = [dict(tab, bucket=torch.as_tensor(shard_bucket_plane(plane, n_shards)[r]).to(full.device),
+                           row0=r * shard_rows(tab["size"], n_shards))
+                      for tab, plane in zip(tables, host_planes)]
+            got = gather.probe_rows(full, ctx_len, tabs_r, slots, sub_width)
+            want = gather.probe_rows_ref(full, ctx_len, tabs_r, slots, sub_width)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"probe_rows window {r} of {n_shards}: differs from the plain version")
+            part = (got[0].to(torch.int32), got[1], got[2])
+            summed = part if summed is None else tuple(a + b for a, b in zip(summed, part))
+            ms, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tabs_r, slots, sub_width), WINDOW_REPS)
+            cold, _ = time_call(torch, lambda: gather.probe_rows(full, ctx_len, tabs_r, slots, sub_width),
+                                WINDOW_REPS, flush=flush)
+            moved = nbytes([full, ctx_len]) + nbytes(got)
+            owned = 0
+            for t, tab in enumerate(tabs_r):
+                local = gather.query_hashes(tab, full[..., len(tables) - 1 - t:])[0] % tab["size"] - tab["row0"]
+                mine = local[(local >= 0) & (local < tab["bucket"].shape[0])]
+                moved += int(mine.unique().numel()) * tab["bucket"].shape[1] * tab["bucket"].element_size()
+                owned += int(mine.numel())
+            b_ms, b_by = bound_ms(moved, ops * q)
+            per.append(dict(ms=ms, cold_ms=cold, bound_ms=b_ms, bound_by=b_by, owned_queries=owned,
+                            rows=[int(t["bucket"].shape[0]) for t in tabs_r]))
+            del tabs_r
+        check(torch.equal(summed[0] > 0, whole[0]) and int(summed[0].max()) <= 1
+              and torch.equal(summed[1], whole[1]) and torch.equal(summed[2], whole[2]),
+              f"probe_rows: the {n_shards} windows' answers do not sum to the whole probe's")
+        windows[str(n_shards)] = per
+        log(f"[windows] probe_rows over {n_shards} row windows of member A's planes, dense step queries "
+            f"{list(full.shape)}: each equal to its plain version, summed bit-equal to the whole probe; window ms "
+            f"{[round(w['ms'], 5) for w in per]}, L2 flushed {[round(w['cold_ms'], 5) for w in per]}, bounds "
+            f"{[round(w['bound_ms'], 6) for w in per]} ({per[0]['bound_by']}); the whole table {w_ms:.5f} ms, "
+            f"flushed {w_cold:.5f} ms [{card}]")
+    return windows
+
+
 def kenlm_build_phase(torch, P, gather, lm_a, dense_call, head) -> dict:
     """Member A as a KenLM PROBING binary, a decoder over it, and ``probe_rows`` in its KenLM mode.
 
@@ -1699,7 +2006,7 @@ def kenlm_build_phase(torch, P, gather, lm_a, dense_call, head) -> dict:
     probe = probe_phases(torch, gather, {"kenlm dense": (N_UTTS, {"probe": call})}, lm_a.ngram_model.tables.ngrams)
     park(built)
     return {"decoder": built, "bin_path": bin_path, "write_s": write_s, "build_ctcdecoder_s": built_s,
-            "binary_mb": os.path.getsize(bin_path) / 1e6, "probe": probe}
+            "binary_mb": os.path.getsize(bin_path) / 1e6, "probe": probe, "arpa_vocab": lm_a.ngram_model.tables.vocab}
 
 
 def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, dense_beams, serve_beams,
@@ -1731,7 +2038,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     t_phase = time.perf_counter()
     wrappers = counters(merge, gather)
     lm_a = arpa_dec.language_model
-    arpa_vocab = lm_a.ngram_model.tables.vocab
+    arpa_vocab = early["arpa_vocab"]
     logits = corpus.logits
     t_max = max(m.shape[0] for m in logits)
     audio_s = corpus.audio_seconds
@@ -1901,19 +2208,17 @@ def main() -> int:
     t0 = time.perf_counter()
     arpa, vocab = parity_lm(str(BUILD_DIR))
     log(f"[main] parity ARPA ready in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    decoder = P.build_ctcdecoder(LIBRI_LABELS, arpa)
-    torch.cuda.synchronize()
-    arpa_build_s = time.perf_counter() - t0
-    lm = decoder.language_model
-    log(f"[main] build_ctcdecoder (parse + device tables) in {arpa_build_s:.1f} s")
-    check(decoder.device.type == "cuda", "decoder is not on CUDA")
-    check(lm.order == 3, "the parity LM is not a 3-gram")
     rng = np.random.RandomState(11)
     corpus_vocab = [vocab[i] for i in rng.randint(0, len(vocab), 6000)] + TRANSCRIPT.split()
     corpus = synthesize_corpus(LIBRI_LABELS, corpus_vocab, n_utterances=N_UTTS, seed=3,
                                **DEV_OTHER_DIFFICULTY)
     logits = corpus.logits
+    # ---- the native path: build_ctcdecoder reads the ARPA with the C++ engine; the Python read beside it
+    native_rec, decoder, lm_py = native_phase(torch, P, arpa, logits, card)
+    arpa_build_s = native_rec["build_python_s"]
+    lm = decoder.language_model
+    check(decoder.device.type == "cuda", "decoder is not on CUDA")
+    check(lm.order == 3, "the parity LM is not a 3-gram")
     t_max = max(m.shape[0] for m in logits)
     audio_s = corpus.audio_seconds
     log(f"[main] corpus: {N_UTTS} utterances, {audio_s:.2f} audio-s, frames "
@@ -1932,9 +2237,11 @@ def main() -> int:
     log(f"[main] warm-up decodes of 61 frames (dense, and serving: groups with {head_plan['group_steps']} "
         f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
     gather_rec = gather_phases(torch, gather, step_calls)
-    probe_rec = probe_phases(torch, gather, step_calls, lm.ngram_model.tables.ngrams)
+    probe_rec = probe_phases(torch, gather, step_calls, lm_py.ngram_model.tables.ngrams)
+    # probe_rows on row windows of the same tables (the sharded path's), on the same step's queries
+    windows = window_phase(torch, gather, decoder, step_calls["dense"][1]["probe"], card)
     # probe_rows' KenLM mode on the same step's queries (member A as a KenLM binary)
-    kenlm_early = kenlm_build_phase(torch, P, gather, lm, step_calls["dense"][1]["probe"], head)
+    kenlm_early = kenlm_build_phase(torch, P, gather, lm_py, step_calls["dense"][1]["probe"], head)
     del step_calls
 
     # ---- dense path
@@ -1950,7 +2257,7 @@ def main() -> int:
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("dense", launches, expected_counts([lm], t_max, 1))
-    for _ in range(2):
+    for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
         latencies.append(time.perf_counter() - t0)
@@ -1987,10 +2294,9 @@ def main() -> int:
     s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("serving", s_launches, expected_counts([lm], plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "the serving decode's texts differ from the dense decode's")
-    for _ in range(2):
-        t0 = time.perf_counter()
-        serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
-        s_latencies.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
+    s_latencies.append(time.perf_counter() - t0)
     d_score = check_same_results("serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
     s_latency = statistics.median(s_latencies)
     log(f"[serving] decode_batch {N_UTTS} x beam {BEAM}, chunks of {CHUNK}, collapse, 2 groups: texts "
@@ -2043,14 +2349,22 @@ def main() -> int:
     cpu_dec = P.TorchBeamSearchDecoderCTC(
         P.Alphabet.build_alphabet(LIBRI_LABELS), lm, device="cpu"
     )
-    sub = logits[:CPU_CHECK]
+    # the shortest utterance whole: every word commits, trigram contexts, the
+    # history prune over its whole beam history and the finalize after it
+    short = int(np.argmin([m.shape[0] for m in logits]))
+    sub = [logits[short]]
+    cpu_check = {"utterance": short, "frames": int(sub[0].shape[0])}
     for tag, kw in (("dense", dict(dense_kw, batch_pad=1)), ("serving", dict(serve_kw, batch_pad=1))):
         gpu_beams = decoder.decode_beams_batch(sub, **kw, **beams_kw)
+        check(top_texts(gpu_beams) == [texts[short]], f"{tag}: batch-of-{N_UTTS} texts differ")
+        t1 = time.perf_counter()
         cpu_beams = cpu_dec.decode_beams_batch(sub, **kw, **beams_kw)
+        cpu_check[f"{tag}_cpu_s"] = time.perf_counter() - t1
         max_d = check_same_results(f"{tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
-        check(top_texts(gpu_beams) == texts[:CPU_CHECK], f"{tag}: batch-of-{N_UTTS} texts differ")
-        log(f"[check] {tag}: first {CPU_CHECK} utterances identical on CPU (max lm_score diff "
-            f"{max_d:.3g}), {time.perf_counter() - t0:.1f} s so far")
+        cpu_check[f"{tag}_max_lm_score_diff"] = max_d
+        log(f"[check] {tag}: utterance {short} ({sub[0].shape[0]} frames, the shortest) whole, identical on CPU "
+            f"(max lm_score diff {max_d:.3g}; the CPU decode {cpu_check[f'{tag}_cpu_s']:.1f} s), "
+            f"{time.perf_counter() - t0:.1f} s so far")
 
     # ---- where the device time goes
     prof = profile_head(torch, "profile dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
@@ -2058,9 +2372,12 @@ def main() -> int:
     s_prof = profile_head(torch, "profile serving", wrappers, lambda b: decoder.decode_batch(b, **serve_kw),
                           logits, card)
 
+    # ---- the sharded path: ShardedCTCDecoder(shard_lm=True) over a world-size-1 NCCL group
+    del cpu_dec, handles, staged
+    sharded_rec = sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_beams, windows, card)
+
     # ---- the hot2lm path: two LM members and hotwords (the single-LM
     # decoders' tables go first, so that the peak memory is the new decoder's own)
-    del cpu_dec, handles, staged
     park(decoder)
     hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
     park(multi)
@@ -2118,6 +2435,8 @@ def main() -> int:
             "stream": {key: stream_rec["kernels"][kname].get(key) for key in keys},
             "launches_kenlm": kenlm_rec["launches"][kname],
             "launches_kenlm_serving": kenlm_rec["serving"]["launches"][kname],
+            "launches_sharded": sharded_rec["dense"]["launches"][kname],
+            "launches_sharded_serving": sharded_rec["serving"]["launches"][kname],
         })
         if kname == "expand_merge_prune":
             for tag, r_bpe in (("bpe", rec[("expand_merge_prune", f"n={N_UTTS},k={BPE_V},lmax={BPE_LMAX}")]),
@@ -2135,6 +2454,7 @@ def main() -> int:
             for tag, r_k in (("kenlm", kenlm_rec["probe"]["kenlm dense"]),
                              ("kenlm_seeded", kenlm_rec["probe"]["kenlm dense seeded"])):
                 kernels[-1][tag] = {key: r_k.get(key) for key in keys + ("cold_ms", "hits")}
+            kernels[-1]["row_windows"] = sharded_rec["probe_windows"]
     record = {
         "kernels": kernels,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
@@ -2146,8 +2466,8 @@ def main() -> int:
         "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
-        "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
-        "kenlm": kenlm_rec,
+        "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
+        "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,
     }

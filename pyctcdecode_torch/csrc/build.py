@@ -1,4 +1,4 @@
-"""Build and load the hand-written CUDA kernels (nvcc + ctypes).
+"""Build and load the hand-written CUDA kernels (nvcc + ctypes) and the native ARPA loader (g++).
 
 Each ``csrc/*.cu`` source compiles on its own into a shared library with a
 plain C interface::
@@ -6,10 +6,16 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
+and the host-only n-gram engine ``csrc/ctclm.cpp`` (:mod:`.native`) with::
+
+    g++ -O3 -march=native -std=c++17 -shared -fPIC -o build/libctclm-<hash>.so csrc/ctclm.cpp
+
 The library lands in ``build/`` at the repository root at first use (the
 file name carries a hash of the source, so an edited source rebuilds) and is
-loaded with :mod:`ctypes`. Sources build in parallel, one ``nvcc`` each. No
-fast-math flag: the kernels' ``expf``/``logf`` must track PyTorch's.
+loaded with :mod:`ctypes`. A compiler writes to a temporary file that is
+renamed into place, so processes that build at once (test workers) never
+load a half-written library. Sources build in parallel, one compiler each.
+No fast-math flag: the kernels' ``expf``/``logf`` must track PyTorch's.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from typing import Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parents[1] / "build"
-SOURCES = ("merge.cu", "gather.cu")
+SOURCES = ("merge.cu", "gather.cu")  # the CUDA kernels
+NATIVE_SOURCE = "ctclm.cpp"  # the host n-gram engine
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
@@ -50,7 +57,7 @@ def library_path(source: str) -> Path:
 
 
 def build(sources: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, Path]:
-    """Compile every source whose library is missing; all nvcc runs at once.
+    """Compile every source whose library is missing; all compilers run at once.
 
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills per
     kernel) and prints the compiler's output. Returns source -> library.
@@ -65,15 +72,23 @@ def build(sources: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, 
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [
-            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC_DIR / src),
-        ]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
+        if src.endswith(".cu"):
+            cmd = [
+                _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-o", tmp, str(CSRC_DIR / src),
+            ]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+        else:
+            cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-o", tmp,
+                   str(CSRC_DIR / src)]
+        try:
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+        except OSError as err:  # no compiler on PATH
+            os.unlink(tmp)
+            raise RuntimeError(f"{src}: cannot run {cmd[0]}: {err}") from err
         pending.append((src, lib, tmp, proc))
     failed = []
     for src, lib, tmp, proc in pending:

@@ -41,6 +41,13 @@
 //   slot whose 64-bit fingerprint matches (residents of a bucket have
 //   distinct fingerprints). It writes found, prob and backoff: 9 bytes per
 //   query and order in place of a 512-byte row written and read again.
+//   A table may be a row window of a larger one (rows [row0, row0 + rows)
+//   of a bucket plane row-sharded over processes, parallel/batch.py): the
+//   base slot is still h % size over the whole table, and a query whose
+//   slot lies outside the window answers found = 0, prob = backoff = 0
+//   without reading a row (one compare, uniform over the warp), so the
+//   windows' answers sum to the whole table's. The default window is the
+//   whole table.
 //
 // Indices must lie in range (idx in [0, rows), slot in [0, row / stride)):
 // nothing is clamped or checked here.
@@ -97,7 +104,9 @@ constexpr uint32_t KENLM_BASE_SEED = 0x243F6A88u;
 
 struct ProbeTables {  // table t holds the (t + 2)-grams
   const int4* bucket[MAX_TABLES];
-  uint32_t size[MAX_TABLES];
+  uint32_t size[MAX_TABLES];  // rows of the whole table: the base slot is h % size
+  uint32_t row0[MAX_TABLES];  // the window held in bucket: rows [row0, row0 + rows)
+  uint32_t rows[MAX_TABLES];
   uint32_t seed_lo[MAX_TABLES];
   uint32_t seed_hi[MAX_TABLES];
   uint32_t mode[MAX_TABLES];  // MODE_FNV or MODE_KENLM64
@@ -154,7 +163,17 @@ __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ 
     lo = min(lo, FP_MAX);
     hi = min(hi, FP_MAX);
     const bool valid = ctx_len[q] + 1 >= n;
-    const int4 v = __ldg(tabs.bucket[t] + (long long)(h % tabs.size[t]) * 32 + lane);
+    const long long o = (long long)t * n_query + q;
+    const uint32_t local = h % tabs.size[t] - tabs.row0[t];  // wraps above rows below the window
+    if (local >= tabs.rows[t]) {  // another window's row: the same answer for the whole warp
+      if (lane == 0) {
+        found[o] = 0;
+        prob[o] = 0.0f;
+        backoff[o] = 0.0f;
+      }
+      continue;
+    }
+    const int4 v = __ldg(tabs.bucket[t] + (long long)local * 32 + lane);
 
     // lane = 16 * sub-block + 4 * field + j4; the lane's words are slots
     // 4 * j4 .. 4 * j4 + 3 of its field (0 fp_lo, 1 fp_hi, 2 prob, 3 backoff)
@@ -174,7 +193,6 @@ __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ 
     const int b_bits = __shfl_sync(0xffffffffu, mine, src + 4);
     if (lane == 0) {
       const bool ok = valid && at != 0;
-      const long long o = (long long)t * n_query + q;
       found[o] = ok ? 1 : 0;
       prob[o] = ok ? __int_as_float(p_bits) : 0.0f;
       backoff[o] = ok ? __int_as_float(b_bits) : 0.0f;
@@ -200,11 +218,14 @@ extern "C" int gather_rows_launch(const void* table, const int64_t* idx, const i
                                 (cudaStream_t)stream);
 }
 
-// buckets / sizes / seeds_lo / seeds_hi / modes: host arrays of order - 1
-// entries, table t for the (t + 2)-grams, each bucket int32 [size, 128] on
-// the device, 16-byte aligned; modes[t] is MODE_FNV or MODE_KENLM64. Refuses
-// any other bucket geometry, order or mode.
+// buckets / sizes / row0s / rows / seeds_lo / seeds_hi / modes: host arrays
+// of order - 1 entries, table t for the (t + 2)-grams, each bucket int32
+// [rows, 128] on the device, 16-byte aligned, holding rows [row0, row0 +
+// rows) of a table of size rows (row0 = 0, rows = size: the whole table);
+// modes[t] is MODE_FNV or MODE_KENLM64. Refuses any other bucket geometry,
+// order or mode, and an empty window.
 extern "C" int probe_rows_launch(const void* const* buckets, const uint32_t* sizes,
+                                 const uint32_t* row0s, const uint32_t* rows,
                                  const uint32_t* seeds_lo, const uint32_t* seeds_hi,
                                  const uint32_t* modes, const int64_t* full,
                                  const int64_t* ctx_len, uint8_t* found, float* prob,
@@ -215,11 +236,13 @@ extern "C" int probe_rows_launch(const void* const* buckets, const uint32_t* siz
     return (int)cudaErrorInvalidValue;
   ProbeTables tabs;
   for (int t = 0; t < order - 1; ++t) {
-    if ((uintptr_t)buckets[t] % 16 != 0 || sizes[t] == 0 ||
+    if ((uintptr_t)buckets[t] % 16 != 0 || sizes[t] == 0 || rows[t] == 0 ||
         (modes[t] != MODE_FNV && modes[t] != MODE_KENLM64))
       return (int)cudaErrorInvalidValue;
     tabs.bucket[t] = reinterpret_cast<const int4*>(buckets[t]);
     tabs.size[t] = sizes[t];
+    tabs.row0[t] = row0s[t];
+    tabs.rows[t] = rows[t];
     tabs.seed_lo[t] = seeds_lo[t];
     tabs.seed_hi[t] = seeds_hi[t];
     tabs.mode[t] = modes[t];

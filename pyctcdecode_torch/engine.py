@@ -73,6 +73,7 @@ from .models.device_tables import (
     HOT_NODE_MASK,
     HOT_WORD_BIT,
     DeviceLM,
+    LMShard,
     lm_score_words,
     trie_fetch_rows,
 )
@@ -108,6 +109,9 @@ class EngineConfig:
     # BPE alphabet: a right-bounded piece forces a word break before the next token
     is_bpe: bool = False
     orders: Tuple[int, ...] = ()  # per-LM-member n-gram orders (empty when no LM)
+    # accumulate per-utterance decode counters in the state (see stats_fields);
+    # off, the step issues no op for them
+    collect_stats: bool = False
 
     @property
     def n_lms(self) -> int:
@@ -124,13 +128,48 @@ class EngineConfig:
         return max(max(self.orders, default=1) - 1, 1)
 
 
+def stats_fields(cfg: EngineConfig) -> List[str]:
+    """Names of the decode counters, in the order of the ``stats`` plane's columns.
+
+    Every counter is a sum over an utterance's decoded frames of a per-frame
+    count; divide by ``frames`` for rates. ``probe_hits_o{n}`` /
+    ``probe_queries`` is the order-``n`` full-suffix hit rate of the
+    per-frame commit scoring, over all LM members.
+
+    With ``token_timeline`` the work counters (``beams_alive``,
+    ``candidates_valid``, ``merged_dups``, ``probe_queries``,
+    ``probe_hits_*``) sum over virtual steps (chunks), and the frame-shaped
+    ones (``frames``, ``window_pruned``, ``selected_alive``,
+    ``history_pruned``, ``words_committed``) count each frame's last chunk
+    only, so per-frame rates read as in the dense decode (the JAX reference's
+    ``stats_fields``).
+    """
+    names = [
+        "frames",
+        "beams_alive",
+        "candidates_valid",
+        "merged_dups",
+        "window_pruned",
+        "selected_alive",
+        "history_pruned",
+        "words_committed",
+    ]
+    if cfg.n_lms:
+        names.append("probe_queries")
+        names += [f"probe_hits_o{n}" for n in range(1, max(cfg.orders) + 1)]
+    return names
+
+
 def build_table_args(
-    tokens: TokenArrays, device_lms: Sequence[DeviceLM], device: torch.device
+    tokens: TokenArrays, device_lms: Sequence[DeviceLM], device: torch.device,
+    shard: Optional[LMShard] = None,
 ) -> Dict[str, Any]:
     """Upload the token tables and every LM member's tables to ``device`` (once per decoder).
 
     Hotword tables change per call: they go to the decode function instead
-    (see :func:`make_decode_fn`).
+    (see :func:`make_decode_fn`). ``shard`` row-shards every n-gram bucket
+    plane over a process group (:meth:`DeviceLM.as_device`): each process
+    keeps its row block and every probe becomes collective.
     """
     def put(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=device).to(dtype)
@@ -144,7 +183,7 @@ def build_table_args(
         "seed_lo": as_lane(tokens.seed_hash_lo, device),
         "seed_hi": as_lane(tokens.seed_hash_hi, device),
     }
-    return {"tok": tok, "lms": [dlm.as_device(device) for dlm in device_lms]}
+    return {"tok": tok, "lms": [dlm.as_device(device, shard) for dlm in device_lms]}
 
 
 def _params_dict(cfg: EngineConfig, params: np.ndarray) -> Dict[str, Any]:
@@ -224,14 +263,18 @@ def _init_state(cfg: EngineConfig, start: Sequence[Dict], n: int, device: torch.
             state[f"pool_ent{i}"] = zi()  # packed trie entry of the candidate
         if cfg.use_hotwords:
             state["pool_h"] = zi()  # packed hot entry of the candidate
+    if cfg.collect_stats:
+        state["stats"] = torch.zeros((n, len(stats_fields(cfg))), dtype=torch.int64, device=device)
     return state
 
 
-def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ctx_bo):
+def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ctx_bo,
+                       stats_out: Optional[Dict] = None):
     """Fused word score + new context for each beam's committed partial.
 
     ``flags`` are the node's packed entry bits carried on the beam; the word
     id and its order-1 probe ride the beam's trie row (last four columns).
+    ``stats_out`` receives the probes' per-order hit masks.
     """
     in_model = (flags & _BIT_IN_VOCAB) != 0
     wid = torch.where(in_model, trie_row[..., -1].to(torch.int64), lm["unk_id"])
@@ -246,7 +289,7 @@ def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ct
     if lm["has_unigrams"]:
         is_oov = is_oov | ~in_uni
     raw10, new_ctx, new_ctx_len, new_bo = lm_score_words(
-        lm, ctx, ctx_len, wid, ctx_bo, uni_probe=(f1, p1, b1)
+        lm, ctx, ctx_len, wid, ctx_bo, uni_probe=(f1, p1, b1), stats_out=stats_out
     )
     raw10 = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
     fused = lm_prm["alpha"] * raw10 * _LOG10 + lm_prm["beta"]
@@ -265,7 +308,8 @@ def _commit_quantities(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dic
 
     The members' fused scores are summed in member order and then divided
     by the member count, as the reference does (float32 order matters at
-    1e-4); the hotword boost is added after.
+    1e-4); the hotword boost is added after. With ``cfg.collect_stats``,
+    ``"probe_hits"`` holds each member's per-order hit masks.
     """
     commit = state["p_len"] > 0
     t_lo, t_hi = hash_text_commit_t(
@@ -277,11 +321,16 @@ def _commit_quantities(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dic
     }
     fused_sum = None
     c2 = commit[..., None]
+    if cfg.collect_stats:
+        out["probe_hits"] = []
     for i, lm in enumerate(lms):
+        member_stats: Optional[Dict] = {} if cfg.collect_stats else None
         fused, new_ctx, new_ctx_len, new_bo = _member_word_score(
             lm, prm["lm"][i], trie_rows[i], state[f"p_flags{i}"], state[f"ctx{i}"],
-            state[f"ctx_len{i}"], state[f"ctx_bo{i}"],
+            state[f"ctx_len{i}"], state[f"ctx_bo{i}"], member_stats,
         )
+        if cfg.collect_stats:
+            out["probe_hits"].append(member_stats["hits"])
         fused_sum = fused if fused_sum is None else fused_sum + fused
         out[f"ctx{i}"] = torch.where(c2, new_ctx, state[f"ctx{i}"])
         out[f"ctx_len{i}"] = torch.where(commit, new_ctx_len, state[f"ctx_len{i}"])
@@ -554,6 +603,8 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             top_scores, top_src = _top_b(pooled("pool_score", sc), b)
             # the window, over the whole frame's best, on its last chunk only
             win = top_scores[:, :1] + prm["beam_prune_logp"]
+            if cfg.collect_stats:  # the frame's window kills, over its whole pool
+                win_killed = ((top_scores > DEAD_THRESH) & (top_scores < win)).sum(1)
             top_scores = torch.where(is_final[:, None] & (top_scores < win), DEAD, top_scores)
             top_parent = pooled("pool_pf", iota_b.expand(n, k, b)).gather(1, top_src)
             parent = pooled("pool_pd", src.to(torch.int64) % b).gather(1, top_src)
@@ -696,6 +747,39 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             new_state["logit"] = torch.where(dup_h, DEAD, new_state["logit"])
             new_state["last_tok"] = torch.where(dup_h, sentinel, new_state["last_tok"])
 
+        if cfg.collect_stats:
+            # per-utterance counts of this step (stats_fields). The kernel's
+            # src holds every valid candidate's newest group member, so the
+            # groups are the candidates that are their own donor; a group's
+            # merged logit is the same at every member.
+            alive = state["logit"] > DEAD_THRESH
+            alive_ct = alive.sum(1)
+            valid = alive[:, None, :] & admit[:, :, None]  # [N, K, B]
+            own = valid & ((src.to(torch.int64) % b) == iota_b)
+            fin_gate = is_final.to(torch.int64) if tl else 1
+            if tl:
+                window_pruned = fin_gate * win_killed
+            else:
+                live = (own & (merged > DEAD_THRESH)).sum((1, 2))
+                window_pruned = live - (sc > DEAD_THRESH).sum((1, 2))
+            counts = [
+                torch.ones_like(alive_ct) * fin_gate,  # frames
+                alive_ct,
+                alive_ct * admit.sum(1),  # candidates_valid
+                alive_ct * admit.sum(1) - own.sum((1, 2)),  # merged_dups
+                window_pruned,
+                fin_gate * sel_alive.sum(1),
+                fin_gate * dup_h.sum(1) if cfg.prune_history else torch.zeros_like(alive_ct),
+                # words actually committed: winners that cross a boundary holding a partial
+                fin_gate * (bnd_w & commit_w & sel_alive).sum(1),
+            ]
+            if n_lms:
+                counts.append(n_lms * alive_ct)  # probe_queries
+                for order_n in range(1, max(cfg.orders) + 1):
+                    counts.append(sum((hits[order_n - 1] & alive).sum(1)
+                                      for hits in cm["probe_hits"] if order_n <= len(hits)))
+            new_state["stats"] = state["stats"] + torch.stack(counts, dim=1)
+
         if tl:
             # beam lanes advance only on the frame's last chunk, pool lanes on
             # every active step. Non-final steps emit identity backpointers
@@ -706,6 +790,8 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             for key, old in state.items():
                 if key.startswith("pool_"):
                     out_state[key] = torch.where(active[:, None], pool_new[key], old)
+                elif key == "stats":  # every active step; frame-shaped counts are gated above
+                    out_state[key] = torch.where(active[:, None], new_state[key], old)
                 else:
                     gate = promote.view((n,) + (1,) * (old.dim() - 1))
                     out_state[key] = torch.where(gate, new_state[key], old)
@@ -891,7 +977,8 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
     ``start`` holds one start dict per LM member (see :func:`_init_state`);
     ``hot`` is this call's hotword trie, ``{"next": int64 [nodes, chars],
     "seed": int64 [V], "dead": int}`` on ``logp``'s device, or None (it must
-    be given exactly when ``cfg.use_hotwords``).
+    be given exactly when ``cfg.use_hotwords``). With ``cfg.collect_stats``
+    the outputs hold ``"stats"``, int64 ``[N, len(stats_fields(cfg))]``.
 
     With ``cfg.token_timeline``, ``logp`` is the host-built timeline tuple
     ``(toks [N, Tv, K] int, tlogp [N, Tv, K] f32, is_final [N, Tv] int)``,
@@ -933,6 +1020,8 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
         for i in range(cfg.n_lms):
             out[f"ctx{i}"] = fin[f"ctx{i}"][:, :r]
             out[f"ctx_len{i}"] = fin[f"ctx_len{i}"][:, :r]
+        if cfg.collect_stats:
+            out["stats"] = state["stats"]
         return out
 
     return decode

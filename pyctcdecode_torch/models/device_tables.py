@@ -76,6 +76,44 @@ _SUB_WIDTH = 4 * _BUCKET_SLOTS
 _BUCKET_WIDTH = _SUB_WIDTH * _SUB_BUCKETS
 
 
+@dataclasses.dataclass(frozen=True)
+class LMShard:
+    """This process's share of a row-sharded LM: rank ``rank`` of the ``size`` processes of ``group``.
+
+    Each process holds rows ``[rank * rows, (rank + 1) * rows)`` of every
+    n-gram bucket plane (``rows = shard_rows(size of the plane, size)``);
+    the trie, the unigrams and everything else are replicated. ``group`` is
+    a ``torch.distributed`` process group.
+    """
+
+    group: Any
+    rank: int
+    size: int
+
+
+def shard_rows(size: int, n_shards: int) -> int:
+    """Rows of one shard of a bucket plane of ``size`` rows (ceil split)."""
+    return -(-size // n_shards)
+
+
+def shard_bucket_plane(bucket: np.ndarray, n_shards: int) -> np.ndarray:
+    """A bucket plane ``[size, W]`` cut into ``[n_shards, shard_rows, W]`` row blocks.
+
+    A size that does not divide pads with rows that no query's base slot
+    reaches (the base slot stays ``< size``), their fingerprint lanes the
+    empty sentinel, as the JAX reference's ``build_table_args(shard=...)``.
+    """
+    size, width = bucket.shape
+    rows = shard_rows(size, n_shards)
+    pad = n_shards * rows - size
+    plane = bucket
+    if pad:
+        empty = np.zeros((pad, width), dtype=np.uint32)
+        mark_empty_fp_rows(empty)
+        plane = np.concatenate([bucket, empty.view(np.int32)], axis=0)
+    return plane.reshape(n_shards, rows, width)
+
+
 def mark_empty_fp_rows(rows_u32: np.ndarray) -> None:
     """Set every sub-block's fp_lo lanes to the empty sentinel, in place.
 
@@ -766,12 +804,15 @@ class DeviceLM:
             self.seed_node.astype(np.int64) | self._node_flag_bits(self.seed_node)
         ).astype(np.int32)
 
-    def as_device(self, device: "torch.device | str") -> Dict[str, Any]:
+    def as_device(self, device: "torch.device | str", shard: Optional[LMShard] = None) -> Dict[str, Any]:
         """Upload every plane to ``device`` as contiguous tensors (call once).
 
         Returns the table dict the probe functions and the engine read:
         tensors plus the Python-int scalars (seeds, sizes, ids) and the
-        trie geometry.
+        trie geometry. With ``shard``, each n-gram table holds only this
+        process's row block of its bucket plane (:func:`shard_bucket_plane`;
+        ``"row0"`` its first row) and the dict carries ``"shard"``: every
+        probe of it is then collective (:func:`probe_rows_sharded`).
         """
         if self.trie.n_nodes >= (1 << 28):
             raise ValueError("vocab trie exceeds the 2^28 packed-node limit")
@@ -779,18 +820,23 @@ class DeviceLM:
         def put(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
             return torch.as_tensor(np.ascontiguousarray(arr), device=device).to(dtype)
 
-        return {
+        fp = []
+        for t in self.fp_tables:
+            tab = {
+                "seed_lo": int(t.seed_lo),
+                "seed_hi": int(t.seed_hi),
+                "size": int(t.size),
+                "hash_mode": t.hash_mode,
+            }
+            if shard is None:
+                tab["bucket"] = put(t.bucket, torch.int32)
+            else:
+                tab["bucket"] = put(shard_bucket_plane(t.bucket, shard.size)[shard.rank], torch.int32)
+                tab["row0"] = shard.rank * shard_rows(t.size, shard.size)
+            fp.append(tab)
+        out = {
             "uni": put(self.uni, torch.float32),
-            "fp": [
-                {
-                    "bucket": put(t.bucket, torch.int32),
-                    "seed_lo": int(t.seed_lo),
-                    "seed_hi": int(t.seed_hi),
-                    "size": int(t.size),
-                    "hash_mode": t.hash_mode,
-                }
-                for t in self.fp_tables
-            ],
+            "fp": fp,
             "trie_rows": put(self.trie_plane(), torch.int32),
             "trie_word_id": put(self.trie.word_id, torch.int64),
             "uni_unk_row": put(self.uni[self.unk_id], torch.float32),
@@ -802,16 +848,24 @@ class DeviceLM:
             "has_unigrams": bool(self.has_unigrams),
             "order": int(self.order),
         }
+        if shard is not None:
+            out["shard"] = shard
+        return out
 
 
 def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> DeviceLM:
     """Compile a :class:`LanguageModel` into :class:`DeviceLM` tables.
 
-    Two sources feed the same device layout: the Python
-    :class:`NGramTables` of an ARPA or ``.ctclm`` model (tables keyed by id
-    tuples, FNV mode) and the :class:`~.kenlm_bin.KenLMTables` of a KenLM
-    binary (tables built from its stored chain hashes, mode ``kenlm64``).
+    Three sources feed the same device layout: the Python
+    :class:`NGramTables` of an ARPA or ``.ctclm`` model and the native
+    engine's exported entries of an ARPA model (tables keyed by id tuples,
+    FNV mode; the same entries per bucket row, with the slots possibly in
+    a different order), and the :class:`~.kenlm_bin.KenLMTables`
+    of a KenLM binary (tables built from its stored chain hashes, mode
+    ``kenlm64``).
     """
+    from .native import NativeNGramModel
+
     ngram = language_model.ngram_model
     if isinstance(ngram, KenLMBinaryModel):
         kt = ngram.tables
@@ -831,6 +885,30 @@ def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> Devic
             build_fp_table_from_hashes(keys64, probs, backoffs, n_order)
             for n_order, (keys64, probs, backoffs) in enumerate(kt.raw, start=2)
         ]
+    elif isinstance(ngram, NativeNGramModel):
+        nat = ngram.native
+        order = nat.order
+        unk_id = nat.unk_id
+        eos_id = nat.eos_id if nat.eos_id >= 0 else unk_id
+        unk_prob10 = nat.unk_prob10
+        vocab = {w: i for i, w in enumerate(nat.vocab_list())}
+        bos_state = ngram.begin_sentence_state()
+        # per-order occupied entries straight from the native tables
+        uni = np.zeros((max(len(vocab), 1), 4), dtype=np.float32)
+        fp_tables = []
+        for n_order, exp in enumerate(nat.export_tables(), start=1):
+            keys = exp["keys"]
+            occupied = keys[:, -1] >= 0
+            keys = keys[occupied]
+            probs = exp["probs"][occupied]
+            backoffs = exp["backoffs"][occupied]
+            if n_order == 1:
+                wids = keys[:, 0]
+                uni[wids, 0] = probs
+                uni[wids, 1] = backoffs
+                uni[wids, 2] = 1.0
+            else:
+                fp_tables.append(build_fp_table(keys, probs, backoffs))
     elif isinstance(ngram, NGramModel):
         tables_py: NGramTables = ngram.tables
         order = tables_py.order
@@ -853,7 +931,7 @@ def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> Devic
             fp_tables.append(build_fp_table(keys, vals[:, 0], vals[:, 1]))
     else:
         raise TypeError(
-            f"device tables are built from NGramModel or KenLMBinaryModel "
+            f"device tables are built from NGramModel, NativeNGramModel or KenLMBinaryModel "
             f"n-gram models; got {type(ngram).__name__}"
         )
 
@@ -992,6 +1070,34 @@ def trie_fetch_rows(trie_rows: torch.Tensor, tp: Dict[str, int], nodes: torch.Te
     return gather_rows(trie_rows, (nodes // pack).contiguous(), nodes % pack, stride, w)
 
 
+def probe_rows_sharded(shard: LMShard, full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict],
+                       slots: int, sub_width: int) -> Tuple[torch.Tensor, ...]:
+    """:func:`~pyctcdecode_torch.ops.gather.probe_rows` over row-sharded tables: one round trip.
+
+    The collective probe of the JAX reference (``_probe_fp_sharded``):
+    every process gathers all processes' queries (``full`` and ``ctx_len``
+    in one ``all_gather``; each process passes the same shape), answers
+    them from its own row window in one ``probe_rows`` launch (a query
+    outside the window answers nothing), and one ``all_reduce`` sums the
+    packed ``(found, prob, backoff)`` planes. Exactly one process owns a
+    query's row and the others add zeros, so the sums are exact. Returns
+    this process's block, as ``probe_rows`` would on the whole tables.
+    """
+    import torch.distributed as dist
+
+    n = full.shape[0]
+    query = torch.cat([full, ctx_len[..., None]], dim=-1)
+    every = torch.empty((shard.size * n, *query.shape[1:]), dtype=query.dtype, device=query.device)
+    dist.all_gather_into_tensor(every, query, group=shard.group)
+    found, prob, backoff = probe_rows(
+        every[..., :-1].contiguous(), every[..., -1].contiguous(), tables, slots, sub_width
+    )
+    packed = torch.stack([found.to(torch.float32), prob, backoff])
+    dist.all_reduce(packed, group=shard.group)
+    mine = packed[:, :, shard.rank * n : (shard.rank + 1) * n]
+    return mine[0] > 0.5, mine[1], mine[2]
+
+
 def lm_score_words(
     dev: Dict,
     ctx: torch.Tensor,
@@ -999,6 +1105,7 @@ def lm_score_words(
     wid: torch.Tensor,
     ctx_backoffs: torch.Tensor,
     uni_probe: Optional[Tuple] = None,
+    stats_out: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Batched KenLM-``BaseScore``-equivalent on the device.
 
@@ -1011,7 +1118,10 @@ def lm_score_words(
     ``uni_probe`` optionally supplies the word's order-1 probe result
     ``(found, prob, backoff)`` (the engine reads it off the beam's trie
     row). The outgoing state is a suffix of ``context + word``, so its
-    suffix backoffs fall out of the same probes.
+    suffix backoffs fall out of the same probes. ``stats_out`` (a dict)
+    receives ``{"hits": [found_1, ..., found_order]}``, the per-order hit
+    masks of the full-suffix probes, for the engine's decode counters. Over
+    row-sharded tables (``dev["shard"]``) the probe is collective.
     """
     order = dev["order"]
     unk_prob10 = dev["unk_prob10"]
@@ -1022,16 +1132,22 @@ def lm_score_words(
     else:
         f1, p1, b1 = _probe_uni(dev["uni"], wid)
     if order == 1:
+        if stats_out is not None:
+            stats_out["hits"] = [f1]
         score = torch.where(f1, p1, unk_prob10)
         zbo = torch.zeros(ctx.shape, dtype=torch.float32, device=ctx.device)
         return score, torch.full_like(ctx, -1), torch.zeros_like(ctx_len), zbo
 
     full = torch.cat([ctx.to(torch.int64), wid[..., None]], dim=-1)  # [..., order]
     k = ctx_len
-    fps, pps, bps = probe_rows(  # every order >= 2 at once, valid where k + 1 >= n
-        full, k.to(torch.int64).contiguous(), dev["fp"], _BUCKET_SLOTS, _SUB_WIDTH
-    )
+    probe_args = (full, k.to(torch.int64).contiguous(), dev["fp"], _BUCKET_SLOTS, _SUB_WIDTH)
+    if "shard" in dev:
+        fps, pps, bps = probe_rows_sharded(dev["shard"], *probe_args)
+    else:  # every order >= 2 at once, valid where k + 1 >= n
+        fps, pps, bps = probe_rows(*probe_args)
     found, prob, backoff = [f1, *fps.unbind(0)], [p1, *pps.unbind(0)], [b1, *bps.unbind(0)]
+    if stats_out is not None:
+        stats_out["hits"] = found
     ctx_bo = [ctx_backoffs[..., ctx_width - j] for j in range(1, order)]
 
     # longest match over full suffixes

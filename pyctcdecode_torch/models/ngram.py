@@ -285,35 +285,53 @@ class NGramModel:
 
 
 def open_ngram_file(path: str, backend: str = "auto") -> "object":
-    """Open an n-gram model file, dispatching on its kind.
+    """Open an n-gram model file, dispatching on its kind (as the JAX reference package).
 
     * ``.bin`` / ``.binary`` starting with KenLM's ``mmap lm `` magic: a
-      :class:`~.kenlm_bin.KenLMBinaryModel` (PROBING, TRIE or QUANT_TRIE);
-    * ``.ctclm`` (and a ``.bin`` / ``.binary`` without that magic): the
-      compiled format of ``models/binfmt.py``, as an :class:`NGramModel`;
-    * anything else: ARPA text, plain or gzipped, as an :class:`NGramModel`.
+      :class:`~.kenlm_bin.KenLMBinaryModel` (PROBING, TRIE or QUANT_TRIE),
+      whatever the backend;
+    * ``.ctclm`` (and a ``.bin`` / ``.binary`` without that magic), and
+      gzipped ARPA: an :class:`NGramModel` read in Python;
+    * plain ARPA text: with ``backend="native"`` a
+      :class:`~.native.NativeNGramModel` (the C++ engine, built with ``g++``
+      at first use; raises where it cannot be built or the file not
+      parsed); with ``"python"`` an :class:`NGramModel`; with ``"auto"``
+      the native engine where it builds, else (logged) Python. Both give
+      the same scores and the same device tables.
 
-    ``backend``: ``"auto"`` or ``"python"`` (the same reader here: the
-    models load in Python). ``"native"``, the JAX reference package's C++
-    ARPA loader, is not ported (ROADMAP § A) and raises
-    :class:`NotImplementedError`; its tables would equal the Python build's
-    slot for slot.
+    ``backend="native"`` for any file but plain ARPA text raises
+    :class:`ValueError`: the C++ parser reads nothing else.
     """
     if backend not in ("auto", "native", "python"):
         raise ValueError(
             f"backend must be 'auto', 'native' or 'python'; got {backend!r}"
         )
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the C++ ARPA loader) is not ported to "
-            "pyctcdecode_torch yet (ROADMAP § A); 'auto' and 'python' read "
-            "the same tables"
-        )
-    if os.path.splitext(path)[1].lower() in (".bin", ".binary"):
+    ext = os.path.splitext(path)[1].lower()
+    gzipped = path.endswith(".gz")
+    is_arpa = ext not in (".bin", ".binary", ".ctclm")
+    if ext in (".bin", ".binary"):
         with open(path, "rb") as fh:
             head = fh.read(16)
         if head.startswith(b"mmap lm "):  # KenLM binary magic prefix
             from .kenlm_bin import KenLMBinaryModel
 
             return KenLMBinaryModel.from_file(path)
+    if backend == "native" and (not is_arpa or gzipped):
+        raise ValueError(
+            f"backend='native' supports plain-text ARPA files only; "
+            f"{path!r} needs the python backend"
+        )
+    if backend == "python" or not is_arpa or gzipped:
+        return NGramModel.from_file(path)
+    from .native import NativeNGramModel
+
+    if backend == "native":
+        return NativeNGramModel.from_file(path)
+    from ..csrc.native import load_native
+
+    if load_native() is not None:
+        try:
+            return NativeNGramModel.from_file(path)
+        except Exception as err:
+            logger.warning("native ARPA load failed (%s); falling back to Python", err)
     return NGramModel.from_file(path)

@@ -21,6 +21,12 @@ and one bucket-row read per n-gram order >= 2. Two entry points:
   chain, and each fingerprint lane is a seeded bijection of one half, so the
   two lanes carry all 64 bits (see
   :func:`~pyctcdecode_torch.models.device_tables.build_fp_table_from_hashes`).
+  A table may hold a row window of a larger one (``"row0"``, and the
+  bucket's own row count): the base slot is still ``h % size`` over the
+  whole table, and a query whose slot lies outside the window answers
+  ``found = False``, ``prob = backoff = 0``, so the answers of a plane's
+  windows sum to the whole plane's (the row-sharded LM of
+  :mod:`pyctcdecode_torch.parallel`).
 
 What bounds them on the H100: bytes by the roofline (each row read once,
 each result written once), but at a decode step's size (utterances x beams
@@ -133,8 +139,10 @@ def probe_rows_ref(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[D
     for t, tab in enumerate(tables):
         n = t + 2
         h, lo, hi = query_hashes(tab, full[..., order - n :])
-        rows = gather_rows_ref(tab["bucket"], h % tab["size"])
-        per_order.append(bucket_readout(rows, lo, hi, (ctx_len + 1) >= n, slots, sub_width))
+        local = h % tab["size"] - tab.get("row0", 0)
+        mine = (local >= 0) & (local < tab["bucket"].shape[0])
+        rows = gather_rows_ref(tab["bucket"], local.clamp(0, tab["bucket"].shape[0] - 1))
+        per_order.append(bucket_readout(rows, lo, hi, ((ctx_len + 1) >= n) & mine, slots, sub_width))
     found, prob, backoff = (torch.stack(planes) for planes in zip(*per_order))
     return found, prob, backoff
 
@@ -151,7 +159,7 @@ def _library() -> ctypes.CDLL:
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gather_rows_launch.argtypes = [vp, vp, vp, vp, cll, ci, ci, ci, vp]
     lib.gather_rows_launch.restype = ci
-    lib.probe_rows_launch.argtypes = [vp] * 10 + [cll] + [ci] * 4 + [vp]
+    lib.probe_rows_launch.argtypes = [vp] * 12 + [cll] + [ci] * 4 + [vp]
     lib.probe_rows_launch.restype = ci
     return lib
 
@@ -218,16 +226,19 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
 
     ``full``: int64 ``[..., order]`` word ids, right-aligned (-1 pad);
     ``ctx_len``: int64 ``[...]``; ``tables``: ``order - 1`` dicts
-    ``{"bucket": int32 [size, row words], "size", "seed_lo", "seed_hi"}``
+    ``{"bucket": int32 [rows, row words], "size", "seed_lo", "seed_hi"}``
     and optionally ``"hash_mode"`` (``"fnv"``, the default, or ``"kenlm64"``;
-    tables of both modes may mix in one call), table ``t`` keyed by the
-    last ``t + 2`` ids; ``slots`` / ``sub_width``:
+    tables of both modes may mix in one call) and ``"row0"`` (default 0:
+    the bucket holds rows ``[row0, row0 + rows)`` of a table of ``size``
+    rows; without it the whole table, ``rows == size``), table ``t`` keyed
+    by the last ``t + 2`` ids; ``slots`` / ``sub_width``:
     the bucket geometry (slots per sub-block, words per sub-block). A query
     is valid at order n when ``ctx_len + 1 >= n``. Returns ``(found bool,
     prob f32, backoff f32)``, each ``[order - 1, ...]``.
 
-    Contract: ``size`` is the bucket's row count, so ``h % size`` is in
-    range; nothing is checked in the kernel.
+    Contract: ``size`` is the whole table's row count (the bucket's own
+    without ``"row0"``); a query's row ``h % size`` is read only where it
+    lies in the window. Nothing else is checked in the kernel.
     """
     if not isinstance(full, torch.Tensor):
         raise TypeError(f"full: expected a torch.Tensor, got {type(full).__name__}")
@@ -242,8 +253,11 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
     for t, tab in enumerate(tables):
         hash_mode_code(tab)
         _check(f"tables[{t}]['bucket']", tab["bucket"], torch.int32, None, dev)
-        if tab["bucket"].dim() != 2 or tab["bucket"].shape[0] != tab["size"]:
-            raise ValueError(f"tables[{t}]: bucket {tuple(tab['bucket'].shape)} has not {tab['size']} rows")
+        whole = "row0" not in tab
+        if (tab["bucket"].dim() != 2 or tab["bucket"].shape[0] < 1 or tab.get("row0", 0) < 0
+                or (whole and tab["bucket"].shape[0] != tab["size"])):
+            raise ValueError(f"tables[{t}]: bucket {tuple(tab['bucket'].shape)} is not a window of "
+                             f"{tab['size']} rows")
         if tab["bucket"].shape[1] % sub_width or sub_width != 4 * slots:
             raise ValueError(f"tables[{t}]: row of {tab['bucket'].shape[1]} words is not whole sub-blocks")
     if dev.type == "cpu":
@@ -267,10 +281,12 @@ def probe_rows(full: torch.Tensor, ctx_len: torch.Tensor, tables: Sequence[Dict]
         (ctypes.c_uint32 * n_tab)(*(int(tab[key]) & M32 for tab in tables))
         for key in ("size", "seed_lo", "seed_hi")
     )
+    row0s = (ctypes.c_uint32 * n_tab)(*(int(tab.get("row0", 0)) for tab in tables))
+    rows = (ctypes.c_uint32 * n_tab)(*(int(tab["bucket"].shape[0]) for tab in tables))
     modes = (ctypes.c_uint32 * n_tab)(*(hash_mode_code(tab) for tab in tables))
     _launch(
         "probe_rows", dev, _library().probe_rows_launch,
-        buckets, sizes, seeds_lo, seeds_hi, modes, _ptr(full), _ptr(ctx_len), _ptr(found),
+        buckets, sizes, row0s, rows, seeds_lo, seeds_hi, modes, _ptr(full), _ptr(ctx_len), _ptr(found),
         _ptr(prob), _ptr(backoff), ctx_len.numel(), order, *PROBE_GEOMETRY,
     )
     probe_rows.launches += 1

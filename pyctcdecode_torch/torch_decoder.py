@@ -45,7 +45,7 @@ from .constants import (
     DEFAULT_PRUNE_LOGP,
 )
 from .decoder import NULL_FRAMES, BeamSearchDecoderCTC, LMBeam, OutputBeam, _not_ported
-from .engine import EngineConfig, build_table_args, make_decode_fn, make_stream_fns
+from .engine import EngineConfig, build_table_args, make_decode_fn, make_stream_fns, stats_fields
 from .models.base import AbstractLMState, MultiLMState, NGramLMState
 from .models.device_tables import (
     HOT_NODE_MASK,
@@ -240,6 +240,23 @@ def replay_token_paths_batch(
     return out
 
 
+def _block(row_block: Optional[Tuple[int, int]], n: int, planes: Tuple[np.ndarray, ...],
+           frame_ids: Optional[List[np.ndarray]], offsets: Optional[List[float]]):
+    """Rows ``[start, start + count)`` of a padded batch's planes, and of its per-utterance lists.
+
+    Returns ``(planes, real rows in the block, frame ids, offsets)``; with
+    no ``row_block``, everything as it is.
+    """
+    if row_block is None:
+        return planes, n, frame_ids, offsets
+    start, count = row_block
+    real = max(0, min(n, start + count) - start)
+    cut = tuple(p[start : start + count] for p in planes)
+    return (cut, real,
+            None if frame_ids is None else frame_ids[start : start + real],
+            None if offsets is None else offsets[start : start + real])
+
+
 def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -362,7 +379,7 @@ class TorchBeamSearchDecoderCTC:
 
     def _engine_cfg(self, beam_width: int, k: int, prune_history: bool,
                     use_hotwords: bool, emit_paths: Optional[int] = None,
-                    token_timeline: bool = False) -> EngineConfig:
+                    token_timeline: bool = False, collect_stats: bool = False) -> EngineConfig:
         return EngineConfig(
             beam_width=beam_width,
             vocab_size=len(self._labels),
@@ -373,6 +390,7 @@ class TorchBeamSearchDecoderCTC:
             use_hotwords=use_hotwords,
             is_bpe=self._alphabet.is_bpe,
             orders=tuple(m.order for m in self._lm_members),
+            collect_stats=collect_stats,
         )
 
     # -- call-time parameters ------------------------------------------------
@@ -461,17 +479,19 @@ class TorchBeamSearchDecoderCTC:
                 beam_prune_logp: float, token_min_logp: float, prune_history: bool,
                 top_n: Optional[int], lm_start_state: Optional[AbstractLMState],
                 hot: Optional[Dict[str, Any]], hot_weight: float,
-                token_timeline: bool = False) -> Dict[str, torch.Tensor]:
+                token_timeline: bool = False, collect_stats: bool = False,
+                tabs: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """Upload and enqueue one decode; returns its outputs as device tensors.
 
         ``inputs``: log-probs ``[N, T, V]``, or with ``token_timeline`` the
         tuple ``(toks, tlogp, is_final)``; ``hot``: the call's hotword tables
-        (:meth:`_hot_tables`) or None. Nothing here waits for the device.
+        (:meth:`_hot_tables`) or None; ``tabs``: device tables other than the
+        decoder's own (a row-sharded LM's). Nothing here waits for the device.
         """
         emit_paths = min(top_n, beam_width) if top_n is not None else None
         cfg = self._engine_cfg(beam_width, k, prune_history, hot is not None, emit_paths,
-                               token_timeline)
-        fn = make_decode_fn(cfg, self._tabs)
+                               token_timeline, collect_stats)
+        fn = make_decode_fn(cfg, self._tabs if tabs is None else tabs)
         params = self._params_vector(token_min_logp, beam_prune_logp, hot_weight)
         dev = self._device
         with torch.inference_mode():
@@ -847,7 +867,14 @@ class TorchBeamSearchDecoderCTC:
 
         ``hotwords`` boosts the given words and phrases by
         ``hotword_weight`` (ref ``language_model.py:115-189``), with or
-        without an LM. ``collect_stats`` is not ported yet and raises.
+        without an LM.
+
+        ``collect_stats=True`` also accumulates per-utterance decode counters
+        on the device (beams alive, candidates, merges, window and history
+        prunes, commits, LM probe hits; :func:`~pyctcdecode_torch.engine.stats_fields`)
+        and returns ``(results, stats)``, one ``{name: int}`` dict per
+        utterance, in input order. The results are those of the call without
+        it.
         """
         logits_list = self._without_pool_arg(logits_list, _pool_compat)
         dispatch_kw = dict(
@@ -865,7 +892,7 @@ class TorchBeamSearchDecoderCTC:
             token_chunking=token_chunking,
         )
         handles = self._launch_batch(logits_list, dispatch_kw, length_bucketing)
-        return self._collect_bucketed(handles, len(logits_list))
+        return self._collect_bucketed(handles, len(logits_list), collect_stats)
 
     def _launch_batch(
         self,
@@ -935,14 +962,18 @@ class TorchBeamSearchDecoderCTC:
         self,
         handles: List[Tuple[List[int], Optional[Dict[str, Any]]]],
         n: int,
-    ) -> List[List[OutputBeam]]:
-        """Wait for the launched groups; reassemble results in input order."""
+        collect_stats: bool = False,
+    ) -> Any:
+        """Wait for the launched groups; reassemble results (and stats) in input order."""
         results: List[Any] = [None] * n
+        stats: List[Any] = [None] * n
         for idx, handle in handles:
-            group_res = self._collect_batch(handle)
+            group_res, group_stats = self._collect_batch(handle, with_stats=True)
             for j, i in enumerate(idx):
                 results[i] = group_res[j]
-        return results
+                if collect_stats:
+                    stats[i] = group_stats[j]
+        return (results, stats) if collect_stats else results
 
     @staticmethod
     def _length_groups(
@@ -990,6 +1021,8 @@ class TorchBeamSearchDecoderCTC:
             Tuple[List[np.ndarray], List[np.ndarray], List[float]]
         ] = None,
         lm_start_state: Optional[AbstractLMState] = None,
+        row_block: Optional[Tuple[int, int]] = None,
+        tabs: Optional[Dict[str, Any]] = None,
     ) -> Optional[Dict[str, Any]]:
         """Normalize, upload and launch one batch; returns a result handle.
 
@@ -1000,9 +1033,13 @@ class TorchBeamSearchDecoderCTC:
         matrices (from :meth:`_collapse_all`, computed batch-wide before
         length bucketing). ``lm_start_state`` (the single-utterance call's)
         seeds every row's LM context on the dense path.
+
+        ``row_block=(start, count)`` launches only rows ``[start, start +
+        count)`` of the padded batch, after the host prep of the whole batch
+        (so the step count and an ``"auto"`` K are the whole batch's), over
+        the device tables ``tabs``: one process's share of a sharded decode
+        (:class:`~pyctcdecode_torch.parallel.ShardedCTCDecoder`).
         """
-        if collect_stats:
-            raise _not_ported("collect_stats")
         if not logits_list:
             return None
         hot, hot_weight = self._hot_tables(hotwords, hotword_weight)
@@ -1030,6 +1067,7 @@ class TorchBeamSearchDecoderCTC:
                 token_min_logp=token_min_logp, prune_history=prune_history,
                 k_chunk=5 if token_chunking is True else int(token_chunking),
                 n_pad=n_pad, top_n=top_n, hot=hot, hot_weight=hot_weight,
+                collect_stats=collect_stats, row_block=row_block, tabs=tabs,
             )
         lens = [m.shape[0] for m in mats]
         t_max = max(max(lens), 1)
@@ -1041,12 +1079,14 @@ class TorchBeamSearchDecoderCTC:
         valid = np.arange(t_max)[None, :] < n_frames[:, None]
         counts = np.where(valid, (logp >= token_min_logp).sum(-1), 1)
         k = self._pick_k(max_tokens_per_frame, counts, v)
+        (logp, n_frames), n, frame_ids_list, offsets = _block(
+            row_block, n, (logp, n_frames), frame_ids_list, offsets)
         out = self._launch(
             logp, n_frames, k, beam_width, beam_prune_logp, token_min_logp,
             prune_history, top_n, lm_start_state, hot, hot_weight,
+            collect_stats=collect_stats, tabs=tabs,
         )
-        return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
-                "frame_ids": frame_ids_list, "offsets": offsets}
+        return self._handle(out, t_max, n, top_n, frame_ids_list, offsets, collect_stats)
 
     def _dispatch_timeline(
         self,
@@ -1063,6 +1103,9 @@ class TorchBeamSearchDecoderCTC:
         top_n: Optional[int],
         hot: Optional[Dict[str, Any]],
         hot_weight: float,
+        collect_stats: bool = False,
+        row_block: Optional[Tuple[int, int]] = None,
+        tabs: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         """Launch one batch of normalized matrices through the token-timeline engine.
 
@@ -1074,6 +1117,7 @@ class TorchBeamSearchDecoderCTC:
         frame. Output-exact for any ``k_chunk``. ``frame_ids_list`` (blank
         collapse) composes with the timeline's own step-to-frame map, so the
         handle's frame ids are original frame indices per virtual step.
+        ``row_block`` and ``tabs`` as for :meth:`_dispatch_batch`.
         """
         n = len(mats)
         tls, vlens = token_timeline_batch(mats, token_min_logp, k_chunk)
@@ -1093,16 +1137,30 @@ class TorchBeamSearchDecoderCTC:
             )
         n_frames = np.zeros(n_pad, dtype=np.int64)
         n_frames[:n] = lens
+        (toks, tlogp, fin, n_frames), n, step_frames, offsets = _block(
+            row_block, n, (toks, tlogp, fin, n_frames), step_frames, offsets)
         out = self._launch(
             (toks, tlogp, fin), n_frames, k_chunk, beam_width, beam_prune_logp,
             token_min_logp, prune_history, top_n, None, hot, hot_weight, token_timeline=True,
+            collect_stats=collect_stats, tabs=tabs,
         )
-        return {"out": out, "steps": t_max, "n": n, "top_n": top_n,
-                "frame_ids": step_frames, "offsets": offsets}
+        return self._handle(out, t_max, n, top_n, step_frames, offsets, collect_stats)
 
-    def _collect_batch(self, handle: Optional[Dict[str, Any]]) -> List[List[OutputBeam]]:
+    def _handle(self, out: Dict[str, torch.Tensor], steps: int, n: int, top_n: Optional[int],
+                frame_ids: Optional[List[np.ndarray]], offsets: Optional[List[float]],
+                collect_stats: bool) -> Dict[str, Any]:
+        """A launched batch's handle: device outputs and what the collect needs."""
+        handle = {"out": out, "steps": steps, "n": n, "top_n": top_n,
+                  "frame_ids": frame_ids, "offsets": offsets}
+        if collect_stats:  # the names depend on the members only
+            handle["stats_names"] = stats_fields(self._engine_cfg(1, 1, False, False))
+        return handle
+
+    def _collect_batch(self, handle: Optional[Dict[str, Any]], with_stats: bool = False) -> Any:
         """Wait for a launched batch, copy its outputs to the host and build
-        its OutputBeam lists.
+        its OutputBeam lists; ``with_stats`` returns ``(results, stats)``, the
+        stats one ``{name: int}`` dict per utterance where the batch collected
+        them, else None.
 
         The engine backtraces on the device, so the host replays one token
         path per (utterance, rank) row. For a char alphabet (multi-character
@@ -1113,9 +1171,12 @@ class TorchBeamSearchDecoderCTC:
         the trailing partial word is appended (finalization semantics).
         """
         if handle is None:
-            return []
+            return ([], None) if with_stats else []
         host = self._fetch(handle["out"], handle["n"])
         n = handle["n"]
+        stats = None
+        if "stats_names" in handle:
+            stats = [dict(zip(handle["stats_names"], row)) for row in host["stats"].tolist()]
         paths = host["paths"]  # [n, R, T]
         lm_score = host["lm_score"]
         logit = host["logit"]
@@ -1126,7 +1187,7 @@ class TorchBeamSearchDecoderCTC:
         ui, ri = np.nonzero(live)  # utterance-major, rank ascending
         results: List[List[OutputBeam]] = [[] for _ in range(n)]
         if ui.size == 0:
-            return results
+            return (results, stats) if with_stats else results
         toks_flat = paths[ui, ri]  # [rows, T]
         frame_ids_list = handle["frame_ids"]
         fid = None
@@ -1166,7 +1227,7 @@ class TorchBeamSearchDecoderCTC:
                     lm_score=float(lm_score[u, r]) + off,
                 )
             )
-        return results
+        return (results, stats) if with_stats else results
 
     def _replay_bpe(self, toks: np.ndarray,
                     frame_ids: Optional[np.ndarray]) -> Tuple[List[str], List[Tuple[int, int]]]:

@@ -127,12 +127,15 @@ def test_reset_params_retunes_without_rebuild(decoders):
     ],
 )
 def test_unported_options_raise(decoders, option):
-    """Options still to port raise by name; the serving options and hotwords decode as the reference."""
+    """Every option is ported: the serving options, hotwords and the decode counters decode as the reference."""
     jdec, pdec = decoders["none"]
     name = next(iter(option))
     if name == "collect_stats":
-        with pytest.raises(NotImplementedError, match=name):
-            pdec.decode_beams_batch([word_logits(0, 5)], **option)
+        batch = [word_logits(0, 5)]
+        pres, pstats = pdec.decode_beams_batch(batch, beam_width=4, **option)
+        jres, jstats = jdec.decode_beams_batch(batch, beam_width=4, **option)
+        assert pstats == jstats and pstats[0]["frames"] == 5
+        assert_same_beams(jres[0], pres[0])
         return
     batch = [word_logits(0, 5), word_logits(1, 9)]
     jres = jdec.decode_beams_batch(batch, beam_width=4, **option)

@@ -36,7 +36,7 @@ def tables(tmp_path_factory):
     make_parity_arpa(path, n_vocab=400, n_bigrams=3000, n_trigrams=2000)
     unigrams = sorted(t_unigrams(path))
     jlm = JLanguageModel(JNGramModel.from_file(path), unigrams)
-    tlm = TLanguageModel(open_ngram_file(path), unigrams)
+    tlm = TLanguageModel(open_ngram_file(path, backend="python"), unigrams)
     jdlm = jdt.build_device_lm(jlm, j_tokens(JAlphabet.build_alphabet(LABELS)))
     tdlm = tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(LABELS)))
     present = [np.array(list(d.keys()), dtype=np.int32) for d in tlm.ngram_model.tables.ngrams]
@@ -166,7 +166,7 @@ def test_trie_fetch_rows_matches_jax(tables):
 
 
 def test_only_arpa_models_load(tmp_path):
-    """KenLM binaries load now (a PROBING one the JAX package wrote); the native loader is not ported."""
+    """KenLM binaries load (a PROBING one the JAX package wrote), and so does ARPA through the native loader."""
     from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel
     from pyctcdecode_tpu.models.kenlm_bin import write_kenlm_binary
     from pyctcdecode_tpu.models.ngram import read_arpa
@@ -180,5 +180,9 @@ def test_only_arpa_models_load(tmp_path):
     tlm = TLanguageModel(model, sorted(t_unigrams(arpa)))
     dlm = tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(LABELS)))
     assert [t.hash_mode for t in dlm.fp_tables] == ["kenlm64", "kenlm64"]
-    with pytest.raises(NotImplementedError, match="native"):
-        open_ngram_file(arpa, backend="native")
+    from pyctcdecode_torch.models.native import NativeNGramModel
+
+    native = open_ngram_file(arpa, backend="native")
+    assert isinstance(native, NativeNGramModel) and native.order == 3
+    with pytest.raises(ValueError, match="plain-text ARPA"):
+        open_ngram_file(os.path.join(tmp_path, "model.ctclm"), backend="native")

@@ -232,7 +232,8 @@ def test_build_ctcdecoder_host_engine_and_exports(arpas):
         assert name in P.__all__ and getattr(P, name).__module__.startswith("pyctcdecode_torch.")
     assert issubclass(P.LanguageModel, P.AbstractLanguageModel)
     assert issubclass(P.MultiLMState, P.AbstractLMState)
-    assert P.NGramModel is type(dec._language_model.ngram_model)
+    assert P.NGramModel is type(open_ngram_file(arpas["3"], backend="python"))
+    assert type(dec._language_model.ngram_model) is type(open_ngram_file(arpas["3"]))
     dec.cleanup()
 
 

@@ -15,6 +15,9 @@ import pyctcdecode_torch.engine, pyctcdecode_torch.evaluation, pyctcdecode_torch
 import pyctcdecode_torch.ops.gather, pyctcdecode_torch.utils.logits, pyctcdecode_torch.torch_decoder
 import pyctcdecode_torch.csrc.build
 import pyctcdecode_torch.models.kenlm_bin, pyctcdecode_torch.models.kenlm_trie, pyctcdecode_torch.models.binfmt
+import pyctcdecode_torch.models.native, pyctcdecode_torch.csrc.native, pyctcdecode_torch.parallel
+import pyctcdecode_torch.parallel.batch, pyctcdecode_torch.parallel.launch
+import pyctcdecode_torch.utils.profiling, pyctcdecode_torch.utils.tuning
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyctcdecode_tpu'))
 assert not bad, bad
 print('clean')
@@ -39,7 +42,7 @@ def _port_sources():
     paths += [os.path.join(scripts, name) for name in sorted(os.listdir(scripts))
               if name.startswith("torch_") and name.endswith(".py")]
     for dirpath, _, files in os.walk(root):
-        paths += [os.path.join(dirpath, name) for name in files if name.endswith((".py", ".cu"))]
+        paths += [os.path.join(dirpath, name) for name in files if name.endswith((".py", ".cu", ".cpp"))]
     return paths
 
 
@@ -101,7 +104,11 @@ def test_every_new_module_is_in_the_source_scan():
                 "pyctcdecode_torch/csrc/build.py", "pyctcdecode_torch/utils/logits.py",
                 "pyctcdecode_torch/models/hotwords.py", "scripts/torch_decode_latency.py",
                 "pyctcdecode_torch/models/kenlm_bin.py", "pyctcdecode_torch/models/kenlm_trie.py",
-                "pyctcdecode_torch/models/binfmt.py", "chip_smoke.py"):
+                "pyctcdecode_torch/models/binfmt.py", "chip_smoke.py",
+                "pyctcdecode_torch/csrc/ctclm.cpp", "pyctcdecode_torch/csrc/native.py",
+                "pyctcdecode_torch/models/native.py", "pyctcdecode_torch/parallel/__init__.py",
+                "pyctcdecode_torch/parallel/batch.py", "pyctcdecode_torch/parallel/launch.py",
+                "pyctcdecode_torch/utils/profiling.py", "pyctcdecode_torch/utils/tuning.py"):
         assert rel in scanned, rel
 
 

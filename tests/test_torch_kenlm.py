@@ -184,10 +184,15 @@ def test_open_ngram_file_dispatch_and_refusals(files, tmp_path):
         assert type(model) is tkb.KenLMBinaryModel and model.order == 3
         assert model.path == files[fmt]
     for key in ("arpa", "ctclm"):
-        assert type(open_ngram_file(files[key])) is P.NGramModel
         assert type(open_ngram_file(files[key], backend="python")) is P.NGramModel
-    with pytest.raises(NotImplementedError, match="native"):
-        open_ngram_file(files["arpa"], backend="native")
+    # as the JAX package's: "auto" reads plain ARPA with the native engine, anything else in Python
+    from pyctcdecode_torch.models.native import NativeNGramModel
+
+    assert type(open_ngram_file(files["ctclm"])) is P.NGramModel
+    assert type(open_ngram_file(files["arpa"])) is NativeNGramModel
+    assert type(open_ngram_file(files["arpa"], backend="native")) is NativeNGramModel
+    with pytest.raises(ValueError, match="plain-text ARPA"):
+        open_ngram_file(files["ctclm"], backend="native")
     with pytest.raises(ValueError, match="backend"):
         open_ngram_file(files["arpa"], backend="kenlm")
     with open(files["probing"], "rb") as fh:

@@ -295,6 +295,89 @@ def test_probe_rows_kenlm_mode_matches_plain_version(modes):
                       tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
 
 
+def _windows(tabs, n_shards, rank):
+    """Rank ``rank``'s row window of every table cut into ``n_shards`` (the sharded decoder's planes)."""
+    out = []
+    for tab in tabs:
+        plane = tdt.shard_bucket_plane(tab["bucket"].cpu().numpy(), n_shards)[rank]
+        out.append(dict(tab, bucket=torch.as_tensor(plane).to(tab["bucket"].device),
+                        row0=rank * tdt.shard_rows(tab["size"], n_shards)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("modes", [("fnv", "fnv"), ("kenlm64", "fnv", "kenlm64")])
+def test_probe_rows_windows_match_plain_version_and_sum_to_the_whole(modes, n_shards):
+    """Each row window bit-exact against its plain version; the windows' answers sum to the whole table's."""
+    dev = _cuda()
+    rng = np.random.RandomState(31 + n_shards)
+    ids = np.arange(900)
+    tabs, keys_by_order = [], []
+    for n, mode in enumerate(modes, start=2):
+        keys = np.unique(rng.choice(ids, size=(4000 // n, n)).astype(np.int64), axis=0)
+        tabs.append(_mode_table(dev, rng, keys, mode))
+        keys_by_order.append(keys)
+    order = len(modes) + 1
+    q = 16 * 100
+    full = rng.choice(ids, size=(q, order)).astype(np.int64)
+    for t, keys in enumerate(keys_by_order):
+        rows = np.arange(t, q, 2 * len(modes))
+        full[rows, order - (t + 2):] = keys[rng.randint(0, len(keys), size=len(rows))]
+    ctx_len = rng.randint(0, order, size=q).astype(np.int64)
+    tfull = torch.as_tensor(full.reshape(16, 100, order)).to(dev)
+    tlen = torch.as_tensor(ctx_len.reshape(16, 100)).to(dev)
+    geometry = (tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
+    whole = tg.probe_rows(tfull, tlen, tabs, *geometry)
+    summed = None
+    for rank in range(n_shards):
+        win = _windows(tabs, n_shards, rank)
+        before = tg.probe_rows.launches
+        got = tg.probe_rows(tfull, tlen, win, *geometry)
+        torch.cuda.synchronize()
+        assert tg.probe_rows.launches == before + 1
+        for g, w in zip(got, tg.probe_rows_ref(tfull, tlen, win, *geometry)):
+            assert torch.equal(g, w)
+        part = (got[0].to(torch.int32), got[1], got[2])
+        summed = part if summed is None else tuple(a + b for a, b in zip(summed, part))
+    assert int(summed[0].max()) <= 1 and torch.equal(summed[0] > 0, whole[0])
+    assert torch.equal(summed[1], whole[1]) and torch.equal(summed[2], whole[2])
+    assert bool(whole[0].any(dim=(1, 2)).all())
+
+
+@pytest.mark.cuda
+def test_world_size_one_sharded_decode_matches_the_plain_decoder(tmp_path):
+    """``ShardedCTCDecoder(shard_lm=True)`` over a one-process NCCL group: the plain decoder's results, to the bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pyctcdecode_torch.parallel import ShardedCTCDecoder, make_data_mesh
+    from pyctcdecode_torch.parallel.launch import initialize_from_env
+
+    _cuda()
+    path = str(tmp_path / "bb3.arpa")
+    with open(path, "w") as fh:
+        fh.write(ARPA)
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS),
+                                      P.LanguageModel(open_ngram_file(path), UNIGRAMS))
+    batch = [word_logits(s, t) for s, t in ((40, 33), (41, 18), (42, 27))]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        sharded = ShardedCTCDecoder(dec, mesh=make_data_mesh(), shard_lm=True)
+        for kw in ({}, dict(token_chunking=2, blank_collapse=True)):
+            want, want_stats = dec.decode_beams_batch(batch, beam_width=8, collect_stats=True, **kw)
+            got, got_stats = sharded.decode_beams_batch(batch, beam_width=8, collect_stats=True, **kw)
+            assert got_stats == want_stats
+            for w, g in zip(want, got):
+                assert_same_beams(w, g, tol=0.0)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.cuda
 def test_probe_rows_refuses_another_bucket_geometry():
     dev = _cuda()

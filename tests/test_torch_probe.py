@@ -38,7 +38,7 @@ def lms(tmp_path_factory):
     with open(path, "w") as fh:
         fh.write(ARPA)
     jlm = JLanguageModel(JNGramModel.from_file(path), UNIGRAMS)
-    tlm = TLanguageModel(open_ngram_file(path), UNIGRAMS)
+    tlm = TLanguageModel(open_ngram_file(path, backend="python"), UNIGRAMS)
     jdlm = jdt.build_device_lm(jlm, j_tokens(JAlphabet.build_alphabet(SAMPLE_LABELS)))
     tdlm = tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(SAMPLE_LABELS)))
     return jdlm, tdlm, tlm.ngram_model.tables
