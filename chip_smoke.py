@@ -58,9 +58,26 @@ Phases (any failed check exits non-zero and prints no result line):
    separate timed stages (host prep, enqueue, wait, copy and assembly), and
    the output copy through the decoder's pinned buffer is timed beside a
    plain ``.cpu()`` of the same tensors;
-7. profile: each path decodes the first 100 frames of every utterance
-   under ``torch.profiler`` (device time by kernel, device ops per step,
-   device idle share against the same decode unprofiled);
+7. segments: every decode of the run goes through the port's segment
+   programs (``segment_frames``, 16 by default on CUDA): each segment of 16
+   steps is one replay of a captured CUDA graph, and the steps pad to whole
+   segments (the launch counts above are of the padded steps; a replay adds
+   to each wrapper's counter the launches its capture recorded). This phase
+   runs the dense and the serving call (then hot2lm's and bpe's dense call,
+   in their phases) with ``segment_frames`` 0 (the eager loop) and 16 in
+   turns, each on a clone with no graph yet: the graphs' results equal the
+   eager loop's (texts, frames, LM states, lm_score difference 0), both
+   launch counts equal ``expected_counts``; logged per value: the first
+   call (with the captures, and each graph's capture time), the latency of
+   two warm calls in stages (enqueue, wait, collect), host ms a step, peak
+   device memory, and a profile of the first 100 frames of every
+   utterance under ``torch.profiler`` (device time by kernel, device ops
+   per step, device busy per step against the measured step, device idle
+   share against the same decode unprofiled; the trace's own kernel rows
+   must count the counters' launches, replays included). The dense call
+   also at 4 and 32 steps a segment (equal to the eager loop).
+   The recording decodes that capture a real step's kernel arguments run
+   the eager loop, whose wrappers are called per step;
 8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
    and the same seed's 3-gram at half the bigrams and trigrams with other
    fusion settings) and 28 hotwords (24 transcript words, 2 transcript
@@ -138,8 +155,10 @@ Phases (any failed check exits non-zero and prints no result line):
    probe, each timed warm and L2-flushed beside the whole table, with its
    bound.
 
-Depth cuts of the earlier paths, to keep the script's time as the two
-phases above were added (constants below): the CPU cross-checks of phases
+The sharded decode and the stream run the eager loop (their collectives,
+and a stream's one chunk a call, stay outside graph capture). Depth cuts of
+the earlier paths, to keep the script's time as the phases above were
+added (constants below): the CPU cross-checks of phases
 8 and 9 decode the first ``CPU_FRAMES`` frames of their utterances (the
 card's batch texts are checked on the whole utterance; phases 5-6 hold the
 shortest utterance whole against the CPU), and hot2lm
@@ -148,6 +167,7 @@ holds the first utterance the hotwords change against the CPU
 first ``PIPE_UTTS`` utterances and the same reversed; the dense calls run
 twice (one latency repeat), the main serving call twice; profiles decode
 the first ``PROFILE_FRAMES`` frames with ``PROFILE_RUNS`` unprofiled runs;
+the segments phase runs ``SEG_REPS`` warm calls of each value;
 the stream phase streams ``STREAM_UTTS`` utterances and holds
 ``STREAM_CPU_CHUNKS`` chunks against the CPU.
 
@@ -196,6 +216,9 @@ PROFILE_TRIES = 4
 PROFILE_FRAMES = 100  # profiles decode the first frames of every utterance (the profiler slows the host ~10x)
 PROFILE_RUNS = 2  # unprofiled runs of a profiled call: its latency is their median
 PIPE_UTTS = 8  # utterances of each of the two batches through decode_beams_batches
+SEG = 16  # the decoders' segment_frames on the card (their default): each segment a captured CUDA graph
+SEG_SIZES = (4, 32)  # other segment sizes the segments phase runs the dense path at
+SEG_REPS = 2  # warm calls of each path and segment size in the segments phase
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
 # the hot2lm path: member B's fusion settings (the JAX package's mixed-member
@@ -560,8 +583,8 @@ def record_step_reads(torch, decoder, logits, step: int, member: int = 0, **deco
         return probe_rows(*args)
 
     device_tables.gather_rows, device_tables.probe_rows = gather_recorder, probe_recorder
-    try:
-        decoder.decode_batch(logits, beam_width=BEAM, **decode_kw)
+    try:  # on the eager loop: a captured segment's replay calls no wrapper
+        decoder.with_options(segment_frames=0).decode_batch(logits, beam_width=BEAM, **decode_kw)
     finally:
         device_tables.gather_rows, device_tables.probe_rows = gather_rows, probe_rows
     torch.cuda.synchronize()
@@ -851,6 +874,137 @@ def profile_head(torch, tag: str, wrappers: dict, run, logits, card: str) -> dic
     return prof
 
 
+def staged_call(torch, decoder, logits, kw: dict):
+    """``decoder.decode_beams_batch(logits, **kw)`` in timed stages.
+
+    Returns ``(results, launch_s, wait_s, collect_s, replay_s)``: the host
+    prep and every enqueue (``_launch_batch``, which waits for the device
+    only where its queue is full: the eager finalize and backtrace after a
+    decode's replays fill it), then the wait for the device, then the copy
+    and the assembly of the output beams; and the host seconds spent in
+    ``SegmentGraph.run`` (each segment's input copies and replay).
+    """
+    from pyctcdecode_torch import engine
+
+    from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP, DEFAULT_PRUNE_LOGP
+
+    dispatch_kw = dict(beam_width=BEAM, beam_prune_logp=DEFAULT_PRUNE_LOGP, token_min_logp=DEFAULT_MIN_TOKEN_LOGP,
+                       prune_history=True, hotwords=None, hotword_weight=DEFAULT_HOTWORD_WEIGHT,
+                       max_tokens_per_frame=None, batch_pad=8, top_n=1, collect_stats=False,
+                       blank_collapse=False, token_chunking=None)
+    kw = dict(kw)
+    bucketing = kw.pop("length_bucketing", False)
+    dispatch_kw.update(kw)
+    run, replay_s = engine.SegmentGraph.run, [0.0]
+
+    def timed_run(graph, *args):
+        t_run = time.perf_counter()
+        out = run(graph, *args)
+        replay_s[0] += time.perf_counter() - t_run
+        return out
+
+    torch.cuda.synchronize()
+    engine.SegmentGraph.run = timed_run
+    try:
+        t0 = time.perf_counter()
+        handles = decoder._launch_batch(logits, dispatch_kw, bucketing)
+        t1 = time.perf_counter()
+    finally:
+        engine.SegmentGraph.run = run
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    results = decoder._collect_bucketed(handles, len(logits))
+    return results, t1 - t0, t2 - t1, time.perf_counter() - t2, replay_s[0]
+
+
+def dense_prep_s(logits) -> float:
+    """Host seconds of the dense call's input prep (normalization into one padded batch)."""
+    from pyctcdecode_torch.utils.logits import normalize_batch
+
+    t0 = time.perf_counter()
+    normalize_batch(logits)
+    return time.perf_counter() - t0
+
+
+def segments_case(torch, tag: str, decoder, members, logits, kw: dict, steps: list, prep_s: float,
+                  audio_s: float, wrappers: dict, card: str, seg_values=(0, SEG), profile: bool = True):
+    """One path with ``segment_frames`` 0 (the eager loop) and ``SEG`` (captured graphs), in turns.
+
+    Each value runs on its own clone of ``decoder`` (``with_options``: the
+    same device tables, no graph yet). The first call captures each graph
+    key (the eager first segment, then the capture); its launch counts must
+    equal ``expected_counts`` for ``steps`` (the call's decodes' step
+    counts, one a length group; graphs pad each to whole segments). Then
+    ``SEG_REPS`` warm calls in stages (:func:`staged_call`): latency, the
+    host's enqueue time per launched step (the launch stage less the host
+    prep ``prep_s``), the wait for the device; the peak device memory over
+    them; and ``profile_head`` (device busy, idle share, ops a step; the
+    trace's own kernel rows must count the launch counters' launches, so
+    the profiler sees a replay's kernels). The graphs' results must equal
+    the eager loop's: texts, frames, LM states, ``lm_score`` difference 0.
+    Returns the record and each value's results.
+    """
+    rec, beams = {}, {}
+    for seg in seg_values:
+        dec = decoder.with_options(segment_frames=seg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        first = dec.decode_beams_batch(logits, **kw)
+        first_s = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        n_steps = sum(launched(n, seg) for n in steps)
+        check_counts(f"{tag} segment_frames={seg}", launches, expected_counts(members, n_steps, len(steps)))
+        captures = [g.capture_s for g in dec._graphs.values()]
+        check((len(captures) > 0) == (seg > 0) and all(g.graph is not None for g in dec._graphs.values()),
+              f"{tag} segment_frames={seg}: the decode did not run through captured graphs")
+        stages = []
+        for _ in range(SEG_REPS):
+            reset_counts(wrappers)
+            res, launch_s, wait_s, collect_s, replay_s = staged_call(torch, dec, logits, kw)
+            check(read_counts(wrappers) == launches, f"{tag} segment_frames={seg}: a warm call launched otherwise")
+            check_same_results(f"{tag} segment_frames={seg} warm vs first", first, res, 0.0)
+            stages.append((launch_s, wait_s, collect_s, replay_s))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lat = [sum(st[:3]) for st in stages]
+        latency = statistics.median(lat)
+        launch_s, wait_s, collect_s, replay_s = (statistics.median(st[i] for st in stages) for i in range(4))
+        # the host's own cost a step: the eager loop is host-bound (its enqueue, the prep aside);
+        # with graphs, the segment loop (input copies and a replay a segment)
+        host_s = replay_s if seg else launch_s - prep_s
+        r = {"segment_frames": seg, "first_call_s": first_s, "latencies_s": lat, "latency_s": latency,
+             "audio_s_per_s": audio_s / latency, "steps": n_steps, "ms_per_step": latency / n_steps * 1e3,
+             "launch_s": launch_s, "wait_s": wait_s, "collect_s": collect_s, "replay_host_s": replay_s,
+             "host_prep_s": prep_s, "host_ms_per_step": host_s / n_steps * 1e3, "peak_device_gb": peak_gb,
+             "graphs": len(captures), "capture_s": captures, "launches": launches}
+        log(f"[segments] {tag}, segment_frames={seg}: latency median {latency:.3f} s of "
+            f"{', '.join(f'{x:.3f}' for x in lat)} (first call {first_s:.3f} s), {audio_s / latency:.1f} audio-s/s, "
+            f"{n_steps} steps, {r['ms_per_step']:.3f} ms a step; enqueue {launch_s:.3f} s (host prep {prep_s:.3f} s, "
+            f"segment loop {replay_s:.3f} s), wait {wait_s:.3f} s, collect {collect_s:.3f} s; "
+            f"{r['host_ms_per_step']:.4f} host ms a step; peak device memory {peak_gb:.3f} GB; "
+            f"{len(captures)} graphs captured in {', '.join(f'{c:.3f}' for c in captures) or '-'} s [{card}]")
+        if profile:
+            prof = profile_head(torch, f"profile {tag} segment_frames={seg}", wrappers,
+                                lambda b, d=dec: d.decode_beams_batch(b, **kw), logits, card)
+            r["profile"] = prof
+            if prof is not None:
+                r["device_ms_per_step"] = prof["device_busy_s"] * 1e3 / prof["steps"]
+                r["profiled_ms_per_step"] = prof["latency_s"] * 1e3 / prof["steps"]
+                log(f"[segments] {tag}, segment_frames={seg}: the device is busy {r['device_ms_per_step']:.4f} ms "
+                    f"of a step's {r['profiled_ms_per_step']:.4f} ms over the profiled frames: "
+                    f"{r['profiled_ms_per_step'] - r['device_ms_per_step']:.4f} ms a step off the bound [{card}]")
+        rec[seg], beams[seg] = r, res
+        del dec
+    for seg in seg_values[1:]:
+        d = check_same_results(f"{tag}: segment_frames={seg} vs the eager loop", beams[seg_values[0]], beams[seg], 0.0)
+        rec[seg]["max_lm_score_diff_vs_eager"] = d
+    if SEG in rec and 0 in rec:
+        log(f"[segments] {tag}: graphs {rec[SEG]['latency_s']:.3f} s against eager {rec[0]['latency_s']:.3f} s, "
+            f"x{rec[0]['latency_s'] / rec[SEG]['latency_s']:.2f}; results equal to the bit [{card}]")
+    return rec, beams
+
+
 def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict,
               audio_s: float, card: str) -> dict:
     """``decode_beams_batches`` at depth 1 over the first ``PIPE_UTTS`` utterances and the same reversed.
@@ -918,10 +1072,11 @@ def expected_counts(members, steps: int, finalizes: int) -> dict:
 
 def serving_plan(decoder, logits, blank_id: int, token_min_logp: float) -> dict:
     """What the serving call's host prep makes of ``logits``: frames kept by the
-    blank collapse, the length groups, and each group's virtual steps (its
-    longest chunk timeline), from the package's host functions and the
-    decoder's own grouping rule, to hold the launch counters against; and
-    the seconds this prep takes on the host.
+    blank collapse, the length groups, each group's virtual steps (its
+    longest chunk timeline) and the steps it launches (padded to whole
+    segments of the decoder's ``segment_frames``), from the package's host
+    functions and the decoder's own grouping rule, to hold the launch
+    counters against; and the seconds this prep takes on the host.
     """
     from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
 
@@ -934,10 +1089,17 @@ def serving_plan(decoder, logits, blank_id: int, token_min_logp: float) -> dict:
         _, vlens = token_timeline_batch([mats[i] for i in idx], token_min_logp, CHUNK)
         steps.append(max(int(max(vlens)), 1))
     prep_s = time.perf_counter() - t0
+    seg = decoder._segment_frames_effective()
     return {"frames_in": int(sum(m.shape[0] for m in logits)),
             "frames_kept": int(sum(m.shape[0] for m in mats)),
             "longest_kept": max(lens), "groups": [len(g) for g in groups], "group_steps": steps,
-            "steps": int(sum(steps)), "prep_s": prep_s}
+            "virtual_steps": int(sum(steps)), "steps": int(sum(launched(n, seg) for n in steps)),
+            "segment_frames": seg, "prep_s": prep_s}
+
+
+def launched(steps: int, seg: int = SEG) -> int:
+    """Steps a decode of ``steps`` steps launches: whole segments of ``seg`` (0: the eager loop, ``steps``)."""
+    return -(-steps // seg) * seg if seg else steps
 
 
 def check_counts(tag: str, got: dict, want: dict) -> None:
@@ -1059,7 +1221,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("hot2lm dense", launches, expected_counts(members, t_max, 1))
+    check_counts("hot2lm dense", launches, expected_counts(members, launched(t_max), 1))
     for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = multi.decode_beams_batch(logits, **dense_kw, **beams_kw)
@@ -1075,7 +1237,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     plain_texts = multi.decode_batch(logits, **plain_kw)
     plain_latency = time.perf_counter() - t0
     plain_launches = read_counts(wrappers)
-    check_counts("hot2lm dense, no hotwords", plain_launches, expected_counts(members, t_max, 1))
+    check_counts("hot2lm dense, no hotwords", plain_launches, expected_counts(members, launched(t_max), 1))
     changed_at = [i for i, (a, b) in enumerate(zip(texts, plain_texts)) if a != b]
     changed = len(changed_at)
     wer_plain = word_error_rate(corpus.references, plain_texts)
@@ -1107,7 +1269,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     log(f"[hot2lm] serving decode_batch, chunks of {CHUNK}, collapse, {len(plan['groups'])} groups: texts, "
         f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
         f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, {audio_s / s_latency:.1f} "
-        f"audio-s/s, {plan['steps']} virtual steps, {s_latency / plan['steps'] * 1e3:.2f} ms per step, peak "
+        f"audio-s/s, {plan['virtual_steps']} virtual steps ({plan['steps']} launched in whole segments), {s_latency / plan['steps'] * 1e3:.2f} ms per step, peak "
         f"device memory {s_peak_gb:.3f} GB [{card}]")
 
     piped = pipelined("hot2lm", multi, members, logits, serve_kw, serve_beams, wrappers, audio_s, card)
@@ -1124,8 +1286,9 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
         f"MultiLMState last states (max lm_score diff {max_d:.3g}), {time.perf_counter() - t0:.1f} s")
     del cpu
 
-    prof = profile_head(torch, "profile hot2lm dense", wrappers, lambda b: multi.decode_batch(b, **dense_kw),
-                        logits, card)
+    seg_rec, _ = segments_case(torch, "hot2lm dense", multi, members, logits, dict(dense_kw, **beams_kw), [t_max],
+                               dense_prep_s(logits), audio_s, wrappers, card)
+    prof = seg_rec[SEG]["profile"]
     record = {
         "members": [dict(order=m.order, alpha=m.alpha, beta=m.beta, unk_score_offset=m.unk_score_offset,
                          score_boundary=m.score_boundary) for m in members],
@@ -1137,7 +1300,7 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
                         peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
                         **piped),
         "texts_changed_at": changed_at, "latency_without_hotwords_s": plain_latency,
-        "cpu_checked": checked, "cpu_max_lm_score_diff": max_d, "profile": prof,
+        "cpu_checked": checked, "cpu_max_lm_score_diff": max_d, "profile": prof, "segments": seg_rec,
         "gather_member_b": b_gather["hot2lm member B dense step: trie rows"],
         "probe_member_b": b_probe["hot2lm member B dense"],
     }
@@ -1245,8 +1408,8 @@ def record_expand_step(torch, decoder, logits, step: int, **decode_kw):
         return wrapper(*args)
 
     engine.expand_merge_prune = recorder
-    try:
-        decoder.decode_batch(logits, beam_width=BEAM, **decode_kw)
+    try:  # on the eager loop: a captured segment's replay calls no wrapper
+        decoder.with_options(segment_frames=0).decode_batch(logits, beam_width=BEAM, **decode_kw)
     finally:
         engine.expand_merge_prune = wrapper
     torch.cuda.synchronize()
@@ -1324,7 +1487,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("bpe dense", launches, expected_counts([lm_a], steps, 1))
+    check_counts("bpe dense", launches, expected_counts([lm_a], launched(steps), 1))
     for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
@@ -1373,7 +1536,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     h_beams = multi.decode_beams_batch(logits, **hot_kw, **beams_kw)
     h_latency = time.perf_counter() - t0
     h_launches = read_counts(wrappers)
-    check_counts("bpe hot2lm dense", h_launches, expected_counts(members, steps, 1))
+    check_counts("bpe hot2lm dense", h_launches, expected_counts(members, launched(steps), 1))
     h_wer = word_error_rate(corpus.references, top_texts(h_beams))
     log(f"[bpe] two members + {len(hot)} hotwords, dense: {h_latency:.3f} s (one decode), "
         f"{h_latency / steps * 1e3:.2f} ms per frame step, WER {h_wer:.4f} [{card}]")
@@ -1396,8 +1559,9 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
             f"CPU (max lm_score diff {cpu_diff[tag]:.3g}), {time.perf_counter() - t0:.1f} s so far")
     del multi
 
-    prof = profile_head(torch, "profile bpe dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
-                        logits, card)
+    seg_rec, _ = segments_case(torch, "bpe dense", decoder, [lm_a], logits, dict(dense_kw, **beams_kw), [steps],
+                               dense_prep_s(logits), audio_s, wrappers, card)
+    prof = seg_rec[SEG]["profile"]
     return decoder, logits, {
         "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC, "setup_s": setup_s,
         "frame_steps": steps, "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
@@ -1407,7 +1571,7 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
                         peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
                         **piped),
         "hot2lm": {"latency_s": h_latency, "launches": h_launches, "wer": h_wer},
-        "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff, "profile": prof,
+        "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff, "profile": prof, "segments": seg_rec,
     }
 
 
@@ -1416,6 +1580,7 @@ def park(decoder) -> None:
     decoder._tabs = None
     decoder._hot_cache.clear()
     decoder._empty_hot_tables = None
+    decoder._graphs.clear()  # captured segments hold the tables they read
 
 
 def unpark(decoder) -> None:
@@ -1860,12 +2025,14 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
                             steps=steps, counters_total=totals, max_lm_score_diff=d)
         rec["setup_s"], rec["first_collective_call_s"] = setup_s, first_s
 
-        # device ops a step: unsharded with the counters off and on, and sharded
+        # device ops a step: unsharded with the counters off and on, and sharded, all on the
+        # eager loop (the sharded decode's: its collectives stay outside graph capture)
         head = [m[:PROFILE_FRAMES] for m in logits]
         plain_kw = dict(beam_width=BEAM, prune_history=True, top_n=1)
+        eager = decoder.with_options(segment_frames=0)
         reports = {}
-        for tag, run in (("unsharded", lambda: decoder.decode_beams_batch(head, **plain_kw)),
-                         ("unsharded, counters on", lambda: decoder.decode_beams_batch(head, collect_stats=True, **plain_kw)),
+        for tag, run in (("unsharded", lambda: eager.decode_beams_batch(head, **plain_kw)),
+                         ("unsharded, counters on", lambda: eager.decode_beams_batch(head, collect_stats=True, **plain_kw)),
                          ("sharded", lambda: sharded.decode_beams_batch(head, **plain_kw))):
             reset_counts(wrappers)
             t0 = time.perf_counter()
@@ -2090,7 +2257,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
         k_dense = kdec.decode_beams_batch(logits, **dense_kw, **beams_kw)
         latencies.append(time.perf_counter() - t0)
         launches = read_counts(wrappers)
-        check_counts("kenlm dense", launches, expected_counts([lm_k], t_max, 1))
+        check_counts("kenlm dense", launches, expected_counts([lm_k], launched(t_max), 1))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the binary keeps the ARPA's word ids (checked above), so the LM states compare as they are
     d_dense = check_same_results("kenlm dense vs ARPA dense", dense_beams, k_dense, KENLM_TOL)
@@ -2144,7 +2311,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     reset_counts(wrappers)
     q_beams = qdec.decode_beams_batch(sub, beam_width=BEAM, prune_history=False)
     q_launches = read_counts(wrappers)
-    check_counts("kenlm quant_trie", q_launches, expected_counts([lm_q], max(m.shape[0] for m in sub), 1))
+    check_counts("kenlm quant_trie", q_launches, expected_counts([lm_q], launched(max(m.shape[0] for m in sub)), 1))
     t0 = time.perf_counter()
     h_beams = [qhost.decode_beams(m, beam_width=BEAM, prune_history=False) for m in sub]
     host_s = time.perf_counter() - t0
@@ -2256,7 +2423,7 @@ def main() -> int:
     latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_counts("dense", launches, expected_counts([lm], t_max, 1))
+    check_counts("dense", launches, expected_counts([lm], launched(t_max), 1))
     for _ in range(1):  # one repeat: a latency and the rerun check
         t0 = time.perf_counter()
         dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
@@ -2280,7 +2447,8 @@ def main() -> int:
     plan = serving_plan(decoder, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     log(f"[serving] host prep: {plan['frames_in']} frames in, {plan['frames_kept']} after the blank "
         f"collapse (longest {plan['longest_kept']}); groups of {plan['groups']} utterances with "
-        f"{plan['group_steps']} virtual steps of {CHUNK}-token chunks: {plan['steps']} steps "
+        f"{plan['group_steps']} virtual steps of {CHUNK}-token chunks: {plan['steps']} steps in whole segments of "
+        f"{plan['segment_frames']} "
         f"(dense: {t_max} frame steps)")
     check(len(plan["groups"]) == 2, "the serving batch did not split into two length groups")
     serve_kw = dict(beam_width=BEAM, **SERVING)
@@ -2302,7 +2470,8 @@ def main() -> int:
     log(f"[serving] decode_batch {N_UTTS} x beam {BEAM}, chunks of {CHUNK}, collapse, 2 groups: texts "
         f"and text_frames equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
         f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, "
-        f"{audio_s / s_latency:.1f} audio-s/s, {plan['steps']} virtual steps, "
+        f"{audio_s / s_latency:.1f} audio-s/s, {plan['virtual_steps']} virtual steps ({plan['steps']} launched in whole "
+        f"segments), "
         f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
 
     # the pipelined entry point, held against decode_beams_batch
@@ -2344,6 +2513,22 @@ def main() -> int:
         f"buffer {stages['fetch_pinned_ms']:.4f} ms, plain .cpu() {stages['fetch_plain_ms']:.4f} ms "
         f"(medians of {len(fetch_ms['plain'])}) [{card}]")
 
+    # ---- the segments phase: the eager loop against captured graphs (dense, serving), segment sizes
+    t_seg = time.perf_counter()
+    seg_rec = {}
+    dense_call, serve_call = dict(dense_kw, **beams_kw), dict(serve_kw, **beams_kw)
+    seg_rec["dense"], dense_by_seg = segments_case(torch, "dense", decoder, [lm], logits, dense_call, [t_max],
+                                                   dense_prep_s(logits), audio_s, wrappers, card)
+    seg_rec["serving"], _ = segments_case(torch, "serving", decoder, [lm], logits, serve_call,
+                                          plan["group_steps"], plan["prep_s"], audio_s, wrappers, card)
+    seg_rec["dense_sizes"], sized = segments_case(torch, "dense", decoder, [lm], logits, dense_call, [t_max],
+                                                  dense_prep_s(logits), audio_s, wrappers, card,
+                                                  seg_values=SEG_SIZES, profile=False)
+    check_same_results("dense: the other segment sizes vs the eager loop", dense_by_seg[0], sized[SEG_SIZES[0]], 0.0)
+    del dense_by_seg, sized
+    seg_rec["seconds"] = time.perf_counter() - t_seg
+    log(f"[segments] dense and serving in {seg_rec['seconds']:.1f} s")
+
     # ---- CPU cross-check of the first utterances (plain versions), both paths
     t0 = time.perf_counter()
     cpu_dec = P.TorchBeamSearchDecoderCTC(
@@ -2366,11 +2551,8 @@ def main() -> int:
             f"(max lm_score diff {max_d:.3g}; the CPU decode {cpu_check[f'{tag}_cpu_s']:.1f} s), "
             f"{time.perf_counter() - t0:.1f} s so far")
 
-    # ---- where the device time goes
-    prof = profile_head(torch, "profile dense", wrappers, lambda b: decoder.decode_batch(b, **dense_kw),
-                        logits, card)
-    s_prof = profile_head(torch, "profile serving", wrappers, lambda b: decoder.decode_batch(b, **serve_kw),
-                          logits, card)
+    # ---- where the device time goes: the segments phase's profiles of the graphs (the default)
+    prof, s_prof = seg_rec["dense"][SEG]["profile"], seg_rec["serving"][SEG]["profile"]
 
     # ---- the sharded path: ShardedCTCDecoder(shard_lm=True) over a world-size-1 NCCL group
     del cpu_dec, handles, staged
@@ -2466,7 +2648,7 @@ def main() -> int:
         "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
-        "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
+        "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "segments": seg_rec, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
         "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,

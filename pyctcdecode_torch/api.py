@@ -41,6 +41,7 @@ def build_ctcdecoder(
     lm_score_boundary: bool = DEFAULT_SCORE_LM_BOUNDARY,
     engine: str = "torch",
     device: Union[None, str, torch.device] = None,
+    **engine_options: "object",
 ) -> Union[TorchBeamSearchDecoderCTC, BeamSearchDecoderCTC]:
     """Build a ready-to-use decoder (main entry point).
 
@@ -62,11 +63,19 @@ def build_ctcdecoder(
         device: the device engine's device: ``None`` (CUDA, raising when
             absent) or an explicit device such as ``"cpu"``. The host
             engine takes none.
+        **engine_options: forwarded to the device engine's constructor
+            (``fast_topk``, ``segment_frames``); rejected with the host
+            engine, which has no such knobs.
     """
     if engine not in _ENGINES:
         raise ValueError(f"engine must be one of {_ENGINES}; got {engine!r}")
     if engine == "host" and device is not None:
         raise TypeError("device applies to the torch engine only; the host engine runs on the CPU")
+    if engine == "host" and engine_options:
+        raise TypeError(
+            f"engine options {sorted(engine_options)} apply to the device engine only; "
+            "the host engine accepts none (remove them or use engine='torch')"
+        )
     ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
     if kenlm_model_path is not None and kenlm_model_path.endswith(".arpa"):
         logger.info(
@@ -106,4 +115,4 @@ def build_ctcdecoder(
         )
     if engine == "host":
         return BeamSearchDecoderCTC(alphabet, language_model)
-    return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device)
+    return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device, **engine_options)

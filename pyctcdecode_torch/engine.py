@@ -61,7 +61,8 @@ stay starts a new word even when it is a regular piece.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -186,26 +187,31 @@ def build_table_args(
     return {"tok": tok, "lms": [dlm.as_device(device, shard) for dlm in device_lms]}
 
 
-def _params_dict(cfg: EngineConfig, params: np.ndarray) -> Dict[str, Any]:
-    """Unpack the f32 parameter vector into Python scalars.
+def _params_dict(cfg: EngineConfig, params: Any) -> Dict[str, Any]:
+    """Unpack the f32 parameter vector.
 
     Layout: ``[token_min_logp, beam_prune_logp, hot_weight, (alpha_i,
-    beta_i, unk_offset_i, score_boundary_i) x n_lms]``. Values pass through
-    float32, so scalar arithmetic on f32 tensors matches the reference's f32
-    parameter math.
+    beta_i, unk_offset_i, score_boundary_i) x n_lms]``. A numpy vector
+    unpacks into Python scalars; values pass through float32, so scalar
+    arithmetic on f32 tensors matches the reference's f32 parameter math. A
+    device tensor (the segment programs' static buffer, which a captured
+    graph reads at every replay) unpacks into 0-d f32 views, which give the
+    same f32 results; it carries no ``score_boundary`` flag, which selects
+    the finalize's probes and is read from the host vector.
     """
-    p = [float(x) for x in np.asarray(params, dtype=np.float32)]
+    if isinstance(params, torch.Tensor):
+        p: List[Any] = list(params.unbind(0))
+    else:
+        p = [float(x) for x in np.asarray(params, dtype=np.float32)]
     out: Dict[str, Any] = {
         "token_min_logp": p[0], "beam_prune_logp": p[1], "hot_weight": p[2], "lm": [],
     }
     for i in range(cfg.n_lms):
         base = 3 + 4 * i
-        out["lm"].append({
-            "alpha": p[base],
-            "beta": p[base + 1],
-            "unk_offset": p[base + 2],
-            "score_boundary": p[base + 3] > 0.5,
-        })
+        member = {"alpha": p[base], "beta": p[base + 1], "unk_offset": p[base + 2]}
+        if not isinstance(params, torch.Tensor):
+            member["score_boundary"] = p[base + 3] > 0.5
+        out["lm"].append(member)
     return out
 
 
@@ -458,16 +464,20 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
     sentinel = (-2 - iota_b).expand(n, b)
     # timeline chunks merge with the window off: the frame's max is only
     # known at its last chunk, where the pooled top-1 is that max
-    prune = torch.full((n,), float("-inf") if tl else prm["beam_prune_logp"],
-                       dtype=torch.float32, device=device)
+    if tl:
+        prune = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
+    else:  # a Python float, or a 0-d device view in the segment programs
+        prune = torch.zeros((n,), dtype=torch.float32, device=device) + prm["beam_prune_logp"]
     lower = torch.tril(torch.ones((b, b), dtype=torch.bool, device=device), diagonal=-1)
 
-    def step(state: Dict, xs, t: int):
+    def step(state: Dict, xs, t):
         """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay.
 
         ``xs`` is the frame's log-prob row ``[N, V]``, or with
         ``cfg.token_timeline`` one chunk ``(toks [N, K] (-1: empty slot),
-        tok_logp [N, K], is_final [N])`` per utterance.
+        tok_logp [N, K], is_final [N])`` per utterance. ``t``, the step's
+        index, is a Python int, or a 0-d int64 device tensor in the segment
+        programs (a captured graph must not freeze it).
         """
         active = t < n_frames  # [N]
         if tl:
@@ -970,9 +980,10 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
     """Build the batch decode function over uploaded ``tables``.
 
     ``fn(logp [N, T, V] f32, n_frames [N] int64, params f32 vector, start,
-    hot)`` runs the frame loop and the finalization on ``logp``'s device
-    and returns the ranked beams (top ``emit_paths`` or all B) with their
-    token paths ``[N, R, T]`` (backtraced on the device; -1 at padded
+    hot)`` runs the frame loop (one :func:`make_segment_decode_fns` segment
+    of all T steps, on the host vector ``params``) and the finalization on
+    ``logp``'s device and returns the ranked beams (top ``emit_paths`` or
+    all B) with their token paths ``[N, R, T]`` (backtraced on the device; -1 at padded
     frames) and each member's final context (``ctx{i}``, ``ctx_len{i}``).
     ``start`` holds one start dict per LM member (see :func:`_init_state`);
     ``hot`` is this call's hotword trie, ``{"next": int64 [nodes, chars],
@@ -988,29 +999,78 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
 
     def decode(logp, n_frames: torch.Tensor, params: np.ndarray,
                start: Sequence[Dict], hot: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        device = n_frames.device
-        if cfg.token_timeline:
-            toks, tlogp, fin = logp
-            n, t_max = fin.shape
-        else:
-            n, t_max, _ = logp.shape
-        prm = _params_dict(cfg, params)
-        state = _init_state(cfg, start, n, device)
-        step = _make_step(cfg, tables, hot, prm, n_frames)
-        parents: List[torch.Tensor] = []
-        trace: List[torch.Tensor] = []
-        for t in range(t_max):
-            xs = (toks[:, t], tlogp[:, t], fin[:, t]) if cfg.token_timeline else logp[:, t]
-            state, (par, tok) = step(state, xs, t)
-            parents.append(par.to(_parent_dtype(cfg.beam_width)))
-            trace.append(tok.to(_path_dtype(cfg.vocab_size)))
-        fin = _finalize(cfg, tables["lms"], hot, prm, state)
+        t_max = (logp[2] if cfg.token_timeline else logp).shape[1]
+        init_fn, seg_fn, fin_fn = make_segment_decode_fns(cfg, tables, t_max)  # one segment: all the steps
+        state, (parents, trace) = seg_fn(init_fn(start, n_frames.shape[0]), logp, 0, n_frames, params, hot=hot)
+        return fin_fn(state, params, parents, trace, hot=hot)
+
+    return decode
+
+
+def make_segment_decode_fns(cfg: EngineConfig, tables: Dict, seg_frames: int):
+    """Build the segmented batch decode over uploaded ``tables``: ``(init_fn, seg_fn, fin_fn)``.
+
+    The reference's segment programs (its ``make_segment_decode_fns``): the
+    frame loop stays on the host, and one program advances ``seg_frames``
+    steps from a frame offset that is an input, so the program is reused
+    across segment indices, batches and utterance lengths. Here that program
+    is a captured CUDA graph (:class:`SegmentGraph`), which replays a
+    segment's few thousand launches at once; on the CPU ``seg_fn`` runs
+    eagerly. Every step reads its frame index ``t0 + i`` and the parameter
+    vector as device data, so a replay sees the values of its own decode.
+
+    * ``init_fn(start, n) -> state``: a fresh ``[n, B]`` beam state
+      (``start`` as for :func:`make_decode_fn`);
+    * ``seg_fn(state, seg_in, t0, n_frames, params, tabs=None, hot=None) ->
+      (state', (parents, trace))``: ``seg_frames`` steps from absolute step
+      ``t0`` (an int, or a 0-d int64 device tensor). ``seg_in`` is the
+      segment's log-probs ``[N, S, V]``, or with ``cfg.token_timeline`` its
+      timeline slice ``(toks [N, S, K] int64, tlogp [N, S, K], is_final [N,
+      S])`` and ``n_frames`` counts virtual steps; ``params`` is the f32
+      parameter vector as a device tensor (read as device data), or the
+      host vector (its values built into the ops); ``tabs`` replaces the
+      build's ``tables`` (a row-sharded LM's). Steps at or past ``n_frames`` leave a
+      row's state as it is and emit -1. The backpointers keep the port's
+      layout: ``parents`` (:func:`_parent_dtype`) and ``trace``
+      (:func:`_path_dtype`), each ``[N, S, B]``, not packed into one word.
+    * ``fin_fn(state, params, parents, trace, tabs=None, hot=None) -> out``:
+      the finalize and the device backtrace over the whole logs ``[N, T,
+      B]``, with ``params`` the host vector (its ``score_boundary`` flags
+      select the probes); ``out`` is exactly :func:`make_decode_fn`'s.
+    """
+    if seg_frames < 1:
+        raise ValueError(f"seg_frames must be at least 1; got {seg_frames}")
+    device = tables["tok"]["kind"].device
+    par_dtype, tok_dtype = _parent_dtype(cfg.beam_width), _path_dtype(cfg.vocab_size)
+
+    def init_fn(start: Sequence[Dict], n: int) -> Dict:
+        return _init_state(cfg, start, n, device)
+
+    def seg_fn(state: Dict, seg_in, t0, n_frames: torch.Tensor, params: Union[torch.Tensor, np.ndarray],
+               tabs: Optional[Dict] = None, hot: Optional[Dict] = None):
+        step = _make_step(cfg, tables if tabs is None else tabs, hot, _params_dict(cfg, params), n_frames)
+        parents, trace = [], []
+        for i in range(seg_frames):
+            if cfg.token_timeline:
+                xs = tuple(plane[:, i] for plane in seg_in)
+            else:
+                xs = seg_in[:, i]
+            state, (par, tok) = step(state, xs, t0 + i)
+            parents.append(par.to(par_dtype))
+            trace.append(tok.to(tok_dtype))
+        return state, (torch.stack(parents, dim=1), torch.stack(trace, dim=1))
+
+    def fin_fn(state: Dict, params: np.ndarray, parents: torch.Tensor, trace: torch.Tensor,
+               tabs: Optional[Dict] = None, hot: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        lms = (tables if tabs is None else tabs)["lms"]
+        fin = _finalize(cfg, lms, hot, _params_dict(cfg, params), state)
+        n, t_max = fin["src"].shape[0], trace.shape[1]
         r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
         cur = fin["src"][:, :r]
-        paths = torch.empty((n, r, t_max), dtype=_path_dtype(cfg.vocab_size), device=device)
+        paths = torch.empty((n, r, t_max), dtype=tok_dtype, device=cur.device)
         for t in range(t_max - 1, -1, -1):
-            paths[:, :, t] = trace[t].gather(1, cur)
-            cur = parents[t].gather(1, cur).to(torch.int64)
+            paths[:, :, t] = trace[:, t].gather(1, cur)
+            cur = parents[:, t].gather(1, cur).to(torch.int64)
         out = {
             "beam_src": fin["src"][:, :r],
             "logit": fin["logit"][:, :r],
@@ -1021,10 +1081,113 @@ def make_decode_fn(cfg: EngineConfig, tables: Dict):
             out[f"ctx{i}"] = fin[f"ctx{i}"][:, :r]
             out[f"ctx_len{i}"] = fin[f"ctx_len{i}"][:, :r]
         if cfg.collect_stats:
-            out["stats"] = state["stats"]
+            # a copy: a segment graph's state planes are overwritten by its next decode
+            out["stats"] = state["stats"].clone()
         return out
 
-    return decode
+    return init_fn, seg_fn, fin_fn
+
+
+class SegmentGraph:
+    """One segment program (``seg_fn``) captured as a CUDA graph and replayed down the utterances.
+
+    The graph reads and writes static buffers, allocated here and never
+    during the capture: the beam state, the segment's input planes, its
+    first step index ``t0`` (0-d int64), ``n_frames`` and the parameter
+    vector, and it writes the segment's ``parents`` / ``trace``. A decode
+    fills the state, lengths and parameters with :meth:`load`, then calls
+    :meth:`run` for each segment and copies its backpointers out before the
+    next run; the final state stays in :attr:`state`. The first run
+    executes the segment eagerly (its real work, and the warm-up that loads
+    every kernel before a capture) and captures it right after; later runs
+    replay. ``seg_fn``'s tables (which its closure holds) and ``hot`` are
+    read at the addresses captured, so the graph keeps them alive. The capture allocates only
+    intermediates, from ``pool``, which graphs of one decoder share: no
+    graph keeps a tensor of the pool past its capture, so replays in any
+    order are safe.
+
+    A replay calls no kernel wrapper, so each adds to every wrapper's
+    ``launches`` the launches its capture made (counted and taken back at
+    capture, which runs nothing, whether it succeeds or fails). A capture
+    or replay error raises; nothing runs the eager loop instead.
+    """
+
+    def __init__(self, seg_fn, state: Dict, seg_in, n_frames: torch.Tensor, params: torch.Tensor,
+                 hot: Optional[Dict], pool) -> None:
+        self.state = {key: torch.empty_like(val) for key, val in state.items()}
+        self.seg_in = tuple(torch.empty_like(x) for x in seg_in) if isinstance(seg_in, tuple) \
+            else torch.empty_like(seg_in)
+        self.t0 = torch.zeros((), dtype=torch.int64, device=n_frames.device)
+        self.n_frames = torch.empty_like(n_frames)
+        self.params = torch.empty_like(params)
+        self.hot, self.pool = hot, pool
+        self._seg_fn = seg_fn
+        self.parents: Optional[torch.Tensor] = None
+        self.trace: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.counts: Dict[Any, int] = {}
+        self.capture_s = 0.0  # host seconds of the capture
+
+    def load(self, state: Dict, n_frames: torch.Tensor, params: torch.Tensor) -> None:
+        """Fill the static state, lengths and parameters for a new decode."""
+        for key, val in state.items():
+            self.state[key].copy_(val)
+        self.n_frames.copy_(n_frames)
+        self.params.copy_(params)
+
+    def _body(self) -> None:
+        new, (par, tok) = self._seg_fn(self.state, self.seg_in, self.t0, self.n_frames, self.params,
+                                       hot=self.hot)
+        for key, val in new.items():
+            self.state[key].copy_(val)
+        if self.parents is None:  # the eager first run sizes the outputs, outside any capture
+            self.parents, self.trace = torch.empty_like(par), torch.empty_like(tok)
+        self.parents.copy_(par)
+        self.trace.copy_(tok)
+
+    def _capture(self) -> None:
+        from .ops import gather as gather_ops
+        from .ops import merge as merge_ops
+
+        # every wrapper with a ``launches`` counter
+        wrappers = (merge_ops.expand_merge_prune, merge_ops.merge_prune, gather_ops.gather_rows, gather_ops.probe_rows)
+        before = [fn.launches for fn in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.n_frames.device)
+        side.wait_stream(torch.cuda.current_stream(self.n_frames.device))
+        t_start = time.perf_counter()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    self._body()
+                finally:
+                    graph.capture_end()
+        finally:
+            counts = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
+            for fn, n in counts.items():  # the capture ran nothing, failed or not
+                fn.launches -= n
+        torch.cuda.current_stream(self.n_frames.device).wait_stream(side)
+        self.capture_s = time.perf_counter() - t_start
+        self.counts = counts
+        self.graph = graph
+
+    def run(self, seg_in, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Advance the static state one segment from step ``t0``; returns its ``(parents, trace)`` buffers."""
+        if isinstance(seg_in, tuple):
+            for dst, src in zip(self.seg_in, seg_in):
+                dst.copy_(src)
+        else:
+            self.seg_in.copy_(seg_in)
+        self.t0.fill_(t0)
+        if self.graph is None:
+            self._body()
+            self._capture()
+        else:
+            self.graph.replay()
+            for fn, n in self.counts.items():
+                fn.launches += n
+        return self.parents, self.trace
 
 
 def make_stream_fns(cfg: EngineConfig, tables: Dict):

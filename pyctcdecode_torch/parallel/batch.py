@@ -21,7 +21,10 @@ holds ``1 / processes`` of the tables, and every probe of a step or a
 finalize becomes one collective round trip
 (:func:`~pyctcdecode_torch.models.device_tables.probe_rows_sharded`). Every
 process runs the same steps (the global batch's longest row), so the
-collectives line up.
+collectives line up. These decodes run the eager frame loop
+(``segment_frames=0``): their probes' NCCL collectives stay outside CUDA
+graph capture. Without ``shard_lm`` each process decodes its rows as the
+single decoder does, segments and captured graphs included.
 """
 from __future__ import annotations
 
@@ -148,8 +151,12 @@ class ShardedCTCDecoder:
         return self._rank * per, per
 
     def _decode_local(self, logits_list: Sequence[np.ndarray], collect_stats: bool, **kw: Any):
-        """Launch and collect this process's rows of the global batch: ``(results, stats)``."""
-        d = self._decoder
+        """Launch and collect this process's rows of the global batch: ``(results, stats)``.
+
+        With ``shard_lm`` an eager clone decodes, made per call so that it
+        reads the wrapped decoder's LM knobs as they are now.
+        """
+        d = self._decoder.with_options(segment_frames=0) if self._shard_lm else self._decoder
         handle = d._dispatch_batch(
             list(logits_list), batch_pad=self._world, row_block=self._rows(len(logits_list)),
             tabs=self._tabs, collect_stats=collect_stats, **kw,

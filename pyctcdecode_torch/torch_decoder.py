@@ -27,6 +27,8 @@ plain PyTorch version. Nothing falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 import logging
 import os
@@ -45,7 +47,17 @@ from .constants import (
     DEFAULT_PRUNE_LOGP,
 )
 from .decoder import NULL_FRAMES, BeamSearchDecoderCTC, LMBeam, OutputBeam, _not_ported
-from .engine import EngineConfig, build_table_args, make_decode_fn, make_stream_fns, stats_fields
+from .engine import (
+    EngineConfig,
+    SegmentGraph,
+    _parent_dtype,
+    _path_dtype,
+    build_table_args,
+    make_decode_fn,
+    make_segment_decode_fns,
+    make_stream_fns,
+    stats_fields,
+)
 from .models.base import AbstractLMState, MultiLMState, NGramLMState
 from .models.device_tables import (
     HOT_NODE_MASK,
@@ -268,6 +280,14 @@ def _resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return torch.device(device)
 
 
+def _check_segment_frames(segment_frames: Optional[int]) -> Optional[int]:
+    if segment_frames is None:
+        return None
+    if int(segment_frames) != segment_frames or segment_frames < 0:
+        raise ValueError(f"segment_frames must be a non-negative int or None; got {segment_frames!r}")
+    return int(segment_frames)
+
+
 @dataclasses.dataclass
 class DeviceStreamState:
     """Caller-held streaming decode state (ref decoder.py:669-728 analog).
@@ -329,8 +349,18 @@ class TorchBeamSearchDecoderCTC:
         alphabet: Alphabet,
         language_model: Union[None, LanguageModel, MultiLanguageModel] = None,
         device: Union[None, str, torch.device] = None,
+        segment_frames: Optional[int] = None,
+        fast_topk: bool = False,
     ) -> None:
         self._device = _resolve_device(device)
+        # batch decodes run in segments of this many steps, each a captured
+        # CUDA graph on the card (see engine.make_segment_decode_fns); 0 runs
+        # the eager frame loop; None picks 16 on CUDA and 0 on the CPU
+        self._segment_frames = _check_segment_frames(segment_frames)
+        # ``fast_topk`` is the reference's option (an approximate top-k whose
+        # set is exact, in enumeration order, boundary ties aside). The
+        # exact stable sort meets that contract, and on the H100 an unsorted
+        # top-k with re-sorts was slower, so either value ranks exactly
         if language_model is None:
             members: List[LanguageModel] = []
         elif isinstance(language_model, MultiLanguageModel):
@@ -362,6 +392,12 @@ class TorchBeamSearchDecoderCTC:
         self._hot_cache: Dict[Tuple[str, ...], Dict[str, Any]] = {}
         self._empty_hot_tables: Optional[Dict[str, Any]] = None
         self._pinned: Optional[torch.Tensor] = None  # host staging of the outputs, see _fetch
+        self._new_graph_cache()
+
+    def _new_graph_cache(self) -> None:
+        """An empty cache of captured segment graphs (``_segment_graph``), with its own memory pool."""
+        self._graphs: "collections.OrderedDict[Any, SegmentGraph]" = collections.OrderedDict()
+        self._graph_pool: Any = None
 
     # -- configuration ---------------------------------------------------
     @property
@@ -372,10 +408,53 @@ class TorchBeamSearchDecoderCTC:
     def device(self) -> torch.device:
         return self._device
 
+    def with_options(self, **overrides: Any) -> "TorchBeamSearchDecoderCTC":
+        """A decoder sharing this one's device tables under other engine options.
+
+        ``overrides`` may set ``fast_topk`` (accepted; every decoder ranks
+        exactly, see the constructor) and ``segment_frames``; any other
+        name raises ``ValueError``. Building the device tables is the
+        costly part of construction (seconds for a LibriSpeech-scale
+        n-gram), while the options only change how a decode runs, so a
+        parity decoder and a throughput decoder can share them. The clone
+        gets its own copies of the ``LanguageModel`` wrappers (the n-gram
+        model and the device tables stay shared), so ``reset_params`` on one
+        never retunes the other, and it starts with no captured graphs. The
+        original is unchanged.
+        """
+        allowed = ("fast_topk", "segment_frames")
+        bad = sorted(set(overrides) - set(allowed))
+        if bad:
+            raise ValueError(f"unknown engine option(s) {bad}; with_options accepts {list(allowed)}")
+        clone = copy.copy(self)
+        clone._new_graph_cache()
+        clone._pinned = None
+        if self._lm is not None:
+            clone._lm_members = [copy.copy(m) for m in self._lm_members]
+            if isinstance(self._lm, MultiLanguageModel):
+                clone._lm = copy.copy(self._lm)
+                clone._lm._language_models = list(clone._lm_members)
+            else:
+                clone._lm = clone._lm_members[0]
+        if "segment_frames" in overrides:
+            clone._segment_frames = _check_segment_frames(overrides["segment_frames"])
+        return clone
+
     def reset_params(self, **kwargs: Any) -> None:
-        """Re-tune LM fusion knobs in place (read on every decode call)."""
+        """Re-tune LM fusion knobs in place (read on every decode call, captured graphs included)."""
         if self._lm is not None:
             self._lm.reset_params(**kwargs)
+
+    def _segment_frames_effective(self) -> int:
+        """Steps per segment of a batch decode (0: the eager frame loop).
+
+        The default is the reference's rule: 16-step segments on an
+        accelerator, the eager loop on the CPU, where there is no launch
+        cost for a graph to save.
+        """
+        if self._segment_frames is not None:
+            return self._segment_frames
+        return 16 if self._device.type == "cuda" else 0
 
     def _engine_cfg(self, beam_width: int, k: int, prune_history: bool,
                     use_hotwords: bool, emit_paths: Optional[int] = None,
@@ -486,31 +565,104 @@ class TorchBeamSearchDecoderCTC:
         ``inputs``: log-probs ``[N, T, V]``, or with ``token_timeline`` the
         tuple ``(toks, tlogp, is_final)``; ``hot``: the call's hotword tables
         (:meth:`_hot_tables`) or None; ``tabs``: device tables other than the
-        decoder's own (a row-sharded LM's). Nothing here waits for the device.
+        decoder's own (a row-sharded LM's). With segments
+        (:meth:`_segment_frames_effective`), the steps pad to a multiple of the segment with inactive steps (their
+        paths hold -1). Nothing here waits for the device.
         """
         emit_paths = min(top_n, beam_width) if top_n is not None else None
         cfg = self._engine_cfg(beam_width, k, prune_history, hot is not None, emit_paths,
                                token_timeline, collect_stats)
-        fn = make_decode_fn(cfg, self._tabs if tabs is None else tabs)
+        tables = self._tabs if tabs is None else tabs
+        seg = self._segment_frames_effective()
         params = self._params_vector(token_min_logp, beam_prune_logp, hot_weight)
+        planes = tuple(inputs) if token_timeline else (inputs,)
+        pad = -planes[0].shape[1] % seg if seg else 0
+        if pad:  # inactive steps; a timeline's empty token slots hold -1
+            fills = (-1, 0, 0) if token_timeline else (0,)
+            planes = tuple(np.pad(p, [(0, 0), (0, pad)] + [(0, 0)] * (p.ndim - 2), constant_values=fill)
+                           for p, fill in zip(planes, fills))
         dev = self._device
         with torch.inference_mode():
+            dev_in: Any = tuple(torch.as_tensor(p, device=dev) for p in planes)
             if token_timeline:
-                toks, tlogp, fin = inputs
-                dev_in: Any = (
-                    torch.as_tensor(toks, device=dev).to(torch.int64),  # widened once here
-                    torch.as_tensor(tlogp, device=dev),
-                    torch.as_tensor(fin, device=dev),
-                )
+                dev_in = (dev_in[0].to(torch.int64),) + dev_in[1:]  # widened once here
             else:
-                dev_in = torch.as_tensor(inputs, device=dev)
-            return fn(
-                dev_in,
-                torch.as_tensor(n_frames, dtype=torch.int64, device=dev),
-                params,
-                self._start_ctx(lm_start_state),
-                hot,
-            )
+                dev_in = dev_in[0]
+            nf = torch.as_tensor(n_frames, dtype=torch.int64, device=dev)
+            start = self._start_ctx(lm_start_state)
+            if not seg:
+                return make_decode_fn(cfg, tables)(dev_in, nf, params, start, hot)
+            return self._run_segmented(cfg, seg, tables, dev_in, nf, params, start, hot)
+
+    def _run_segmented(self, cfg: EngineConfig, seg: int, tables: Dict[str, Any], dev_in: Any,
+                       n_frames: torch.Tensor, params: np.ndarray, start: Tuple[Dict, ...],
+                       hot: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
+        """One decode through ``seg``-step segments (the reference's ``_run_segmented``).
+
+        The host walks the segments: on the card each is one replay of the
+        key's captured graph (:meth:`_segment_graph`), on the CPU an eager
+        ``seg_fn`` call. Every segment's backpointers go into logs this
+        decode owns, so a graph's next decode (a pipelined batch launched
+        before this one is fetched) cannot overwrite them; the finalize and
+        the backtrace run eagerly after the last segment, into fresh tensors.
+        """
+        init_fn, seg_fn, fin_fn = make_segment_decode_fns(cfg, tables, seg)
+        n = n_frames.shape[0]
+        t_pad = (dev_in[2] if cfg.token_timeline else dev_in).shape[1]
+        state = init_fn(start, n)
+        prm = torch.as_tensor(params, device=self._device)
+        log_shape = (n, t_pad, cfg.beam_width)
+        parents = torch.empty(log_shape, dtype=_parent_dtype(cfg.beam_width), device=self._device)
+        trace = torch.empty(log_shape, dtype=_path_dtype(cfg.vocab_size), device=self._device)
+
+        def seg_in(s: int) -> Any:
+            cut = slice(s * seg, (s + 1) * seg)
+            if cfg.token_timeline:
+                return tuple(plane[:, cut] for plane in dev_in)
+            return dev_in[:, cut]
+
+        graph = None
+        if self._device.type == "cuda":
+            graph = self._segment_graph(cfg, seg, seg_fn, state, seg_in(0), n_frames, prm, tables, hot)
+            graph.load(state, n_frames, prm)
+        for s in range(t_pad // seg):
+            if graph is None:
+                state, (par, tok) = seg_fn(state, seg_in(s), s * seg, n_frames, prm, hot=hot)
+            else:
+                par, tok = graph.run(seg_in(s), s * seg)
+            parents[:, s * seg : (s + 1) * seg].copy_(par)
+            trace[:, s * seg : (s + 1) * seg].copy_(tok)
+        if graph is not None:
+            state = graph.state
+        return fin_fn(state, params, parents, trace, hot=hot)
+
+    def _segment_graph(self, cfg: EngineConfig, seg: int, seg_fn, state: Dict[str, torch.Tensor],
+                       seg_in: Any, n_frames: torch.Tensor, prm: torch.Tensor,
+                       tables: Dict[str, Any], hot: Optional[Dict[str, Any]]) -> SegmentGraph:
+        """The captured segment program of this decode's key, made on first use.
+
+        The key: the engine configuration (its ``emit_paths`` aside, which
+        only the eager finalize reads), the batch rows, the segment length,
+        and the table and hotword objects whose tensors the graph reads (it
+        holds them, so the ids stay theirs). The input widths are the
+        configuration's (V, or the chunk width K). ``score_boundary`` is not
+        in it: only the finalize reads it, from the host vector. The last 8
+        keys are kept; all share one memory pool, a new one whenever no
+        captured graph is left (the cache emptied, or a capture failed).
+        """
+        key = (dataclasses.replace(cfg, emit_paths=None), n_frames.shape[0], seg, id(tables), id(hot))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            return graph
+        if len(self._graphs) >= 8:
+            self._graphs.popitem(last=False)
+        if not any(g.graph is not None for g in self._graphs.values()):
+            # a pool all of whose graphs are gone takes no further capture
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = SegmentGraph(seg_fn, state, seg_in, n_frames, prm, hot, self._graph_pool)
+        self._graphs[key] = graph
+        return graph
 
     def _fetch(self, out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
         """Copy the first ``n`` rows of every output to the host.

@@ -10,7 +10,8 @@ counters equal, scores within ``SCORE_TOL``), as must the single-process
 port decoder, and it must equal the latter to the bit (one process owns
 each probed row and the others add zeros, so the sums are exact). Three
 processes over four utterances leave the last process
-nothing but padded rows. The row windows themselves are checked in one
+nothing but padded rows. LM knobs set with ``reset_params`` on the wrapped
+decoder after its first decodes reach the next one. The row windows themselves are checked in one
 process: ``probe_rows_ref`` over 2 and 3 windows, summed, equals the
 whole-table probe in both hash modes, and the windows are the JAX
 package's ``build_table_args(shard=...)`` planes, block for block.
@@ -37,6 +38,7 @@ CASES = {  # every case with shard_lm on; the first two with it off too
     "hotwords": dict(hotwords=HOTWORDS, hotword_weight=6.0),
     "auto_k": dict(max_tokens_per_frame="auto", blank_collapse=True),
 }
+RETUNE = dict(alpha=0.9, beta=2.5)  # LM knobs set on the wrapped decoder after its sharded decodes
 
 
 def _batch():
@@ -74,6 +76,8 @@ def _worker(out_path: str, arpa: str) -> None:
     out["texts"] = sharded.decode_batch(batch, beam_width=BEAM)
     out["planes"] = [(t["row0"], t["size"], t["bucket"].numpy()) for t in sharded._tabs["lms"][0]["fp"]]
     out["counts"] = all_reduce_counts(mesh, np.array([rank + 1, 10 * (rank + 1)]))
+    dec.reset_params(**RETUNE)  # read by the next sharded decode (shard_lm on)
+    out["retuned"] = sharded.decode_beams_batch(batch, beam_width=BEAM)
     with open(out_path, "wb") as fh:
         pickle.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -188,6 +192,12 @@ def test_sharded_decode_equals_the_single_decoder(world, arpa, tmp_path):
             _check(((j_top2[start:stop], None), (p_top2[start:stop], None)), (results, None))
         assert part["texts"] == wants["texts"][0]
         assert part["counts"].tolist() == [sum(range(1, world + 1)), 10 * sum(range(1, world + 1))]
+    # ``reset_params`` on the wrapped decoder reaches a shard_lm decode
+    dec.reset_params(**RETUNE)
+    retuned = dec.decode_beams_batch(batch, beam_width=BEAM)
+    assert [b[0].lm_score for b in retuned] != [b[0].lm_score for b in wants["dense"][1][0]]
+    for part in parts:
+        _same(retuned, part["retuned"])
     # each process holds its row block of every bucket plane
     assert parts[-1][(True, "dense")] and (world * per > len(batch) or world == 2)
     for t, tab in enumerate(dec._device_lm[0].fp_tables):
