@@ -77,7 +77,15 @@ Phases (any failed check exits non-zero and prints no result line):
    must count the counters' launches, replays included). The dense call
    also at 4 and 32 steps a segment (equal to the eager loop).
    The recording decodes that capture a real step's kernel arguments run
-   the eager loop, whose wrappers are called per step;
+   the eager loop, whose wrappers are called per step. A decode ends with
+   one replay of its key's captured finalize and one ``backtrace_paths``
+   launch; for dense and serving (then bpe dense) the end of one decode is
+   run both ways on the state and logs its segments left: before (the
+   finalize eagerly, then the plain backtrace, four launches a step) and
+   after (the finalize graph's replay, then the kernel), each part timed,
+   equal to the bit, device ops and busy ms of each from a profile; and the
+   device ops a decode of the first 100 frames issues outside its segment
+   replays;
 8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
    and the same seed's 3-gram at half the bigrams and trigrams with other
    fusion settings) and 28 hotwords (24 transcript words, 2 transcript
@@ -105,25 +113,39 @@ Phases (any failed check exits non-zero and prints no result line):
    dense; WER beside greedy WER; the dense call profiled;
 10. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
    frames (0.5 s of audio), beam 100, K = 29, each decoder's tables put back
-   on the card for it. The first ``STREAM_UTTS`` utterances, each on its own state with
+   on the card for it, every path in two columns: through captured graphs
+   (the default: a chunk's segments of 16 steps, its logits padded to whole
+   segments, and the finalize graph of its ``(commit, is_end)``, replayed)
+   and on a ``with_options(segment_frames=0)`` clone (the eager loop, one
+   step a frame from the host). The graph stream's views and carried state
+   equal the eager stream's to the bit at every chunk (lm_score difference
+   0), for char, hot2lm and bpe. The first ``STREAM_UTTS`` utterances, each on its own state with
    member A: the last view (``is_end``) equals the full decode of the
    utterance (texts, spans, lm_score within 1e-3), and the launch counters
-   equal one step per frame and one finalize per chunk. Each kernel against
+   equal one step per launched step (padded to whole segments under graphs)
+   and one finalize per chunk, and no batch backtrace (a stream backtraces
+   on the host); the same two streams interleaved chunk by chunk on one
+   decoder give each stream's views alone. Each column of each path (char,
+   hot2lm, bpe) logs its chunk ms
+   (median, maximum, by position; a warm-up stream first, whose first chunk
+   holds the captures), the chunk's wall split (segments, finalize, fetch,
+   host backtrace and replay), capture seconds a key, peak device memory,
+   the frame steps and CUDA runtime calls the host makes a chunk (char
+   only), and a profile of utterance 0's first 100 frames. Each kernel against
    its plain version on the inputs a stream gives it (frame 60's step
    [1, 29, 100], its trie nodes [1, 100] and n-gram queries [1, 100, 3], and
    the finalize of its chunk [1, 1, 100], which does not commit: the key
-   carries the partial, last-token and force lanes), timed. Utterance 0 with
+   carries the partial, last-token and force lanes; recorded on the eager
+   column), timed. Utterance 0 with
    ``force_next_word`` at its middle chunk: every chunk's top view equals the
    host oracle's (``BeamSearchDecoderCTC``; words, partial words, spans,
-   scores within 2e-3). Its first ``STREAM_CPU_CHUNKS`` chunks give identical views on the CPU.
+   scores within 2e-3), and graphs equal eager to the bit. Its first ``STREAM_CPU_CHUNKS`` chunks give identical views on the CPU.
    hot2lm's two members and 28 hotwords: the stream equals the full decode;
    with the hotword list written anew from the middle chunk on (the same
    unigram set, so the reference's score caches and the device agree), the
    host oracle's top views. The bpe path's utterance 0 (V = 129): the stream
-   equals the full decode. Logged: wall ms per ``partial_decode_beams`` call
-   (median, maximum, by chunk position), host ms per frame step, peak device
-   memory, the profile of one stream's first 200 frames, the host oracle's
-   wall time;
+   equals the full decode. Logged besides: the host oracle's wall time, the
+   hotword set's capture seconds;
 11. kenlm: the decoder over member A's PROBING binary (phase 4) saved with
    ``save_to_dir`` and loaded back with
    ``TorchBeamSearchDecoderCTC.load_from_dir`` (timed beside the ARPA
@@ -153,10 +175,24 @@ Phases (any failed check exits non-zero and prints no result line):
    and 4 row windows of member A's planes on a real dense step's queries,
    each window against its plain version, summed bit-equal to the whole
    probe, each timed warm and L2-flushed beside the whole table, with its
-   bound.
+   bound;
+14. backtrace (after bpe): ``backtrace_paths`` (``csrc/backtrace.cu``)
+   against its plain version, bit-exact, on the logs and ranked beams that
+   real decodes left (phase 7's tails): dense [32, 544, 100] int8 with all
+   100 ranks and with the decode's top 1 (``emit_paths`` < B), a serving
+   group's timeline logs (with -3 carry markers), and bpe dense (int16
+   paths); each timed beside the plain version, with its bound (the log
+   entries the chains read, ``src`` and the paths);
+15. graph cache (after sharded): the main decoder, its cache never
+   cleared since phase 5, goes on with the dense and the serving call at
+   5, 12, 20 and 32 utterances (8 to 32 rows), the same with a hotword set,
+   and streams of 100 frames with no hotwords and with two hotword sets:
+   the keys it holds after each call, the distinct keys, the evictions at
+   ``GRAPH_KEYS`` and an LRU of 8's on the same requests, the captures'
+   seconds and the memory the cache adds.
 
-The sharded decode and the stream run the eager loop (their collectives,
-and a stream's one chunk a call, stay outside graph capture). Depth cuts of
+The sharded decode runs the eager loop (its NCCL collectives stay outside
+graph capture). Depth cuts of
 the earlier paths, to keep the script's time as the phases above were
 added (constants below): the CPU cross-checks of phases
 8 and 9 decode the first ``CPU_FRAMES`` frames of their utterances (the
@@ -177,6 +213,7 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -201,7 +238,7 @@ RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
 CHUNK = 5  # token_chunking=True
 OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel",
-               "probe_rows_kernel")
+               "probe_rows_kernel", "backtrace_paths_kernel")
 WIDE_BEAM, WIDE_ROWS = 1024, 8  # the widest beam the merge kernels take, on a smaller batch
 CLUSTERS = (1, 2, 4, 8)  # blocks per utterance the merge kernels can be forced to
 PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
@@ -824,8 +861,10 @@ def device_profile(torch, run, steps: int, latency_s: float, launches: dict) -> 
     except RuntimeError as err:
         log(f"[profiler] {err}")
         return None
-    own = {}  # the package's own kernels on this decode's data: (device ms, launches)
+    own = {}  # the package's own kernels on this decode's data, those it launched: (device ms, launches)
     for kernel in OWN_KERNELS:
+        if not launches.get(kernel[: -len("_kernel")]):
+            continue
         hit = [op for op in report.ops if is_own(kernel, op.name)]
         own[kernel] = (sum(op.total_ms for op in hit), sum(op.count for op in hit))
     busy_s = report.busy_ms / 1e3
@@ -1005,6 +1044,182 @@ def segments_case(torch, tag: str, decoder, members, logits, kw: dict, steps: li
     return rec, beams
 
 
+TAIL_REPS = 5  # timed runs of each tail (median)
+
+
+def tail_case(torch, tag: str, decoder, logits, kw: dict, card: str) -> dict:
+    """:func:`_tail_case` in inference mode, as the decoder's own calls run (the graphs' buffers are inference tensors)."""
+    with torch.inference_mode():
+        return _tail_case(torch, tag, decoder, logits, kw, card)
+
+
+def _tail_case(torch, tag: str, decoder, logits, kw: dict, card: str) -> dict:
+    """The end of one graph decode (its first length group), eager against captured.
+
+    The decode runs once through the graphs (``segment_frames=SEG``, the
+    captures), recording its launch arguments; its segments are replayed
+    again into logs owned here. Then, on the state the segments left, each
+    ``TAIL_REPS`` times: *before*, the finalize run eagerly (``_ranked_outputs``
+    on the host vector) and the plain backtrace (four launches a step);
+    *after*, the finalize graph's replay with the copies out of its static
+    buffers and one ``backtrace_paths`` launch. Each part is timed on the
+    host clock around work that ends in a synchronize. The two tails give
+    the same outputs to the bit. Their device ops and busy ms come from a
+    profile of each. The ops a decode issues outside its segment replays:
+    a profile of the same decode on the first ``PROFILE_FRAMES`` frames
+    less its replays (one replay profiled alone). Returns the record and the backtrace kernel's
+    arguments: the logs with the full ranking (R = B) and with the
+    decode's own (``top_n``).
+    """
+    import dataclasses
+
+    from pyctcdecode_torch import engine
+    from pyctcdecode_torch import torch_decoder as td
+    from pyctcdecode_torch.ops.backtrace import backtrace_paths, backtrace_paths_ref
+    from pyctcdecode_torch.utils.profiling import profile_call
+
+    dec = decoder.with_options(segment_frames=SEG)
+    seen = []
+    run_segmented = td.TorchBeamSearchDecoderCTC._run_segmented
+
+    def recording(self, *args):
+        seen.append(args)
+        return run_segmented(self, *args)
+
+    td.TorchBeamSearchDecoderCTC._run_segmented = recording
+    try:
+        dec.decode_beams_batch(logits, **kw)
+    finally:
+        td.TorchBeamSearchDecoderCTC._run_segmented = run_segmented
+    cfg, seg, tables, dev_in, n_frames, params, start, hot = seen[0]
+    init_fn, seg_fn, _ = engine.make_segment_decode_fns(cfg, tables, seg)
+    n, t_pad = n_frames.shape[0], (dev_in[2] if cfg.token_timeline else dev_in).shape[1]
+    prm = torch.as_tensor(params, device=dec.device)
+    parents = torch.empty((n, t_pad, cfg.beam_width), dtype=engine._parent_dtype(cfg.beam_width), device=dec.device)
+    trace = torch.empty((n, t_pad, cfg.beam_width), dtype=engine._path_dtype(cfg.vocab_size), device=dec.device)
+
+    def seg_in(s):
+        cut = slice(s * seg, (s + 1) * seg)
+        return tuple(p[:, cut] for p in dev_in) if cfg.token_timeline else dev_in[:, cut]
+
+    state0 = init_fn(start, n)
+    graph = dec._segment_graph(cfg, seg, seg_fn, state0, seg_in(0), n_frames, prm, tables, hot)
+    check(graph.graph is not None, f"tail {tag}: the decode's segment graph was not captured")
+    state = engine.run_segments(seg_fn, seg, state0, seg_in, t_pad // seg, n_frames, prm, hot, parents, trace, graph)
+    fin_graph = dec._finalize_graph(graph, cfg, tables, params)
+    check(fin_graph.graph is not None, f"tail {tag}: the decode's finalize graph was not captured")
+
+    def before():
+        out = engine._ranked_outputs(cfg, tables["lms"], hot, engine._params_dict(cfg, params), state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["paths"] = backtrace_paths_ref(parents, trace, out["beam_src"].contiguous())
+        torch.cuda.synchronize()
+        return out, t1
+
+    def after():
+        out = {key: val.clone() for key, val in fin_graph.run().items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out["paths"] = backtrace_paths(parents, trace, out["beam_src"])
+        torch.cuda.synchronize()
+        return out, t1
+
+    times = {"before": [], "after": []}
+    results = {}
+    for _ in range(TAIL_REPS):
+        for name, fn in (("before", before), ("after", after)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, t1 = fn()
+            t2 = time.perf_counter()
+            times[name].append((t1 - t0, t2 - t1))
+            results[name] = out
+    for key, val in results["before"].items():
+        check(torch.equal(val, results["after"][key]), f"tail {tag}: {key} differs between the eager and the captured tail")
+    rec = {"rows": n, "steps": t_pad, "r": int(results["after"]["paths"].shape[1])}
+    for name in ("before", "after"):
+        rec[name] = {"finalize_ms": statistics.median(x[0] for x in times[name]) * 1e3,
+                     "backtrace_ms": statistics.median(x[1] for x in times[name]) * 1e3}
+        report = profile_call(lambda fn=(before if name == "before" else after): fn(), tries=PROFILE_TRIES)
+        rec[name].update(device_ops=report.launches, device_busy_ms=report.busy_ms)
+    # the full ranking's source rows (R = B) for the kernel checks, before the replays below move the state
+    src_full = engine._ranked_outputs(dataclasses.replace(cfg, emit_paths=None), tables["lms"], hot,
+                                      engine._params_dict(cfg, params), state)["beam_src"].contiguous()
+    args = {"full": (parents, trace, src_full), "top": (parents, trace, results["after"]["beam_src"])}
+    # device ops outside the segment replays: a decode of the first frames, less its replays
+    head = [m[:PROFILE_FRAMES] for m in logits]
+    whole = profile_call(lambda: dec.decode_beams_batch(head, **kw), tries=PROFILE_TRIES)
+    one = profile_call(lambda: graph.graph.replay(), tries=PROFILE_TRIES)
+    seen.clear()
+    td.TorchBeamSearchDecoderCTC._run_segmented = recording
+    try:
+        dec.decode_beams_batch(head, **kw)
+    finally:
+        td.TorchBeamSearchDecoderCTC._run_segmented = run_segmented
+    replays = sum((a[3][2] if a[0].token_timeline else a[3]).shape[1] // a[1] for a in seen)
+    rec["outside_replays"] = {"frames": PROFILE_FRAMES, "replays": replays, "ops_per_replay": one.launches,
+                              "decode_ops": whole.launches, "ops": whole.launches - replays * one.launches}
+    log(f"[tail] {tag} ({n} rows, {t_pad} steps, R {rec['r']}): eager finalize {rec['before']['finalize_ms']:.3f} ms + "
+        f"plain backtrace {rec['before']['backtrace_ms']:.3f} ms ({rec['before']['device_ops']} device ops, busy "
+        f"{rec['before']['device_busy_ms']:.3f} ms) against the finalize graph's replay "
+        f"{rec['after']['finalize_ms']:.3f} ms + backtrace_paths {rec['after']['backtrace_ms']:.3f} ms "
+        f"({rec['after']['device_ops']} device ops, busy {rec['after']['device_busy_ms']:.3f} ms); equal to the bit; "
+        f"a decode of the first {PROFILE_FRAMES} frames issues {rec['outside_replays']['ops']} of its {whole.launches} "
+        f"device ops outside its {replays} replays of {one.launches} ops [{card}]")
+    del dec
+    return rec, args
+
+
+def backtrace_phase(torch, cases: dict, card: str) -> dict:
+    """``backtrace_paths`` against its plain version on real decodes' logs, bit-exact, and timed.
+
+    ``cases``: name -> ``(parents, trace, src)`` on the card. Device ms over
+    ``REPS`` calls (``time_call``), the plain version's over 5 (a launch
+    chain of four ops a step). Bound: the bytes this run's chains need over
+    the card's memory rate: each log entry a chain stands on read once
+    (:func:`chain_entries`: at most ``min(R, B)`` a frame, fewer where
+    chains merge), ``src`` read once, the paths written once.
+    """
+    from pyctcdecode_torch.ops.backtrace import backtrace_paths, backtrace_paths_ref
+
+    out = {}
+    for name, (parents, trace, src) in cases.items():
+        got = backtrace_paths(parents, trace, src)
+        want = backtrace_paths_ref(parents, trace, src)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"backtrace_paths {name}: differs from its plain version")
+        ms, call_ms = time_call(torch, lambda: backtrace_paths(parents, trace, src))
+        plain_ms, _ = time_call(torch, lambda: backtrace_paths_ref(parents, trace, src), reps=5)
+        entries = chain_entries(torch, parents, src)
+        moved = entries * (parents.element_size() + trace.element_size()) + nbytes([src, got])
+        whole = nbytes([parents, trace, src, got])
+        bound, by = bound_ms(moved, float(got.numel()))
+        carry = int((trace == -3).sum())
+        out[name] = {"shape": [list(parents.shape), str(parents.dtype), str(trace.dtype), list(src.shape)],
+                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "max_abs_err": 0.0, "bytes": moved, "log_entries_read": entries,
+                     "whole_logs_bytes": whole, "whole_logs_bound_ms": bound_ms(whole, 0.0)[0],
+                     "carry_markers": carry}
+        log(f"[backtrace_paths] {name}: logs {list(parents.shape)} ({parents.dtype}, {trace.dtype}), R {src.shape[1]}"
+            f"{f', {carry} carry markers' if carry else ''}: equal to the plain version; {ms:.4f} ms (call "
+            f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}, {moved} bytes: {entries} log "
+            f"entries the chains read, src, paths; the whole logs would be {whole} bytes, "
+            f"{out[name]['whole_logs_bound_ms']:.6f} ms) [{card}]")
+    return out
+
+
+def chain_entries(torch, parents, src) -> int:
+    """Log entries the chains of ``src`` stand on: per utterance and frame, the distinct beams among them."""
+    cur = src
+    total = torch.zeros((), dtype=torch.int64, device=src.device)
+    for t in range(parents.shape[1] - 1, -1, -1):
+        ranked, _ = cur.sort(dim=1)
+        total += ranked.shape[0] + (ranked[:, 1:] != ranked[:, :-1]).sum()
+        cur = parents[:, t].gather(1, cur).to(torch.int64)
+    return int(total)
+
+
 def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict,
               audio_s: float, card: str) -> dict:
     """``decode_beams_batches`` at depth 1 over the first ``PIPE_UTTS`` utterances and the same reversed.
@@ -1037,8 +1252,11 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
 
 
 def counters(merge, gather) -> dict:
+    from pyctcdecode_torch.ops import backtrace
+
     return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
-            "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows}
+            "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows,
+            "backtrace_paths": backtrace.backtrace_paths}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -1050,7 +1268,7 @@ def read_counts(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def expected_counts(members, steps: int, finalizes: int) -> dict:
+def expected_counts(members, steps: int, finalizes: int, stream: bool = False) -> dict:
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
     ``members``: the LM members (one for a plain LM, none without an LM).
@@ -1059,7 +1277,10 @@ def expected_counts(members, steps: int, finalizes: int) -> dict:
     (every n-gram order >= 2 of the member's ``lm_score_words`` call). A
     finalization launches ``merge_prune`` once and, per member, scores the
     last word and, where the member scores the sentence boundary, ``</s>``:
-    one ``probe_rows`` launch each. A unigram member probes no table.
+    one ``probe_rows`` launch each. A unigram member probes no table. A
+    batch decode's finalization backtraces its paths with one
+    ``backtrace_paths`` launch; a stream's chunk (``stream``) backtraces on
+    the host.
     """
     probing = [m for m in members if m.order > 1]
     return {
@@ -1067,6 +1288,7 @@ def expected_counts(members, steps: int, finalizes: int) -> dict:
         "merge_prune": finalizes,
         "gather_rows": steps * len(members),
         "probe_rows": steps * len(probing) + finalizes * sum(2 if m.score_boundary else 1 for m in probing),
+        "backtrace_paths": 0 if stream else finalizes,
     }
 
 
@@ -1106,7 +1328,7 @@ def check_counts(tag: str, got: dict, want: dict) -> None:
     log(f"[{tag}] launches {got}, implied by the code {want}")
     for name, n in want.items():
         check(got[name] == n, f"{tag}: {name} launched {got[name]} times, expected {n}")
-        check(got[name] > 0, f"{tag}: {name} was never launched")
+        check(got[name] > 0 or n == 0, f"{tag}: {name} was never launched")
 
 
 def top_texts(beams) -> list:
@@ -1561,8 +1783,9 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
 
     seg_rec, _ = segments_case(torch, "bpe dense", decoder, [lm_a], logits, dict(dense_kw, **beams_kw), [steps],
                                dense_prep_s(logits), audio_s, wrappers, card)
+    tail_rec, bt_args = tail_case(torch, "bpe dense", decoder, logits, dict(dense_kw, **beams_kw), card)
     prof = seg_rec[SEG]["profile"]
-    return decoder, logits, {
+    return decoder, logits, {"tail": tail_rec, "backtrace_args": bt_args["full"],
         "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC, "setup_s": setup_s,
         "frame_steps": steps, "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
         "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches, "wer": wer,
@@ -1594,12 +1817,14 @@ def chunked(mat) -> list:
     return [mat[i : i + STREAM_CHUNK] for i in range(0, mat.shape[0], STREAM_CHUNK)]
 
 
-def run_stream(decoder, chunks, force_at=None, hot_calls=None, **start_kw):
+def run_stream(decoder, chunks, force_at=None, hot_calls=None, states=None, split=None, **start_kw):
     """One stream over ``chunks`` (``is_end`` on the last): its views and each call's wall ms.
 
     ``hot_calls``: the hotword list of each call (the state is made with
     hotwords enabled). ``partial_decode_beams`` waits for the device and
     copies its outputs back, so a call's wall time is all of its work.
+    ``states`` (a list) gets a copy of the carried state after each call;
+    ``split`` (a :func:`chunk_split` record) gets each call's split.
     """
     state = decoder.get_starting_state(beam_width=BEAM, hotwords_enabled=hot_calls is not None, **start_kw)
     views, ms = [], []
@@ -1609,6 +1834,11 @@ def run_stream(decoder, chunks, force_at=None, hot_calls=None, **start_kw):
         views.append(decoder.partial_decode_beams(
             state, chunk, force_next_word=(i == force_at), is_end=(i == len(chunks) - 1), **kw))
         ms.append((time.perf_counter() - t0) * 1e3)
+        if split is not None:
+            split["chunks"].append(dict(split["acc"], wall=ms[-1] / 1e3))
+            split["acc"].update(dict.fromkeys(split["acc"], 0.0))
+        if states is not None:
+            states.append({key: val.clone() for key, val in state.beam_state.items()})
     return views, ms
 
 
@@ -1714,66 +1944,361 @@ def check_stream_is_full_decode(tag: str, full, view) -> float:
     return worst
 
 
+STREAM_PARTS = ("segments", "finalize", "fetch", "backtrace_replay")
+
+
+@contextlib.contextmanager
+def chunk_split():
+    """Host seconds of each ``partial_decode_beams`` call by part, while the block runs.
+
+    The parts: ``segments`` (the chunk's steps: the eager loop's enqueue, or
+    the segment graphs' loads, input copies and replays), ``finalize`` (the
+    eager finalize, or the finalize graph's replay), ``fetch`` (the wait for
+    the device and the output copy) and ``backtrace_replay`` (the host
+    backtrace over the chunk logs and the token replay into words); the
+    rest of a call's wall time is its host prep and state copies. Yields
+    ``{"acc": running sums, "chunks": []}`` for :func:`run_stream`.
+    """
+    from pyctcdecode_torch import engine
+    from pyctcdecode_torch import torch_decoder as td
+
+    rec = {"acc": dict.fromkeys(STREAM_PARTS, 0.0), "chunks": []}
+
+    def timed(part, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec["acc"][part] += time.perf_counter() - t0
+        return call
+
+    make = td.make_stream_fns
+
+    def make_timed(*args, **kwargs):
+        init_fn, chunk_fn, finalize_fn = make(*args, **kwargs)
+        return init_fn, timed("segments", chunk_fn), timed("finalize", finalize_fn)
+
+    patches = [(td, "make_stream_fns", make_timed),
+               (engine.FinalizeGraph, "run", timed("finalize", engine.FinalizeGraph.run)),
+               (td.TorchBeamSearchDecoderCTC, "_fetch", timed("fetch", td.TorchBeamSearchDecoderCTC._fetch)),
+               (td, "_backtrace_chunks", timed("backtrace_replay", td._backtrace_chunks)),
+               (td, "replay_token_path", timed("backtrace_replay", td.replay_token_path))]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, fn in patches:
+        setattr(obj, attr, fn)
+    try:
+        yield rec
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+
+
+def check_states(tag: str, want, got) -> None:
+    """Two streams' carried states after every chunk: every plane equal to the bit."""
+    import torch
+
+    check(len(want) == len(got), f"{tag}: {len(got)} states for {len(want)} chunks")
+    for i, (w, g) in enumerate(zip(want, got)):
+        check(set(w) == set(g), f"{tag}: chunk {i}: the state planes differ")
+        for key in w:
+            check(w[key].dtype == g[key].dtype and torch.equal(w[key], g[key]),
+                  f"{tag}: chunk {i}: carried state plane {key} differs")
+
+
+def host_step_calls(fn) -> int:
+    """Frame steps ``fn`` runs from the host (calls of ``_make_step``'s step; a graph replay makes none)."""
+    from pyctcdecode_torch import engine
+
+    calls = [0]
+    make = engine._make_step
+
+    def counting(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return step(*a, **k)
+        return counted
+
+    engine._make_step = counting
+    try:
+        fn()
+    finally:
+        engine._make_step = make
+    return calls[0]
+
+
+def host_launch_calls(torch, fn) -> dict:
+    """CUDA runtime calls ``fn`` makes from the host (kernel and graph launches, copies), by name.
+
+    Read from a ``torch.profiler`` trace with CPU activity: the rows of the
+    runtime API (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cudaMemcpyAsync``,
+    ...). Empty when the profiler records no runtime rows.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: int(ev.count) for ev in prof.key_averages()
+            if ev.key.startswith("cu") and any(w in ev.key for w in ("Launch", "Memcpy", "Memset"))}
+
+
+def stream_column(torch, tag: str, dec, members, utts, wrappers: dict, card: str, hotwords=None,
+                  host_calls: bool = True) -> dict:
+    """The streams of one column: ``dec`` replays graphs (``segment_frames`` 16) or runs eagerly (0).
+
+    ``hotwords``: the hotword list every chunk passes (the states made with
+    hotwords enabled), or None. ``host_calls``: count the frame steps and
+    CUDA runtime calls the host makes a chunk (a profile with CPU activity:
+    tens of seconds for an eager column). A warm-up stream of utterance 0 first (for graphs: every capture of the
+    key; its first chunk's wall ms is logged apart), then the streams of
+    ``utts``, each with its launch counts (``expected_counts`` of the
+    launched steps: the chunks padded to whole segments under graphs, one
+    finalize per chunk, no batch backtrace), the wall ms of every call, its
+    split (:func:`chunk_split`), the carried state after every chunk, the
+    peak device memory, each key's capture seconds, the frame steps run
+    from the host, and a profile of utterance 0's first ``PROFILE_FRAMES``
+    frames (device busy, idle share, device ops a frame).
+    """
+    seg = dec._segment_frames_effective()
+    rec = {"segment_frames": seg}
+
+    def run(chunks, **kw):
+        return run_stream(dec, chunks, hot_calls=None if hotwords is None else [hotwords] * len(chunks), **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, warm_ms = run(chunked(utts[0]))
+    rec.update(warmup_stream_s=time.perf_counter() - t0, first_chunk_ms=warm_ms[0], warmup_chunk_ms=warm_ms)
+    rec["captures"] = [{"segment_s": g.capture_s, "finalize_s": [f.capture_s for f in g.finals.values()]}
+                       for g in dec._graphs.values()]
+    chunk_ms, views, states, launches, splits = [], [], [], None, []
+    frames = 0
+    with chunk_split() as split:
+        for u, mat in enumerate(utts):
+            chunks = chunked(mat)
+            reset_counts(wrappers)
+            st: list = []
+            v, ms = run(chunks, states=st, split=split)
+            got = read_counts(wrappers)
+            steps = sum(launched(c.shape[0], seg) for c in chunks)
+            check_counts(f"stream {tag} utterance {u}", got, expected_counts(members, steps, len(chunks), stream=True))
+            launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+            chunk_ms.append(ms)
+            views.append(v)
+            states.append(st)
+            frames += mat.shape[0]
+        splits = split["chunks"]
+    rec["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    flat = [x for ms in chunk_ms for x in ms]
+    by_pos = [statistics.median(ms[i] for ms in chunk_ms if i < len(ms)) for i in range(max(map(len, chunk_ms)))]
+    parts = {part: statistics.median(sp[part] for sp in splits) * 1e3 for part in STREAM_PARTS + ("wall",)}
+    parts["other"] = parts["wall"] - sum(parts[p] for p in STREAM_PARTS)
+    streams_s = sum(flat) / 1e3
+    head = chunked(utts[0])[: PROFILE_FRAMES // STREAM_CHUNK]
+    if host_calls:
+        rec["host_steps_per_chunk"] = host_step_calls(lambda: run(head)) / len(head)
+        rec["host_runtime_calls_per_chunk"] = {k: n / len(head) for k, n in
+                                               host_launch_calls(torch, lambda: run(head)).items()}
+        check(seg == 0 or rec["host_steps_per_chunk"] == 0, f"stream {tag}: the host ran frame steps under graphs")
+    rec.update(frames=frames, launches=launches, chunk_ms=chunk_ms, chunk_ms_median=statistics.median(flat),
+               chunk_ms_max=max(flat), chunk_ms_by_position=by_pos, streams_s=streams_s,
+               ms_per_frame=streams_s / frames * 1e3, split_ms_median=parts, views=views, states=states)
+    log(f"[stream {tag}] segment_frames={seg}: {len(utts)} utterances ({frames} frames) in chunks of {STREAM_CHUNK}, "
+        f"beam {BEAM}: partial_decode_beams wall ms per chunk median {rec['chunk_ms_median']:.2f}, max "
+        f"{rec['chunk_ms_max']:.2f}; by chunk position {[round(x, 1) for x in by_pos]}; first chunk of the "
+        f"warm-up stream (its captures) {warm_ms[0]:.1f} ms; wall ms split (medians) "
+        f"{ {k: round(v, 3) for k, v in parts.items()} }; ms per frame {streams_s / frames * 1e3:.2f}; peak device "
+        f"memory {rec['peak_device_gb']:.3f} GB; captures {rec['captures']}; frame steps from the host per chunk "
+        f"{rec.get('host_steps_per_chunk', 'not counted')}; CUDA runtime calls per chunk "
+        f"{rec.get('host_runtime_calls_per_chunk', 'not counted')} [{card}]")
+    latencies = []
+    for _ in range(PROFILE_RUNS):
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        run(head)
+        latencies.append(time.perf_counter() - t0)
+    p_launches = read_counts(wrappers)
+    steps = p_launches["expand_merge_prune"]
+    latency = statistics.median(latencies)
+    prof = device_profile(torch, lambda: run(head), steps, latency, p_launches)
+    log(f"[profile stream {tag}] the first {len(head) * STREAM_CHUNK} frames of utterance 0 in {len(head)} chunks "
+        f"({steps} launched steps): unprofiled latency median {latency:.3f} s of "
+        f"{', '.join(f'{x:.3f}' for x in latencies)}")
+    log_profile(f"profile stream {tag}", prof, latency, card)
+    if prof is not None:
+        frames_p = len(head) * STREAM_CHUNK
+        prof.update(steps=steps, frames=frames_p, latency_s=latency, launches=p_launches,
+                    device_ops_per_frame=prof["device_ops_per_step"] * steps / frames_p)
+    rec["profile"] = prof
+    return rec
+
+
+MIX_SIZES = (5, 12, 20, N_UTTS)  # batch sizes of the cache phase: 8, 16, 24 and 32 rows at batch_pad 8
+MIX_HOT = (("remember", "achieve", "doubt", "mind"), ("good", "deal", "shall", "upon"))  # two hotword sets
+
+
+def lru_evictions(held: list, requests: list, limit: int) -> int:
+    """Keys an LRU cache of ``limit`` keys, holding ``held`` (oldest first), drops over ``requests``."""
+    cache, dropped = list(held)[-limit:], 0
+    for key in requests:
+        if key in cache:
+            cache.remove(key)
+        elif len(cache) >= limit:
+            cache.pop(0)
+            dropped += 1
+        cache.append(key)
+    return dropped
+
+
+def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
+    """The keys one decoder that serves batches and streams asks its graph cache for, and what it evicts.
+
+    ``decoder`` has served the earlier phases (dense at 32 rows, serving
+    groups of 16 and 8 rows, one-utterance batches) with its cache never
+    cleared. It goes on here without clearing: the dense and the serving
+    call at each of ``MIX_SIZES`` utterances (every row count of the
+    ``batch_pad`` grid up to 32), the same with the hotword set
+    ``MIX_HOT[0]``, then streams of the first ``PROFILE_FRAMES`` frames with
+    no hotwords and with each of the two sets (two unigram sets: two
+    keys). Logged: the keys held after each call, the distinct keys of the
+    run, the evictions at ``GRAPH_KEYS`` and what an LRU of 8 keys would
+    have dropped on the same requests, the captures' seconds, and the
+    device memory the cache holds.
+    """
+    from pyctcdecode_torch import torch_decoder as td
+
+    requests: list = []
+    original = td.TorchBeamSearchDecoderCTC._segment_graph
+
+    def asked(self, *args, **kwargs):
+        graph = original(self, *args, **kwargs)
+        if self is decoder:
+            requests.append(next(reversed(self._graphs)))
+        return graph
+
+    held0, evicted0 = list(decoder._graphs), decoder._graph_evictions
+    torch.cuda.synchronize()
+    mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    calls, seen = [], set(held0)
+    dense_kw, serve_kw = dict(beam_width=BEAM, max_tokens_per_frame=None), dict(beam_width=BEAM, **SERVING)
+    head = [m[:PROFILE_FRAMES] for m in logits]
+    td.TorchBeamSearchDecoderCTC._segment_graph = asked
+    t0 = time.perf_counter()
+    try:
+        for hot in (None, list(MIX_HOT[0])):
+            for n in MIX_SIZES:
+                for tag, kw in (("dense", dense_kw), ("serving", serve_kw)):
+                    decoder.decode_batch(head[:n], hotwords=hot, **kw)
+                    calls.append((f"{tag} {n}{' hot' if hot else ''}", len(decoder._graphs)))
+                    seen.update(decoder._graphs)
+        chunks = chunked(head[0])
+        for hot in (None,) + MIX_HOT:
+            run_stream(decoder, chunks, hot_calls=None if hot is None else [list(hot)] * len(chunks))
+            calls.append((f"stream{' ' + hot[0] if hot else ''}", len(decoder._graphs)))
+            seen.update(decoder._graphs)
+    finally:
+        td.TorchBeamSearchDecoderCTC._segment_graph = original
+    torch.cuda.synchronize()
+    rec = dict(keys_held_before=len(held0), requests=len(requests), distinct_keys=len(seen),
+               keys_held_after_each=calls, peak_keys_held=max(n for _, n in calls), limit=td.GRAPH_KEYS,
+               evictions=decoder._graph_evictions - evicted0,
+               lru8_evictions=lru_evictions(held0, requests, 8),
+               capture_s=sum(g.capture_s + sum(f.capture_s for f in g.finals.values())
+                             for g in decoder._graphs.values()),
+               graphs_held=sum(1 + len(g.finals) for g in decoder._graphs.values()),
+               memory_added_gb=(torch.cuda.memory_allocated() - mem0) / 1e9,
+               reserved_added_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9,
+               seconds=time.perf_counter() - t0)
+    log(f"[graph cache] one decoder's batches and streams, never cleared: {rec['keys_held_before']} keys held from "
+        f"the earlier phases, then {len(calls)} calls ({len(requests)} key requests): keys held after each "
+        f"{[n for _, n in calls]}, {rec['distinct_keys']} distinct keys, peak held {rec['peak_keys_held']} of the "
+        f"limit GRAPH_KEYS = {rec['limit']}, evictions {rec['evictions']} (an LRU of 8 would drop "
+        f"{rec['lru8_evictions']}); {rec['graphs_held']} graphs held (segments and finalizes), their captures "
+        f"{rec['capture_s']:.3f} s; device memory added {rec['memory_added_gb']:.3f} GB allocated, "
+        f"{rec['reserved_added_gb']:.3f} GB reserved; {rec['seconds']:.1f} s [{card}]")
+    return rec
+
+
+def interleaved(dec, mats) -> list:
+    """Streams of ``mats`` on one decoder, chunk by chunk in turns: each stream's views."""
+    lists = [chunked(m) for m in mats]
+    states = [dec.get_starting_state(beam_width=BEAM) for _ in mats]
+    views: list = [[] for _ in mats]
+    for i in range(max(map(len, lists))):
+        for j, chunks in enumerate(lists):
+            if i < len(chunks):
+                views[j].append(dec.partial_decode_beams(states[j], chunks[i], is_end=(i == len(chunks) - 1)))
+    return views
+
+
 def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logits, card: str) -> dict:
     """The ``stream`` path: ``get_starting_state`` / ``partial_decode_beams`` in 25-frame chunks.
 
     ``decoders``: the char decoder with member A (``"char"``), the hot2lm
     two-member decoder (``"hot2lm"``) and the bpe decoder (``"bpe"``), their
-    device tables parked. Checks, all at beam 100 on the card: each of the
-    first ``STREAM_UTTS`` utterances' streams equals its full decode, with
-    the launch counts of its frame steps and one finalize per chunk; the
-    first utterance's stream with ``force_next_word`` at the middle chunk
-    equals the host oracle's top view at every chunk (within 2e-3); the
-    first ``STREAM_CPU_CHUNKS`` chunks of it on a ``device="cpu"`` decoder
-    give identical views; the hot2lm stream with the hotwords equals the full
-    decode, and with the hotword list written anew from the middle chunk on
-    (the same unigram set: the carried partial words walk the new trie) the
-    host oracle's views; the bpe stream equals the full decode. Logged:
-    per-chunk wall ms (median, maximum, by chunk position), host ms per frame
-    step, peak device memory, a profile of the first 200 frames of one
-    stream, the host oracle's wall time.
+    device tables parked. Each path runs in two columns: through captured
+    graphs (the CUDA default: each chunk's segments and its finalize
+    replayed) and on a ``with_options(segment_frames=0)`` clone (the eager
+    loop). Checks, all at beam 100 on the card: the graph stream's views
+    and carried state equal the eager stream's to the bit at every chunk;
+    each of the first ``STREAM_UTTS`` utterances' streams equals its full
+    decode, with the launch counts of its (padded) steps and one finalize
+    per chunk; two streams interleaved chunk by chunk on one decoder give
+    each stream's views alone; the first utterance's stream with
+    ``force_next_word`` at the middle chunk equals the host oracle's top
+    view at every chunk (within 2e-3), and the eager stream's to the bit;
+    the first ``STREAM_CPU_CHUNKS`` chunks of it on a ``device="cpu"``
+    decoder give identical views; the hot2lm stream with the hotwords
+    equals the full decode, and with the hotword list written anew from the
+    middle chunk on (the same unigram set: the carried partial words walk
+    the new trie) the host oracle's views; the bpe stream equals the full
+    decode. Logged per column: chunk ms (:func:`stream_column`), the
+    profile, the host oracle's wall time.
     """
     wrappers = counters(merge, gather)
     char = decoders["char"]
     unpark(char)
     lm_a = char.language_model
+    eager = char.with_options(segment_frames=0)
     utts = corpus.logits[:STREAM_UTTS]
     rec: dict = {"chunk_frames": STREAM_CHUNK, "utterances": STREAM_UTTS}
 
-    # the char streams, each against its full decode
-    chunk_ms, launches, frames_done, worst = [], None, 0, 0.0
-    torch.cuda.reset_peak_memory_stats()
-    t_all = time.perf_counter()
+    cols = {"graphs": stream_column(torch, "graphs", char, [lm_a], utts, wrappers, card),
+            "eager": stream_column(torch, "eager", eager, [lm_a], utts, wrappers, card)}
+    g, e = cols["graphs"], cols["eager"]
+    worst = 0.0
     for u, mat in enumerate(utts):
-        chunks = chunked(mat)
-        reset_counts(wrappers)
-        views, ms = run_stream(char, chunks)
-        got = read_counts(wrappers)
-        check_counts(f"stream utterance {u}", got, expected_counts([lm_a], mat.shape[0], len(chunks)))
-        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
-        worst = max(worst, check_stream_is_full_decode(f"stream utterance {u}", char.decode_beams(mat, beam_width=BEAM),
-                                                       views[-1]))
-        chunk_ms.append(ms)
-        frames_done += mat.shape[0]
-    streams_s = sum(sum(ms) for ms in chunk_ms) / 1e3
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    flat = [x for ms in chunk_ms for x in ms]
-    by_pos = [statistics.median(ms[i] for ms in chunk_ms if i < len(ms)) for i in range(max(map(len, chunk_ms)))]
-    log(f"[stream] {STREAM_UTTS} utterances ({frames_done} frames) in chunks of {STREAM_CHUNK}, beam {BEAM}, K "
-        f"{K_TOKENS}, member A: every stream equals its full decode (max lm_score diff {worst:.3g}); "
-        f"partial_decode_beams wall ms per chunk median {statistics.median(flat):.2f}, max {max(flat):.2f}; by "
-        f"chunk position (median over the utterances) {[round(x, 1) for x in by_pos]}; host ms per frame step "
-        f"{streams_s / frames_done * 1e3:.2f}; peak device memory {peak_gb:.3f} GB; "
-        f"{time.perf_counter() - t_all:.1f} s with the full decodes [{card}]")
-    rec.update(frames=frames_done, launches=launches, chunk_ms=chunk_ms, chunk_ms_median=statistics.median(flat),
-               chunk_ms_max=max(flat), chunk_ms_by_position=by_pos, streams_s=streams_s,
-               host_ms_per_step=streams_s / frames_done * 1e3, peak_device_gb=peak_gb,
-               max_lm_score_diff_vs_full=worst)
+        check_views(f"stream utterance {u}: graphs vs eager", e["views"][u], g["views"][u], 0.0)
+        check_states(f"stream utterance {u}: graphs vs eager", e["states"][u], g["states"][u])
+        worst = max(worst, check_stream_is_full_decode(
+            f"stream utterance {u}", char.decode_beams(mat, beam_width=BEAM), g["views"][u][-1]))
+    # two streams in turns on one decoder: every state copied into the graphs' buffers and out again
+    inter = interleaved(char, utts)
+    for u in range(len(utts)):
+        check_views(f"stream utterance {u}: interleaved vs alone", g["views"][u], inter[u], 0.0)
+    log(f"[stream] graphs vs eager: every view and carried state plane equal to the bit at every chunk "
+        f"(lm_score difference 0); every stream equals its full decode (max lm_score diff {worst:.3g}); "
+        f"{len(utts)} streams interleaved chunk by chunk on one decoder give each stream's views alone; chunk ms "
+        f"median graphs {g['chunk_ms_median']:.2f} against eager {e['chunk_ms_median']:.2f} (x"
+        f"{e['chunk_ms_median'] / g['chunk_ms_median']:.2f}), max {g['chunk_ms_max']:.2f} against "
+        f"{e['chunk_ms_max']:.2f} [{card}]")
+    for col in cols.values():
+        col.pop("views"), col.pop("states")
+    g_prof = g["profile"] or {}
+    rec.update(columns=cols, launches=g["launches"], chunk_ms_median=g["chunk_ms_median"],
+               chunk_ms_max=g["chunk_ms_max"], max_lm_score_diff_vs_full=worst, profile=g["profile"],
+               device_busy_s=g_prof.get("device_busy_s"))
 
-    # each kernel on the inputs the stream gives it: frame 60's step, and the
-    # finalize of its chunk (not committing), held against the plain versions
+    # each kernel on the inputs the stream gives it (recorded on the eager loop, whose
+    # wrappers are called per step): frame 60's step, and the finalize of its chunk
+    # (not committing), held against the plain versions
     chunks = chunked(utts[0])
-    calls = record_stream_calls(torch, char, chunks[:4], step=60)
+    calls = record_stream_calls(torch, eager, chunks[:4], step=60)
     kern = {}
     kern["expand_merge_prune"], _ = expand_case(
         torch, merge, f"expand_merge_prune stream step {list(calls['expand_merge_prune'][3].shape)}",
@@ -1787,17 +2312,22 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     rec["kernels"] = kern
     del calls, step_calls
 
-    # the host oracle, with a forced commit at the middle chunk
+    # the host oracle, with a forced commit at the middle chunk; the eager stream beside it
     mid = len(chunks) // 2
     host = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_a)
     h_views, host_s = host_stream(host, chunks, force_at=mid)
-    d_views, _ = run_stream(char, chunks, force_at=mid)
+    st_g, st_e = [], []
+    d_views, _ = run_stream(char, chunks, force_at=mid, states=st_g)
+    e_views, _ = run_stream(eager, chunks, force_at=mid, states=st_e)
+    check_views("stream forced: graphs vs eager", e_views, d_views, 0.0)
+    check_states("stream forced: graphs vs eager", st_e, st_g)
     d_host = check_views("stream vs host oracle", h_views, d_views, HOST_TOL, top_only=True)
-    log(f"[stream] utterance 0 with force_next_word at chunk {mid} of {len(chunks)}: every chunk's top view equals "
-        f"the host oracle's (max score diff {d_host:.3g}); the host oracle (one core) took {host_s:.3f} s for "
-        f"{utts[0].shape[0]} frames, {host_s / utts[0].shape[0] * 1e3:.2f} ms a frame")
+    log(f"[stream] utterance 0 with force_next_word at chunk {mid} of {len(chunks)}: graphs equal eager to the bit; "
+        f"every chunk's top view equals the host oracle's (max score diff {d_host:.3g}); the host oracle (one core) "
+        f"took {host_s:.3f} s for {utts[0].shape[0]} frames, {host_s / utts[0].shape[0] * 1e3:.2f} ms a frame")
     rec.update(host_oracle_s=host_s, host_oracle_frames=int(utts[0].shape[0]), max_score_diff_vs_host=d_host,
                forced_chunk=mid)
+    del st_g, st_e
 
     # the first chunks of utterance 0 on the CPU (the plain versions)
     t0 = time.perf_counter()
@@ -1807,67 +2337,73 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     log(f"[check] stream: the first {len(head)} chunks of utterance 0 give identical views on the CPU (max score "
         f"diff {d_cpu:.3g}), {time.perf_counter() - t0:.1f} s")
     rec["cpu_chunks"], rec["cpu_max_score_diff"] = len(head), d_cpu
-    del cpu
-
-    # one stream's first chunks under the profiler
-    head = chunks[: PROFILE_FRAMES // STREAM_CHUNK]
-    latencies = []
-    for _ in range(PROFILE_RUNS):
-        reset_counts(wrappers)
-        t0 = time.perf_counter()
-        run_stream(char, head)
-        latencies.append(time.perf_counter() - t0)
-    p_launches = read_counts(wrappers)
-    steps = p_launches["expand_merge_prune"]
-    latency = statistics.median(latencies)
-    prof = device_profile(torch, lambda: run_stream(char, head), steps, latency, p_launches)
-    log(f"[profile stream] the first {steps} frames of utterance 0 in {len(head)} chunks: unprofiled latency median "
-        f"{latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}")
-    log_profile("profile stream", prof, latency, card)
-    if prof is not None:
-        prof.update(steps=steps, latency_s=latency, launches=p_launches)
-    rec["profile"] = prof
+    del cpu, eager
     park(char)
 
     # hot2lm: two members and the hotwords; then the hotword list written anew mid-stream
     multi = decoders["hot2lm"]
     unpark(multi)
+    m_eager = multi.with_options(segment_frames=0)
     members = list(multi.language_model._language_models)
-    chunks = chunked(utts[0])
-    reset_counts(wrappers)
-    views, ms = run_stream(multi, chunks, hot_calls=[hot] * len(chunks))
-    h_launches = read_counts(wrappers)
-    check_counts("stream hot2lm", h_launches, expected_counts(members, utts[0].shape[0], len(chunks)))
-    d_full = check_stream_is_full_decode("stream hot2lm", multi.decode_beams(utts[0], beam_width=BEAM, hotwords=hot),
-                                         views[-1])
     rewritten = sorted({w for phrase in hot for w in phrase.split()}, reverse=True)
-    calls = [hot] * mid + [rewritten] * (len(chunks) - mid)
+    hot_calls = [hot] * mid + [rewritten] * (len(chunks) - mid)
+    h_rec = {}
+    for tag, dec in (("graphs", multi), ("eager", m_eager)):
+        col = stream_column(torch, f"hot2lm {tag}", dec, members, utts[:1], wrappers, card, hotwords=hot,
+                            host_calls=False)
+        st: list = []
+        col["r_views"], col["rewritten_chunk_ms"] = run_stream(dec, chunks, hot_calls=hot_calls, states=st)
+        col["r_states"] = st
+        h_rec[tag] = col
+    check_views("stream hot2lm: graphs vs eager", h_rec["eager"]["views"][0], h_rec["graphs"]["views"][0], 0.0)
+    check_states("stream hot2lm: graphs vs eager", h_rec["eager"]["states"][0], h_rec["graphs"]["states"][0])
+    check_views("stream hot2lm rewritten: graphs vs eager", h_rec["eager"]["r_views"], h_rec["graphs"]["r_views"], 0.0)
+    check_states("stream hot2lm rewritten: graphs vs eager", h_rec["eager"]["r_states"], h_rec["graphs"]["r_states"])
+    d_full = check_stream_is_full_decode("stream hot2lm", multi.decode_beams(utts[0], beam_width=BEAM, hotwords=hot),
+                                         h_rec["graphs"]["views"][0][-1])
     h_views, h_host_s = host_stream(P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS),
-                                                           P.MultiLanguageModel(members)), chunks, hot_calls=calls)
-    d_views, h_ms = run_stream(multi, chunks, hot_calls=calls)
-    d_hhost = check_views("stream hot2lm vs host oracle", h_views, d_views, HOST_TOL, top_only=True)
-    log(f"[stream] hot2lm, utterance 0, {len(hot)} hotwords: equals the full decode (max lm_score diff "
-        f"{d_full:.3g}); chunk ms median {statistics.median(ms):.2f}, max {max(ms):.2f}; with the hotword list "
-        f"written anew from chunk {mid} on ({len(rewritten)} words, the same unigram set) every chunk's top view "
-        f"equals the host oracle's (max score diff {d_hhost:.3g}, host oracle {h_host_s:.3f} s) [{card}]")
-    rec["hot2lm"] = dict(launches=h_launches, chunk_ms=ms, rewritten_chunk_ms=h_ms, max_lm_score_diff_vs_full=d_full,
-                         max_score_diff_vs_host=d_hhost, host_oracle_s=h_host_s)
+                                                           P.MultiLanguageModel(members)), chunks, hot_calls=hot_calls)
+    d_hhost = check_views("stream hot2lm vs host oracle", h_views, h_rec["graphs"]["r_views"], HOST_TOL, top_only=True)
+    for col in h_rec.values():
+        for key in ("views", "r_views", "states", "r_states"):
+            col.pop(key)
+    hg, he = h_rec["graphs"], h_rec["eager"]
+    log(f"[stream] hot2lm, utterance 0, {len(hot)} hotwords: graphs equal eager to the bit (and with the list "
+        f"rewritten); equals the full decode (max lm_score diff {d_full:.3g}); chunk ms: graphs "
+        f"median {hg['chunk_ms_median']:.2f}, max {hg['chunk_ms_max']:.2f}; eager {he['chunk_ms_median']:.2f}, "
+        f"{he['chunk_ms_max']:.2f}; first chunk of the warm-up stream (the hotword set's captures: "
+        f"{hg['captures']} s) {hg['first_chunk_ms']:.1f} ms; with the hotword list written anew from chunk {mid} on "
+        f"({len(rewritten)} words, the same unigram set: the same key) every chunk's top view equals the host "
+        f"oracle's (max score diff {d_hhost:.3g}, host oracle {h_host_s:.3f} s) [{card}]")
+    rec["hot2lm"] = dict(columns=h_rec, launches=hg["launches"], chunk_ms=hg["chunk_ms"][0],
+                         max_lm_score_diff_vs_full=d_full, max_score_diff_vs_host=d_hhost, host_oracle_s=h_host_s)
+    del m_eager
     park(multi)
 
     # bpe: the 128-piece vocabulary, 25 frames of 0.04 s a chunk
     bpe = decoders["bpe"]
     unpark(bpe)
+    b_eager = bpe.with_options(segment_frames=0)
     mat = bpe_logits[0]
     chunks = chunked(mat)
-    reset_counts(wrappers)
-    views, ms = run_stream(bpe, chunks)
-    b_launches = read_counts(wrappers)
-    check_counts("stream bpe", b_launches, expected_counts([bpe.language_model], mat.shape[0], len(chunks)))
-    d_bpe = check_stream_is_full_decode("stream bpe", bpe.decode_beams(mat, beam_width=BEAM), views[-1])
+    b_rec = {tag: stream_column(torch, f"bpe {tag}", dec, [bpe.language_model], [mat], wrappers, card,
+                                host_calls=False)
+             for tag, dec in (("graphs", bpe), ("eager", b_eager))}
+    check_views("stream bpe: graphs vs eager", b_rec["eager"]["views"][0], b_rec["graphs"]["views"][0], 0.0)
+    check_states("stream bpe: graphs vs eager", b_rec["eager"]["states"][0], b_rec["graphs"]["states"][0])
+    d_bpe = check_stream_is_full_decode("stream bpe", bpe.decode_beams(mat, beam_width=BEAM),
+                                        b_rec["graphs"]["views"][0][-1])
+    for col in b_rec.values():
+        col.pop("views"), col.pop("states")
+    bg, be = b_rec["graphs"], b_rec["eager"]
     log(f"[stream] bpe, utterance 0 ({mat.shape[0]} frames of {BPE_FRAME_SEC} s, {len(chunks)} chunks, V {BPE_V}): "
-        f"equals the full decode (max lm_score diff {d_bpe:.3g}); chunk ms median {statistics.median(ms):.2f}, max "
-        f"{max(ms):.2f}, host ms per frame step {sum(ms) / mat.shape[0]:.2f} [{card}]")
-    rec["bpe"] = dict(launches=b_launches, chunk_ms=ms, frames=int(mat.shape[0]), max_lm_score_diff_vs_full=d_bpe)
+        f"graphs equal eager to the bit; equals the full decode (max lm_score diff {d_bpe:.3g}); chunk ms graphs "
+        f"median {bg['chunk_ms_median']:.2f}, max {bg['chunk_ms_max']:.2f}; eager {be['chunk_ms_median']:.2f}, "
+        f"{be['chunk_ms_max']:.2f}; ms per frame graphs {bg['ms_per_frame']:.2f}, eager {be['ms_per_frame']:.2f} "
+        f"[{card}]")
+    rec["bpe"] = dict(columns=b_rec, launches=bg["launches"], chunk_ms=bg["chunk_ms"][0], frames=int(mat.shape[0]),
+                      max_lm_score_diff_vs_full=d_bpe)
+    del b_eager
     park(bpe)
     return rec
 
@@ -2526,6 +3062,12 @@ def main() -> int:
                                                   seg_values=SEG_SIZES, profile=False)
     check_same_results("dense: the other segment sizes vs the eager loop", dense_by_seg[0], sized[SEG_SIZES[0]], 0.0)
     del dense_by_seg, sized
+    # the decode's end: the eager finalize and plain backtrace against the captured finalize and the kernel
+    seg_rec["tail_dense"], dense_bt = tail_case(torch, "dense", decoder, logits, dense_call, card)
+    seg_rec["tail_serving"], serve_bt = tail_case(torch, "serving", decoder, logits, serve_call, card)
+    bt_cases = {"dense": dense_bt["full"], f"dense top_n={beams_kw['top_n']}": dense_bt["top"],
+                "serving group": serve_bt["full"]}
+    del dense_bt, serve_bt
     seg_rec["seconds"] = time.perf_counter() - t_seg
     log(f"[segments] dense and serving in {seg_rec['seconds']:.1f} s")
 
@@ -2558,6 +3100,9 @@ def main() -> int:
     del cpu_dec, handles, staged
     sharded_rec = sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_beams, windows, card)
 
+    # ---- the graph cache of one decoder that serves batches and streams, never cleared
+    cache_rec = graph_cache_phase(torch, decoder, logits, card)
+
     # ---- the hot2lm path: two LM members and hotwords (the single-LM
     # decoders' tables go first, so that the peak memory is the new decoder's own)
     park(decoder)
@@ -2568,6 +3113,9 @@ def main() -> int:
     members = list(multi.language_model._language_models)
     bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
     park(bpe_dec)
+    bt_cases["bpe"] = bpe_rec.pop("backtrace_args")
+    bt_rec = backtrace_phase(torch, bt_cases, card)
+    del bt_cases
 
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
@@ -2612,6 +3160,7 @@ def main() -> int:
             "launches_bpe_serving": bpe_rec["serving"]["launches"][kname],
             "launches_bpe_hot2lm": bpe_rec["hot2lm"]["launches"][kname],
             "launches_stream": stream_rec["launches"][kname],
+            "launches_stream_eager": stream_rec["columns"]["eager"]["launches"][kname],
             "launches_stream_hot2lm": stream_rec["hot2lm"]["launches"][kname],
             "launches_stream_bpe": stream_rec["bpe"]["launches"][kname],
             "stream": {key: stream_rec["kernels"][kname].get(key) for key in keys},
@@ -2637,8 +3186,24 @@ def main() -> int:
                              ("kenlm_seeded", kenlm_rec["probe"]["kenlm dense seeded"])):
                 kernels[-1][tag] = {key: r_k.get(key) for key in keys + ("cold_ms", "hits")}
             kernels[-1]["row_windows"] = sharded_rec["probe_windows"]
+    bt = bt_rec["dense"]
+    kernels.append({
+        "name": "backtrace_paths", "route": "cuda", "source": "pyctcdecode_torch/csrc/backtrace.cu",
+        "replaces": f"{reference_site('engine.py', 2044)} (lax.scan in the compiled fin_fn; no Pallas kernel)",
+        "launches": launches["backtrace_paths"], "max_abs_err": max(v["max_abs_err"] for v in bt_rec.values()),
+        "ms": bt["ms"], "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+        "library_ms": None, "shape": bt["shape"],
+        "launches_serving": s_launches["backtrace_paths"], "launches_hot2lm": hot_rec["launches"]["backtrace_paths"],
+        "launches_bpe": bpe_rec["launches"]["backtrace_paths"],
+        "launches_stream": stream_rec["launches"]["backtrace_paths"],
+        "launches_stream_eager": stream_rec["columns"]["eager"]["launches"]["backtrace_paths"],
+        "launches_kenlm": kenlm_rec["launches"]["backtrace_paths"],
+        "launches_sharded": sharded_rec["dense"]["launches"]["backtrace_paths"],
+        "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                  for name, v in bt_rec.items()},
+    })
     record = {
-        "kernels": kernels,
+        "kernels": kernels, "backtrace": bt_rec,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
         "gather_phases": gather_rec, "probe_phases": probe_rec,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,
@@ -2649,7 +3214,7 @@ def main() -> int:
                         audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
         "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "segments": seg_rec, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
-        "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec,
+        "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec, "graph_cache": cache_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,
     }

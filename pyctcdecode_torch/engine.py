@@ -61,8 +61,9 @@ stay starts a new word even when it is a regular piece.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,6 +79,7 @@ from .models.device_tables import (
     lm_score_words,
     trie_fetch_rows,
 )
+from .ops.backtrace import backtrace_paths
 from .ops.hashing import M32, as_lane, hash_extend_char_t, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
 from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
@@ -187,7 +189,8 @@ def build_table_args(
     return {"tok": tok, "lms": [dlm.as_device(device, shard) for dlm in device_lms]}
 
 
-def _params_dict(cfg: EngineConfig, params: Any) -> Dict[str, Any]:
+def _params_dict(cfg: EngineConfig, params: Any,
+                 score_boundary: Optional[Sequence[bool]] = None) -> Dict[str, Any]:
     """Unpack the f32 parameter vector.
 
     Layout: ``[token_min_logp, beam_prune_logp, hot_weight, (alpha_i,
@@ -196,8 +199,10 @@ def _params_dict(cfg: EngineConfig, params: Any) -> Dict[str, Any]:
     arithmetic on f32 tensors matches the reference's f32 parameter math. A
     device tensor (the segment programs' static buffer, which a captured
     graph reads at every replay) unpacks into 0-d f32 views, which give the
-    same f32 results; it carries no ``score_boundary`` flag, which selects
-    the finalize's probes and is read from the host vector.
+    same f32 results; its ``score_boundary`` flags, which select the
+    finalize's probes, come from ``score_boundary`` (the host vector's, see
+    :func:`score_boundary_flags`), and without it are absent (the step
+    does not read them).
     """
     if isinstance(params, torch.Tensor):
         p: List[Any] = list(params.unbind(0))
@@ -211,8 +216,15 @@ def _params_dict(cfg: EngineConfig, params: Any) -> Dict[str, Any]:
         member = {"alpha": p[base], "beta": p[base + 1], "unk_offset": p[base + 2]}
         if not isinstance(params, torch.Tensor):
             member["score_boundary"] = p[base + 3] > 0.5
+        elif score_boundary is not None:
+            member["score_boundary"] = bool(score_boundary[i])
         out["lm"].append(member)
     return out
+
+
+def score_boundary_flags(cfg: EngineConfig, params: np.ndarray) -> Tuple[bool, ...]:
+    """Each member's ``score_boundary`` flag in the host parameter vector (a finalize program's key)."""
+    return tuple(member["score_boundary"] for member in _params_dict(cfg, params)["lm"])
 
 
 def _init_state(cfg: EngineConfig, start: Sequence[Dict], n: int, device: torch.device) -> Dict:
@@ -1034,9 +1046,12 @@ def make_segment_decode_fns(cfg: EngineConfig, tables: Dict, seg_frames: int):
       layout: ``parents`` (:func:`_parent_dtype`) and ``trace``
       (:func:`_path_dtype`), each ``[N, S, B]``, not packed into one word.
     * ``fin_fn(state, params, parents, trace, tabs=None, hot=None) -> out``:
-      the finalize and the device backtrace over the whole logs ``[N, T,
-      B]``, with ``params`` the host vector (its ``score_boundary`` flags
-      select the probes); ``out`` is exactly :func:`make_decode_fn`'s.
+      the finalize (:func:`_ranked_outputs`, on the host vector ``params``,
+      whose ``score_boundary`` flags select the probes) and the device
+      backtrace (:func:`~pyctcdecode_torch.ops.backtrace.backtrace_paths`)
+      over the whole logs ``[N, T, B]``; ``out`` is exactly
+      :func:`make_decode_fn`'s. On the card a decode replays the finalize
+      as a :class:`FinalizeGraph` (:func:`finalize_program`) instead.
     """
     if seg_frames < 1:
         raise ValueError(f"seg_frames must be at least 1; got {seg_frames}")
@@ -1063,32 +1078,181 @@ def make_segment_decode_fns(cfg: EngineConfig, tables: Dict, seg_frames: int):
     def fin_fn(state: Dict, params: np.ndarray, parents: torch.Tensor, trace: torch.Tensor,
                tabs: Optional[Dict] = None, hot: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         lms = (tables if tabs is None else tabs)["lms"]
-        fin = _finalize(cfg, lms, hot, _params_dict(cfg, params), state)
-        n, t_max = fin["src"].shape[0], trace.shape[1]
-        r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
-        cur = fin["src"][:, :r]
-        paths = torch.empty((n, r, t_max), dtype=tok_dtype, device=cur.device)
-        for t in range(t_max - 1, -1, -1):
-            paths[:, :, t] = trace[:, t].gather(1, cur)
-            cur = parents[:, t].gather(1, cur).to(torch.int64)
-        out = {
-            "beam_src": fin["src"][:, :r],
-            "logit": fin["logit"][:, :r],
-            "lm_score": fin["score"][:, :r],
-            "paths": paths,
-        }
-        for i in range(cfg.n_lms):
-            out[f"ctx{i}"] = fin[f"ctx{i}"][:, :r]
-            out[f"ctx_len{i}"] = fin[f"ctx_len{i}"][:, :r]
-        if cfg.collect_stats:
-            # a copy: a segment graph's state planes are overwritten by its next decode
-            out["stats"] = state["stats"].clone()
+        out = _ranked_outputs(cfg, lms, hot, _params_dict(cfg, params), state)
+        out["paths"] = backtrace_paths(parents, trace, out["beam_src"].contiguous())
         return out
 
     return init_fn, seg_fn, fin_fn
 
 
-class SegmentGraph:
+def _ranked_outputs(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict,
+                    state: Dict) -> Dict[str, torch.Tensor]:
+    """A batch decode's end (:func:`_finalize`, committing and ending): all but the paths.
+
+    The top ``cfg.emit_paths`` ranks (all B without it): ``beam_src``,
+    ``logit``, ``lm_score`` and each member's ``ctx{i}`` / ``ctx_len{i}``
+    ``[N, R]``; with ``cfg.collect_stats`` the counters, ``stats``.
+    """
+    fin = _finalize(cfg, lms, hot, prm, state)
+    r = cfg.beam_width if cfg.emit_paths is None else cfg.emit_paths
+    out = {"beam_src": fin["src"][:, :r], "logit": fin["logit"][:, :r], "lm_score": fin["score"][:, :r]}
+    for i in range(cfg.n_lms):
+        out[f"ctx{i}"] = fin[f"ctx{i}"][:, :r]
+        out[f"ctx_len{i}"] = fin[f"ctx_len{i}"][:, :r]
+    if cfg.collect_stats:
+        # a copy: a segment graph's state planes are overwritten by its next decode
+        out["stats"] = state["stats"].clone()
+    return out
+
+
+def _stream_finalize(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict, state: Dict,
+                     do_commit: bool, is_end: bool):
+    """A stream chunk's end: ``(ranked, committed)``, see :func:`make_stream_fns`' ``finalize_fn``."""
+    fin = _finalize(cfg, lms, hot, prm, state, do_commit, is_end)
+    ranked = {key: fin[key] for key in ("src", "score", "logit")}
+    return ranked, (_committed_state(cfg, state, fin) if do_commit else None)
+
+
+NEXT = "next."  # prefix of the committed state's planes in a stream finalize program's outputs
+
+
+def finalize_program(cfg: EngineConfig, tables: Dict, score_boundary: Sequence[bool],
+                     stream: Optional[Tuple[bool, bool]] = None):
+    """The finalize of one key as a :class:`FinalizeGraph` captures it: ``fn(state, params, hot=None) -> out``.
+
+    ``params`` is the f32 parameter vector as a tensor: device data, so a
+    replay reads the values of its own call. What :func:`_finalize` branches
+    on is the key, fixed here: each member's ``score_boundary`` (the host
+    vector's, :func:`score_boundary_flags`) and, for a stream, ``(do_commit,
+    is_end)``. With the key fixed on the host, the captured finalize issues
+    the eager finalize's ops and gives its results to the bit; the reference
+    traces the two stream flags instead, so that one compilation serves
+    every mode, while here a stream uses at most three graphs (``is_end``
+    implies a commit).
+
+    ``stream=None`` is a batch decode's end (:func:`_ranked_outputs`, paths
+    aside: the logs' length varies, so the backtrace runs after the
+    replay). A stream's form gives the ranked ``src`` / ``score`` / ``logit``
+    ``[1, B]`` and, when it commits, the carried state after the commit
+    (:func:`_committed_state`), each plane under :data:`NEXT` + its name.
+    Every output is a tensor of a flat dict.
+    """
+    lms = tables["lms"]
+
+    def fn(state: Dict, params: torch.Tensor, hot: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        prm = _params_dict(cfg, params, score_boundary)
+        if stream is None:
+            return _ranked_outputs(cfg, lms, hot, prm, state)
+        ranked, committed = _stream_finalize(cfg, lms, hot, prm, state, *stream)
+        if committed is not None:
+            ranked.update({NEXT + key: val for key, val in committed.items()})
+        return ranked
+
+    return fn
+
+
+def run_segments(seg_fn, seg_frames: int, state: Dict, seg_in, n_seg: int, n_frames: torch.Tensor,
+                 params: torch.Tensor, hot: Optional[Dict], parents: torch.Tensor, trace: torch.Tensor,
+                 graph: Optional["SegmentGraph"] = None) -> Dict:
+    """Advance ``state`` ``n_seg`` segments of ``seg_frames`` steps; the backpointers go into the logs.
+
+    ``seg_in(s)`` is segment ``s``'s input; ``parents`` / ``trace`` ``[N,
+    n_seg * seg_frames, B]`` are logs the caller owns, so a graph's next run
+    cannot overwrite them. With ``graph`` (the key's :class:`SegmentGraph`)
+    the state, lengths and parameters are loaded into its static buffers and
+    each segment is one replay; the state returned is then the graph's
+    static state, which the caller reads (a :class:`FinalizeGraph` does, in
+    place) or copies before the graph runs again. Without it ``seg_fn`` runs
+    eagerly.
+    """
+    if graph is not None:
+        graph.load(state, n_frames, params)
+    for s in range(n_seg):
+        cut = slice(s * seg_frames, (s + 1) * seg_frames)
+        if graph is None:
+            state, (par, tok) = seg_fn(state, seg_in(s), s * seg_frames, n_frames, params, hot=hot)
+        else:
+            par, tok = graph.run(seg_in(s), s * seg_frames)
+        parents[:, cut].copy_(par)
+        trace[:, cut].copy_(tok)
+    return state if graph is None else graph.state
+
+
+class _Captured:
+    """A program run eagerly once, then captured as a CUDA graph and replayed (see :class:`SegmentGraph`).
+
+    A subclass's :meth:`_body` reads and writes static buffers only,
+    allocated outside any capture (its first, eager run may size its
+    outputs). The first :meth:`_execute` runs the body eagerly (its real
+    work, and the warm-up that loads every kernel before a capture) and
+    captures it right after on a side stream; later ones replay. The
+    capture allocates only intermediates, from ``pool``, which the graphs
+    of one decoder share:
+    no graph keeps a tensor of the pool past its capture, so replays in any
+    order are safe. Python's cyclic garbage collector is held off during a
+    capture: freeing a CUDA graph or event there (cyclic garbage of a
+    caller's) would invalidate it. The graphs themselves hold no reference
+    cycle, so a dropped graph is freed at once, outside any capture.
+
+    A replay calls no kernel wrapper, so each adds to every wrapper's
+    ``launches`` the launches its capture made (counted and taken back at
+    capture, which runs nothing, whether it succeeds or fails). A capture
+    or replay error raises; nothing runs the program eagerly instead.
+    """
+
+    def __init__(self, device: torch.device, pool) -> None:
+        self.device, self.pool = device, pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.counts: Dict[Any, int] = {}
+        self.capture_s = 0.0  # host seconds of the capture
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _capture(self) -> None:
+        from .ops import backtrace as backtrace_ops
+        from .ops import gather as gather_ops
+        from .ops import merge as merge_ops
+
+        # every wrapper with a ``launches`` counter
+        wrappers = (merge_ops.expand_merge_prune, merge_ops.merge_prune, gather_ops.gather_rows,
+                    gather_ops.probe_rows, backtrace_ops.backtrace_paths)
+        before = [fn.launches for fn in wrappers]
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        t_start = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self.pool)
+                try:
+                    self._body()
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+            counts = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
+            for fn, n in counts.items():  # the capture ran nothing, failed or not
+                fn.launches -= n
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.capture_s = time.perf_counter() - t_start
+        self.counts = counts
+        self.graph = graph
+
+    def _execute(self) -> None:
+        if self.graph is None:
+            self._body()
+            self._capture()
+        else:
+            self.graph.replay()
+            for fn, n in self.counts.items():
+                fn.launches += n
+
+
+class SegmentGraph(_Captured):
     """One segment program (``seg_fn``) captured as a CUDA graph and replayed down the utterances.
 
     The graph reads and writes static buffers, allocated here and never
@@ -1097,36 +1261,26 @@ class SegmentGraph:
     vector, and it writes the segment's ``parents`` / ``trace``. A decode
     fills the state, lengths and parameters with :meth:`load`, then calls
     :meth:`run` for each segment and copies its backpointers out before the
-    next run; the final state stays in :attr:`state`. The first run
-    executes the segment eagerly (its real work, and the warm-up that loads
-    every kernel before a capture) and captures it right after; later runs
-    replay. ``seg_fn``'s tables (which its closure holds) and ``hot`` are
-    read at the addresses captured, so the graph keeps them alive. The capture allocates only
-    intermediates, from ``pool``, which graphs of one decoder share: no
-    graph keeps a tensor of the pool past its capture, so replays in any
-    order are safe.
-
-    A replay calls no kernel wrapper, so each adds to every wrapper's
-    ``launches`` the launches its capture made (counted and taken back at
-    capture, which runs nothing, whether it succeeds or fails). A capture
-    or replay error raises; nothing runs the eager loop instead.
+    next run; the final state stays in :attr:`state`, where the key's
+    finalize graphs (:attr:`finals`, :class:`FinalizeGraph`) read it.
+    ``seg_fn``'s tables (which its closure holds) and ``hot`` are read at
+    the addresses captured, so the graph keeps them alive.
     """
 
     def __init__(self, seg_fn, state: Dict, seg_in, n_frames: torch.Tensor, params: torch.Tensor,
                  hot: Optional[Dict], pool) -> None:
+        super().__init__(n_frames.device, pool)
         self.state = {key: torch.empty_like(val) for key, val in state.items()}
         self.seg_in = tuple(torch.empty_like(x) for x in seg_in) if isinstance(seg_in, tuple) \
             else torch.empty_like(seg_in)
         self.t0 = torch.zeros((), dtype=torch.int64, device=n_frames.device)
         self.n_frames = torch.empty_like(n_frames)
         self.params = torch.empty_like(params)
-        self.hot, self.pool = hot, pool
+        self.hot = hot
         self._seg_fn = seg_fn
         self.parents: Optional[torch.Tensor] = None
         self.trace: Optional[torch.Tensor] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.counts: Dict[Any, int] = {}
-        self.capture_s = 0.0  # host seconds of the capture
+        self.finals: Dict[Any, "FinalizeGraph"] = {}  # this key's finalize programs, by their own key
 
     def load(self, state: Dict, n_frames: torch.Tensor, params: torch.Tensor) -> None:
         """Fill the static state, lengths and parameters for a new decode."""
@@ -1145,33 +1299,6 @@ class SegmentGraph:
         self.parents.copy_(par)
         self.trace.copy_(tok)
 
-    def _capture(self) -> None:
-        from .ops import gather as gather_ops
-        from .ops import merge as merge_ops
-
-        # every wrapper with a ``launches`` counter
-        wrappers = (merge_ops.expand_merge_prune, merge_ops.merge_prune, gather_ops.gather_rows, gather_ops.probe_rows)
-        before = [fn.launches for fn in wrappers]
-        graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(self.n_frames.device)
-        side.wait_stream(torch.cuda.current_stream(self.n_frames.device))
-        t_start = time.perf_counter()
-        try:
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=self.pool)
-                try:
-                    self._body()
-                finally:
-                    graph.capture_end()
-        finally:
-            counts = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
-            for fn, n in counts.items():  # the capture ran nothing, failed or not
-                fn.launches -= n
-        torch.cuda.current_stream(self.n_frames.device).wait_stream(side)
-        self.capture_s = time.perf_counter() - t_start
-        self.counts = counts
-        self.graph = graph
-
     def run(self, seg_in, t0: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Advance the static state one segment from step ``t0``; returns its ``(parents, trace)`` buffers."""
         if isinstance(seg_in, tuple):
@@ -1180,36 +1307,71 @@ class SegmentGraph:
         else:
             self.seg_in.copy_(seg_in)
         self.t0.fill_(t0)
-        if self.graph is None:
-            self._body()
-            self._capture()
-        else:
-            self.graph.replay()
-            for fn, n in self.counts.items():
-                fn.launches += n
+        self._execute()
         return self.parents, self.trace
 
 
-def make_stream_fns(cfg: EngineConfig, tables: Dict):
+class FinalizeGraph(_Captured):
+    """A finalize program (:func:`finalize_program`) captured over a :class:`SegmentGraph`'s buffers.
+
+    It reads the segment graph's static state, parameters and hotword
+    tables where they are (it holds those, not the segment graph, which
+    holds it), so a replay ranks what the segments left there (or what
+    :meth:`SegmentGraph.load` put there: a stream's empty chunk), and writes
+    every output into a static buffer of :attr:`out`, sized by the eager
+    first run. A caller copies what it keeps into tensors it owns before
+    anything can replay this graph again (a pipelined batch, a second
+    stream on the same decoder).
+    """
+
+    def __init__(self, fn, segment: SegmentGraph) -> None:
+        super().__init__(segment.device, segment.pool)
+        self._fn = fn
+        self._state, self._params, self._hot = segment.state, segment.params, segment.hot
+        self.out: Optional[Dict[str, torch.Tensor]] = None
+
+    def _body(self) -> None:
+        out = self._fn(self._state, self._params, hot=self._hot)
+        if self.out is None:  # the eager first run sizes the outputs, outside any capture
+            self.out = {key: torch.empty(val.shape, dtype=val.dtype, device=val.device) for key, val in out.items()}
+        for key, val in out.items():
+            self.out[key].copy_(val)
+
+    def run(self) -> Dict[str, torch.Tensor]:
+        """Rank the segment graph's current state; returns the static output buffers."""
+        self._execute()
+        return self.out
+
+
+def make_stream_fns(cfg: EngineConfig, tables: Dict, seg_frames: int = 0):
     """Build the streaming primitives over uploaded ``tables``: one utterance, ``[1, B]`` planes.
 
     Returns ``(init_fn, chunk_fn, finalize_fn)``:
 
     * ``init_fn(start) -> state``: a fresh beam state (``start`` as for
       :func:`make_decode_fn`);
-    * ``chunk_fn(state, logp [1, Tc, V] f32, params, hot) -> (state',
-      parents [1, Tc, B], trace [1, Tc, B])``: the frame steps of one chunk
-      (frame indices relative to the chunk), with the backpointers narrowed
-      to :func:`_parent_dtype` / :func:`_path_dtype`;
+    * ``chunk_fn(state, logp [1, Tc, V] f32, params, hot=None, graph_for=None)
+      -> (state', parents [1, Tc, B], trace [1, Tc, B])``: the frame steps
+      of one chunk (frame indices relative to the chunk), with the
+      backpointers narrowed to :func:`_parent_dtype` / :func:`_path_dtype`;
     * ``finalize_fn(state, params, do_commit, is_end, hot) -> (ranked,
       committed)``: the ranked view ``{"src", "score", "logit"}`` ``[1, B]``
       of the current hypotheses (:func:`_finalize`), and the carried state
       after the commit (:func:`_committed_state`) when ``do_commit``, else
-      None.
+      None. On the card a stream replays it as a :class:`FinalizeGraph`
+      (:func:`finalize_program`) instead.
 
-    Chunks run exactly their frames: the reference pads them to bucketed
-    sizes so that its compiled programs are reused, which an eager loop
-    does not need.
+    With ``seg_frames = 0`` a chunk runs exactly its frames, one step at a
+    time. With ``seg_frames > 0`` it runs as ``ceil(Tc / seg_frames)``
+    segments of :func:`make_segment_decode_fns`' ``seg_fn`` at N = 1
+    (``n_frames = [Tc]``, chunk-relative ``t0``), the logits padded with
+    zeros to whole segments: the padded steps are inactive, as the
+    reference's chunks padded to ``_bucket`` sizes are, and the logs are cut
+    back to the chunk's ``Tc`` steps. ``graph_for(seg_fn, state, seg_in,
+    n_frames, params) -> SegmentGraph`` gives the key's graph (made from
+    these prototypes on a miss), which replays each segment; ``state'`` is
+    then the graph's static state, read or copied by the caller before the
+    graph runs again.
     """
     if cfg.token_timeline:
         raise ValueError(
@@ -1218,14 +1380,32 @@ def make_stream_fns(cfg: EngineConfig, tables: Dict):
             "for timeline mode)"
         )
     device = tables["tok"]["kind"].device
+    par_dtype, tok_dtype = _parent_dtype(cfg.beam_width), _path_dtype(cfg.vocab_size)
+    seg_fn = make_segment_decode_fns(cfg, tables, seg_frames)[1] if seg_frames else None
 
     def init_fn(start: Sequence[Dict]) -> Dict:
         return _init_state(cfg, start, 1, device)
 
-    def chunk_fn(state: Dict, logp: torch.Tensor, params: np.ndarray, hot: Optional[Dict] = None):
-        n, tc, _ = logp.shape
-        parents = torch.empty((n, tc, cfg.beam_width), dtype=_parent_dtype(cfg.beam_width), device=device)
-        trace = torch.empty((n, tc, cfg.beam_width), dtype=_path_dtype(cfg.vocab_size), device=device)
+    def chunk_fn(state: Dict, logp: torch.Tensor, params: np.ndarray, hot: Optional[Dict] = None,
+                 graph_for: Optional[Callable[..., SegmentGraph]] = None):
+        n, tc, v = logp.shape
+        if seg_frames:
+            n_seg = -(-tc // seg_frames)
+            t_pad = n_seg * seg_frames
+            padded = torch.nn.functional.pad(logp, (0, 0, 0, t_pad - tc))
+            parents = torch.empty((n, t_pad, cfg.beam_width), dtype=par_dtype, device=device)
+            trace = torch.empty((n, t_pad, cfg.beam_width), dtype=tok_dtype, device=device)
+            n_frames = torch.full((n,), tc, dtype=torch.int64, device=device)
+            prm = torch.as_tensor(np.asarray(params, dtype=np.float32), device=device)
+            graph = None
+            if graph_for is not None:  # an empty chunk still loads and finalizes through the graph
+                proto = padded[:, :seg_frames] if n_seg else logp.new_empty((n, seg_frames, v))
+                graph = graph_for(seg_fn, state, proto, n_frames, prm)
+            state = run_segments(seg_fn, seg_frames, state, lambda s: padded[:, s * seg_frames : (s + 1) * seg_frames],
+                                 n_seg, n_frames, prm, hot, parents, trace, graph)
+            return state, parents[:, :tc], trace[:, :tc]
+        parents = torch.empty((n, tc, cfg.beam_width), dtype=par_dtype, device=device)
+        trace = torch.empty((n, tc, cfg.beam_width), dtype=tok_dtype, device=device)
         if tc:
             prm = _params_dict(cfg, params)
             step = _make_step(cfg, tables, hot, prm, torch.full((n,), tc, dtype=torch.int64, device=device))
@@ -1237,9 +1417,6 @@ def make_stream_fns(cfg: EngineConfig, tables: Dict):
 
     def finalize_fn(state: Dict, params: np.ndarray, do_commit: bool, is_end: bool,
                     hot: Optional[Dict] = None):
-        prm = _params_dict(cfg, params)
-        fin = _finalize(cfg, tables["lms"], hot, prm, state, do_commit, is_end)
-        ranked = {key: fin[key] for key in ("src", "score", "logit")}
-        return ranked, (_committed_state(cfg, state, fin) if do_commit else None)
+        return _stream_finalize(cfg, tables["lms"], hot, _params_dict(cfg, params), state, do_commit, is_end)
 
     return init_fn, chunk_fn, finalize_fn

@@ -48,14 +48,19 @@ from .constants import (
 )
 from .decoder import NULL_FRAMES, BeamSearchDecoderCTC, LMBeam, OutputBeam, _not_ported
 from .engine import (
+    NEXT,
     EngineConfig,
+    FinalizeGraph,
     SegmentGraph,
     _parent_dtype,
     _path_dtype,
     build_table_args,
+    finalize_program,
     make_decode_fn,
     make_segment_decode_fns,
     make_stream_fns,
+    run_segments,
+    score_boundary_flags,
     stats_fields,
 )
 from .models.base import AbstractLMState, MultiLMState, NGramLMState
@@ -68,6 +73,7 @@ from .models.device_tables import (
 )
 from .models.hotwords import HotwordScorer
 from .models.language_model import LanguageModel, MultiLanguageModel
+from .ops.backtrace import backtrace_paths
 from .ops.merge import DEAD_THRESH
 from .ops.tokens import build_token_arrays
 from .utils.logits import (
@@ -77,6 +83,11 @@ from .utils.logits import (
 )
 
 logger = logging.getLogger(__name__)
+
+# captured segment keys a decoder keeps (batch and stream keys alike), see _segment_graph: room for a
+# decoder that serves dense and serving batches of every row count up to 32, with and without a
+# hotword set, and streams with and without hotwords (chip_smoke.py's graph cache phase counts them)
+GRAPH_KEYS = 32
 
 
 def _auto_k(counts: np.ndarray, v: int) -> int:
@@ -392,12 +403,14 @@ class TorchBeamSearchDecoderCTC:
         self._hot_cache: Dict[Tuple[str, ...], Dict[str, Any]] = {}
         self._empty_hot_tables: Optional[Dict[str, Any]] = None
         self._pinned: Optional[torch.Tensor] = None  # host staging of the outputs, see _fetch
+        self._copy_stream: Optional[torch.cuda.Stream] = None  # the fetches' copies, see _fetch
         self._new_graph_cache()
 
     def _new_graph_cache(self) -> None:
         """An empty cache of captured segment graphs (``_segment_graph``), with its own memory pool."""
         self._graphs: "collections.OrderedDict[Any, SegmentGraph]" = collections.OrderedDict()
         self._graph_pool: Any = None
+        self._graph_evictions = 0  # keys the cache dropped to make room
 
     # -- configuration ---------------------------------------------------
     @property
@@ -429,6 +442,7 @@ class TorchBeamSearchDecoderCTC:
         clone = copy.copy(self)
         clone._new_graph_cache()
         clone._pinned = None
+        clone._copy_stream = None
         if self._lm is not None:
             clone._lm_members = [copy.copy(m) for m in self._lm_members]
             if isinstance(self._lm, MultiLanguageModel):
@@ -600,11 +614,14 @@ class TorchBeamSearchDecoderCTC:
         """One decode through ``seg``-step segments (the reference's ``_run_segmented``).
 
         The host walks the segments: on the card each is one replay of the
-        key's captured graph (:meth:`_segment_graph`), on the CPU an eager
-        ``seg_fn`` call. Every segment's backpointers go into logs this
-        decode owns, so a graph's next decode (a pipelined batch launched
-        before this one is fetched) cannot overwrite them; the finalize and
-        the backtrace run eagerly after the last segment, into fresh tensors.
+        key's captured graph (:meth:`_segment_graph`), and the decode ends
+        with one replay of the key's finalize graph (:meth:`_finalize_graph`)
+        and one :func:`~pyctcdecode_torch.ops.backtrace.backtrace_paths`
+        launch; on the CPU ``seg_fn`` and ``fin_fn`` run eagerly. Every
+        segment's backpointers go into logs this decode owns, and the
+        finalize graph's outputs are copied into tensors it owns, so a
+        graph's next decode (a pipelined batch launched before this one is
+        fetched) cannot overwrite them.
         """
         init_fn, seg_fn, fin_fn = make_segment_decode_fns(cfg, tables, seg)
         n = n_frames.shape[0]
@@ -624,17 +641,12 @@ class TorchBeamSearchDecoderCTC:
         graph = None
         if self._device.type == "cuda":
             graph = self._segment_graph(cfg, seg, seg_fn, state, seg_in(0), n_frames, prm, tables, hot)
-            graph.load(state, n_frames, prm)
-        for s in range(t_pad // seg):
-            if graph is None:
-                state, (par, tok) = seg_fn(state, seg_in(s), s * seg, n_frames, prm, hot=hot)
-            else:
-                par, tok = graph.run(seg_in(s), s * seg)
-            parents[:, s * seg : (s + 1) * seg].copy_(par)
-            trace[:, s * seg : (s + 1) * seg].copy_(tok)
-        if graph is not None:
-            state = graph.state
-        return fin_fn(state, params, parents, trace, hot=hot)
+        state = run_segments(seg_fn, seg, state, seg_in, t_pad // seg, n_frames, prm, hot, parents, trace, graph)
+        if graph is None:
+            return fin_fn(state, params, parents, trace, hot=hot)
+        out = {key: val.clone() for key, val in self._finalize_graph(graph, cfg, tables, params).run().items()}
+        out["paths"] = backtrace_paths(parents, trace, out["beam_src"])
+        return out
 
     def _segment_graph(self, cfg: EngineConfig, seg: int, seg_fn, state: Dict[str, torch.Tensor],
                        seg_in: Any, n_frames: torch.Tensor, prm: torch.Tensor,
@@ -642,51 +654,93 @@ class TorchBeamSearchDecoderCTC:
         """The captured segment program of this decode's key, made on first use.
 
         The key: the engine configuration (its ``emit_paths`` aside, which
-        only the eager finalize reads), the batch rows, the segment length,
-        and the table and hotword objects whose tensors the graph reads (it
+        only the finalize reads), the batch rows, the segment length, and
+        the table and hotword objects whose tensors the graph reads (it
         holds them, so the ids stay theirs). The input widths are the
         configuration's (V, or the chunk width K). ``score_boundary`` is not
-        in it: only the finalize reads it, from the host vector. The last 8
-        keys are kept; all share one memory pool, a new one whenever no
-        captured graph is left (the cache emptied, or a capture failed).
+        in it: only the finalize reads it (a finalize graph's key,
+        :meth:`_finalize_graph`). A stream's chunks (N = 1) share the key of
+        a one-utterance batch decode of the same geometry. The last
+        ``GRAPH_KEYS`` keys are kept, each with its finalize graphs; all
+        share one memory pool, a new one whenever no captured graph is left
+        (the cache emptied, or a capture failed).
         """
         key = (dataclasses.replace(cfg, emit_paths=None), n_frames.shape[0], seg, id(tables), id(hot))
         graph = self._graphs.get(key)
         if graph is not None:
             self._graphs.move_to_end(key)
             return graph
-        if len(self._graphs) >= 8:
+        if len(self._graphs) >= GRAPH_KEYS:
             self._graphs.popitem(last=False)
-        if not any(g.graph is not None for g in self._graphs.values()):
-            # a pool all of whose graphs are gone takes no further capture
+            self._graph_evictions += 1
+        captured = any(g.graph is not None or any(f.graph is not None for f in g.finals.values())
+                       for g in self._graphs.values())
+        if not captured:  # a pool all of whose graphs are gone takes no further capture
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = SegmentGraph(seg_fn, state, seg_in, n_frames, prm, hot, self._graph_pool)
         self._graphs[key] = graph
         return graph
 
-    def _fetch(self, out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
+    def _finalize_graph(self, graph: SegmentGraph, cfg: EngineConfig, tables: Dict[str, Any],
+                        params: np.ndarray, stream: Optional[Tuple[bool, bool]] = None) -> FinalizeGraph:
+        """The captured finalize of ``graph``'s key for this call, made on first use.
+
+        Its own key: ``emit_paths``, each member's ``score_boundary`` and,
+        for a stream, ``(do_commit, is_end)`` (:func:`~pyctcdecode_torch.
+        engine.finalize_program`).
+        """
+        key = (cfg.emit_paths, score_boundary_flags(cfg, params), stream)
+        fin = graph.finals.get(key)
+        if fin is None:
+            fin = FinalizeGraph(finalize_program(cfg, tables, key[1], stream), graph)
+            graph.finals[key] = fin
+        return fin
+
+    def _ready(self) -> Optional[torch.cuda.Event]:
+        """An event recorded after the work enqueued so far (a launched decode's end); None off CUDA."""
+        if self._device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self._device))
+        return event
+
+    def _fetch(self, out: Dict[str, torch.Tensor], n: int,
+               ready: Optional[torch.cuda.Event] = None) -> Dict[str, np.ndarray]:
         """Copy the first ``n`` rows of every output to the host.
 
         On CUDA the copies go without blocking into views of one pinned
-        buffer, which the decoder keeps and grows as needed, and one stream
-        synchronize waits for the decode and all of them. The arrays
-        returned are views of that buffer: the next fetch overwrites them.
+        buffer, which the decoder keeps and grows as needed, on a copy
+        stream of the decoder's that first waits for ``ready`` (the event
+        :meth:`_ready` recorded where the outputs' decode was launched; by
+        default, recorded now). Then the host waits for an event recorded
+        after the copies: for this decode and its copies only, not for work
+        launched after ``ready`` (a later batch of
+        :meth:`decode_beams_batches`). The arrays returned are views of the
+        buffer: the next fetch overwrites them.
         """
         if self._device.type != "cuda":
             return {key: val[:n].numpy() for key, val in out.items()}
+        if ready is None:
+            ready = self._ready()
         sizes = {key: -(-val[:n].numel() * val.element_size() // 16) * 16 for key, val in out.items()}
         total = sum(sizes.values())
         if self._pinned is None or self._pinned.numel() < total:
             self._pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self._device)
+        self._copy_stream.wait_event(ready)
         host, start = {}, 0
-        for key, val in out.items():
-            rows = val[:n]
-            nbytes = rows.numel() * rows.element_size()
-            buf = self._pinned[start : start + nbytes].view(rows.dtype).view(rows.shape)
-            buf.copy_(rows, non_blocking=True)
-            host[key] = buf
-            start += sizes[key]
-        torch.cuda.current_stream(self._device).synchronize()
+        with torch.cuda.stream(self._copy_stream):
+            for key, val in out.items():
+                rows = val[:n]
+                nbytes = rows.numel() * rows.element_size()
+                buf = self._pinned[start : start + nbytes].view(rows.dtype).view(rows.shape)
+                buf.copy_(rows, non_blocking=True)
+                host[key] = buf
+                start += sizes[key]
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        done.synchronize()
         return {key: buf.numpy() for key, buf in host.items()}
 
     # -- public API ------------------------------------------------------------
@@ -767,7 +821,8 @@ class TorchBeamSearchDecoderCTC:
 
     # -- streaming API ---------------------------------------------------------
     def _get_stream_fns(self, beam_width: int, k: int, prune_history: bool, use_hotwords: bool):
-        return make_stream_fns(self._engine_cfg(beam_width, k, prune_history, use_hotwords), self._tabs)
+        return make_stream_fns(self._engine_cfg(beam_width, k, prune_history, use_hotwords), self._tabs,
+                               self._segment_frames_effective())
 
     def get_starting_state(
         self,
@@ -828,6 +883,35 @@ class TorchBeamSearchDecoderCTC:
             bits[slot] = entry & ~HOT_NODE_MASK
         return nodes, bits
 
+    def _stream_graphs(self, seg: int, chunk_fn, ss: DeviceStreamState, logp: torch.Tensor,
+                       params: np.ndarray, committed: bool, is_end: bool,
+                       hot: Optional[Dict[str, Any]]) -> Tuple[Dict, Dict, torch.Tensor, torch.Tensor]:
+        """One chunk of a stream through the captured programs of its key (the card's path).
+
+        The stream's carried state goes into the static buffers of its
+        key's N = 1 segment graph (:meth:`_segment_graph`, the cache that
+        batch decodes use), the chunk's segments replay, then the finalize
+        graph of ``(committed, is_end)`` (:meth:`_finalize_graph`). The
+        ranked view and the new carried state (the committed state, or the
+        segments' state) are copied out of the static buffers into tensors
+        the stream owns, so another stream or a batch on this decoder may
+        replay the graphs next. Returns ``(new state, ranked, parents,
+        trace)``, the logs cut to the chunk's frames.
+        """
+        cfg = self._engine_cfg(ss.beam_width, ss.k_tokens, ss.prune_history, ss.use_hotwords)
+        graphs: List[SegmentGraph] = []  # the key's graph, as chunk_fn looks it up
+
+        def graph_for(seg_fn, state, seg_in, n_frames, prm) -> SegmentGraph:
+            graphs.append(self._segment_graph(cfg, seg, seg_fn, state, seg_in, n_frames, prm, self._tabs, hot))
+            return graphs[-1]
+
+        state1, parents, trace = chunk_fn(ss.beam_state, logp, params, hot, graph_for=graph_for)
+        fin = self._finalize_graph(graphs[-1], cfg, self._tabs, params, (committed, is_end)).run()
+        ranked = {key: fin[key].clone() for key in ("src", "score", "logit")}
+        if committed:
+            state1 = {key[len(NEXT):]: val for key, val in fin.items() if key.startswith(NEXT)}
+        return {key: val.clone() for key, val in state1.items()}, ranked, parents, trace
+
     def partial_decode_beams(
         self,
         stream_state: DeviceStreamState,
@@ -862,6 +946,7 @@ class TorchBeamSearchDecoderCTC:
         _, chunk_fn, finalize_fn = self._get_stream_fns(
             ss.beam_width, ss.k_tokens, ss.prune_history, ss.use_hotwords
         )
+        seg = self._segment_frames_effective()
         if ss.use_hotwords:
             hot, weight = self._hot_tables(hotwords, hotword_weight)
             if hot is None:
@@ -889,10 +974,14 @@ class TorchBeamSearchDecoderCTC:
                 else np.zeros((0, len(self._labels)), dtype=np.float32))
         committed = force_next_word or is_end
         with torch.inference_mode():
-            state1, parents, trace = chunk_fn(
-                ss.beam_state, torch.as_tensor(logp, device=self._device)[None], params, hot
-            )
-            ranked, committed_state = finalize_fn(state1, params, committed, is_end, hot)
+            logp_dev = torch.as_tensor(logp, device=self._device)[None]
+            if seg and self._device.type == "cuda":
+                new_state, ranked, parents, trace = self._stream_graphs(
+                    seg, chunk_fn, ss, logp_dev, params, committed, is_end, hot)
+            else:
+                state1, parents, trace = chunk_fn(ss.beam_state, logp_dev, params, hot)
+                ranked, committed_state = finalize_fn(state1, params, committed, is_end, hot)
+                new_state = committed_state if committed else state1
             host = self._fetch(dict(ranked, parents=parents, trace=trace), 1)
         if t:
             ss.chunks.append((host["parents"][0].copy(), host["trace"][0].copy(), ss.processed_frames))
@@ -937,13 +1026,13 @@ class TorchBeamSearchDecoderCTC:
             # the committed state's rows are in rank order: fold each rank's
             # transcript into its slot's prefix and drop the backpointer log,
             # so the next backtrace walks only the frames after this boundary
-            ss.beam_state = committed_state
+            ss.beam_state = new_state
             ss.prefix_words = rank_words + [[] for _ in range(ss.beam_width - n_live)]
             ss.prefix_spans = rank_spans + [[] for _ in range(ss.beam_width - n_live)]
             ss.chunks = []
             ss.last_partials = [""] * ss.beam_width
         else:
-            ss.beam_state = state1
+            ss.beam_state = new_state
             # partial words by CARRIED slot (rank r lives in slot src[r];
             # dead slots keep ""), for a hotword swap's rewalk next chunk
             partials = [""] * ss.beam_width
@@ -1303,7 +1392,7 @@ class TorchBeamSearchDecoderCTC:
                 collect_stats: bool) -> Dict[str, Any]:
         """A launched batch's handle: device outputs and what the collect needs."""
         handle = {"out": out, "steps": steps, "n": n, "top_n": top_n,
-                  "frame_ids": frame_ids, "offsets": offsets}
+                  "frame_ids": frame_ids, "offsets": offsets, "ready": self._ready()}
         if collect_stats:  # the names depend on the members only
             handle["stats_names"] = stats_fields(self._engine_cfg(1, 1, False, False))
         return handle
@@ -1324,7 +1413,7 @@ class TorchBeamSearchDecoderCTC:
         """
         if handle is None:
             return ([], None) if with_stats else []
-        host = self._fetch(handle["out"], handle["n"])
+        host = self._fetch(handle["out"], handle["n"], handle["ready"])
         n = handle["n"]
         stats = None
         if "stats_names" in handle:

@@ -34,27 +34,14 @@ from .torch_cases import (
     LM_WORDS,
     UNIGRAMS,
     assert_same_beams,
+    conformer_width,
     one_hot,
     piece_logits,
     piece_vocabulary,
 )
 
 PIECES = piece_vocabulary(LM_WORDS)
-
-
-def _conformer_width(pieces):
-    """129 columns, as a Conformer-CTC's 128 pieces + blank: ``pieces`` after 81 filler
-    pieces (seeded), so the pieces the logits spell, and the blank, have ids above 120."""
-    rng = np.random.RandomState(9)
-    fill = []
-    while len(fill) < 81:
-        piece = ("▁" if rng.rand() < 0.5 else "") + "".join(rng.choice(list("acdefhijklmopqrtvwxz"), 2))
-        if piece not in fill:
-            fill.append(piece)
-    return pieces[:2] + fill + pieces[2:]
-
-
-WIDE = _conformer_width(PIECES)
+WIDE = conformer_width(PIECES)
 # the JAX package's BPE alphabet written with ``##`` continuation marks
 HASH_LABELS = ["bug", "bun", "##ny", "##s", "##g", "##un", "<unk>", ""]
 # a char alphabet whose "un" label is two characters long

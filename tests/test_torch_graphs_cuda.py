@@ -19,8 +19,10 @@ import torch
 import pyctcdecode_torch as P
 from pyctcdecode_torch import engine
 from pyctcdecode_torch.models.ngram import open_ngram_file
+from pyctcdecode_torch.ops import backtrace as tb
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
+from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import (
@@ -36,7 +38,7 @@ from .torch_cases import (
 
 BEAM = 16
 BATCH = [word_logits(21, 45), word_logits(22, 17), word_logits(23, 38)]  # 45 steps: 3 segments of 16
-WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows)
+WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows, tb.backtrace_paths)
 
 
 def _cuda() -> None:
@@ -88,9 +90,10 @@ def test_dense_graph_decode_equals_eager_at_every_cluster_size(tmp_path, k):
     kw = dict(beam_width=BEAM, prune_history=True, max_tokens_per_frame=k)
     eager_used, graph_used = _assert_graphs_equal_eager(dec, BATCH, **kw)
     # per step one merge kernel, one trie fetch and one probe; the graph decode
-    # pads 45 steps to 48; one finalize: one merge, two probes (last word, </s>)
-    assert eager_used == [45, 1, 45, 45 + 2]
-    assert graph_used == [48, 1, 48, 48 + 2]
+    # pads 45 steps to 48; one finalize: one merge, two probes (last word, </s>);
+    # one backtrace of the whole logs
+    assert eager_used == [45, 1, 45, 45 + 2, 1]
+    assert graph_used == [48, 1, 48, 48 + 2, 1]
 
 
 @pytest.mark.cuda
@@ -103,6 +106,7 @@ def test_timeline_graph_decode_equals_eager(tmp_path):
                   length_bucketing=2, top_n=2)
         eager_used, graph_used = _assert_graphs_equal_eager(dec, BATCH, **kw)
         assert graph_used[1] == eager_used[1] == 2  # one finalize a group
+        assert graph_used[4] == eager_used[4] == 2  # and one backtrace
         assert graph_used[0] >= eager_used[0]
 
 
@@ -164,7 +168,7 @@ def test_pipelined_batches_equal_serial(tmp_path):
 
 @pytest.mark.cuda
 def test_graphs_capture_again_after_the_cache_empties_or_evicts(tmp_path):
-    """A cleared cache (parked tables) takes a new memory pool; the ninth key evicts the oldest."""
+    """A cleared cache (parked tables) takes a new memory pool; the key past ``GRAPH_KEYS`` evicts the oldest."""
     _cuda()
     dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), _lm(tmp_path))
     eager = dec.with_options(segment_frames=0)
@@ -172,14 +176,15 @@ def test_graphs_capture_again_after_the_cache_empties_or_evicts(tmp_path):
     for _ in range(2):
         _assert_bit_equal(want, dec.decode_beams_batch(BATCH, beam_width=BEAM))
         dec._graphs.clear()
-    rows = BATCH * 3
-    for n in range(1, 10):  # batch_pad=1: one key a row count
+    limit = GRAPH_KEYS
+    rows = BATCH * (limit // len(BATCH) + 1)
+    for n in range(1, limit + 2):  # batch_pad=1: one key a row count
         got = dec.decode_beams_batch(rows[:n], beam_width=BEAM, batch_pad=1)
-    assert len(dec._graphs) == 8
-    _assert_bit_equal(eager.decode_beams_batch(rows[:9], beam_width=BEAM, batch_pad=1), got)
+    assert len(dec._graphs) == limit and dec._graph_evictions == 1
+    _assert_bit_equal(eager.decode_beams_batch(rows[: limit + 1], beam_width=BEAM, batch_pad=1), got)
     one = dict(beam_width=BEAM, batch_pad=1)
     _assert_bit_equal(eager.decode_beams_batch(rows[:1], **one), dec.decode_beams_batch(rows[:1], **one))
-    assert len(dec._graphs) == 8  # N = 1 was evicted, is captured again, and evicts N = 2
+    assert len(dec._graphs) == limit  # N = 1 was evicted, is captured again, and evicts N = 2
 
 
 @pytest.mark.cuda

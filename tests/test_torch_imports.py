@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHECK = """
 import sys
 import pyctcdecode_torch
-import pyctcdecode_torch.engine, pyctcdecode_torch.evaluation, pyctcdecode_torch.ops.merge
+import pyctcdecode_torch.engine, pyctcdecode_torch.evaluation, pyctcdecode_torch.ops.merge, pyctcdecode_torch.ops.backtrace
 import pyctcdecode_torch.ops.gather, pyctcdecode_torch.utils.logits, pyctcdecode_torch.torch_decoder
 import pyctcdecode_torch.csrc.build
 import pyctcdecode_torch.models.kenlm_bin, pyctcdecode_torch.models.kenlm_trie, pyctcdecode_torch.models.binfmt
@@ -108,11 +108,12 @@ def test_every_new_module_is_in_the_source_scan():
                 "pyctcdecode_torch/csrc/ctclm.cpp", "pyctcdecode_torch/csrc/native.py",
                 "pyctcdecode_torch/models/native.py", "pyctcdecode_torch/parallel/__init__.py",
                 "pyctcdecode_torch/parallel/batch.py", "pyctcdecode_torch/parallel/launch.py",
-                "pyctcdecode_torch/utils/profiling.py", "pyctcdecode_torch/utils/tuning.py"):
+                "pyctcdecode_torch/utils/profiling.py", "pyctcdecode_torch/utils/tuning.py",
+                "pyctcdecode_torch/ops/backtrace.py", "pyctcdecode_torch/csrc/backtrace.cu"):
         assert rel in scanned, rel
 
 
-@pytest.mark.parametrize("wrapper", ["gather_rows", "merge_prune"])
+@pytest.mark.parametrize("wrapper", ["gather_rows", "merge_prune", "backtrace_paths"])
 def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkeypatch):
     """A tensor that is not on the CPU launches the kernel or raises.
 
@@ -120,16 +121,20 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkey
     wrapper must refuse it, not answer with the plain version. Where the
     request is for CUDA and there is no CUDA, the tensor cannot even be made.
     """
-    from pyctcdecode_torch.ops import gather, merge
+    from pyctcdecode_torch.ops import backtrace, gather, merge
 
     def plain_version_ran(*args, **kwargs):
         raise AssertionError("the plain version ran for a tensor that is not on the CPU")
 
     monkeypatch.setattr(gather, "gather_rows_ref", plain_version_ran)
     monkeypatch.setattr(merge, "merge_prune_ref", plain_version_ran)
+    monkeypatch.setattr(backtrace, "backtrace_paths_ref", plain_version_ran)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        if wrapper == "gather_rows":
+        if wrapper == "backtrace_paths":
+            log = torch.zeros((1, 3, 4), dtype=torch.int8, device=meta)
+            backtrace.backtrace_paths(log, log, torch.zeros((1, 2), dtype=torch.int64, device=meta))
+        elif wrapper == "gather_rows":
             gather.gather_rows(
                 torch.zeros((8, 64), dtype=torch.int32, device=meta),
                 torch.zeros((3,), dtype=torch.int64, device=meta),

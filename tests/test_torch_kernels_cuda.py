@@ -13,6 +13,7 @@ import torch
 import pyctcdecode_torch as P
 from pyctcdecode_torch.models import device_tables as tdt
 from pyctcdecode_torch.models.ngram import open_ngram_file
+from pyctcdecode_torch.ops import backtrace as tb
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 
@@ -565,3 +566,37 @@ def test_gpu_bpe_decode_matches_cpu_decode(tmp_path):
         got = gpu.decode_beams_batch(batch, prune_history=True, **kw)
         assert tm.expand_merge_prune.launches > expand_before
         assert_same_batch(cpu.decode_beams_batch(batch, prune_history=True, **kw), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,b,r,par,tok", [
+    (32, 544, 100, 100, torch.int8, torch.int8),  # a dense decode's logs at beam 100
+    (16, 535, 100, 1, torch.int8, torch.int8),  # a serving group's timeline logs, top_n = 1
+    (32, 496, 100, 100, torch.int8, torch.int16),  # a bpe decode (V = 129)
+    (8, 300, 200, 10, torch.int16, torch.int8),  # beam 200, emit_paths < B
+    (4, 70, 1024, 1024, torch.int16, torch.int32),  # the widest beam: a tile of 4 frames
+    (3, 5, 7, 2, torch.int32, torch.int32),
+])
+def test_backtrace_paths_matches_plain_version(n, t, b, r, par, tok):
+    """Random logs with padded frames (-1, identity parents) and timeline carry markers (-3)."""
+    dev = _cuda()
+    rng = np.random.RandomState(n + t + b)
+    parents = rng.randint(0, b, (n, t, b))
+    trace = rng.randint(-1, 120, (n, t, b))
+    carry = rng.rand(n, t) < 0.3  # a frame's non-final chunks: identity parents, token -3
+    trace[carry] = -3
+    parents[carry] = np.arange(b)
+    lengths = rng.randint(1, t + 1, n)
+    pad = np.arange(t)[None, :] >= lengths[:, None]
+    trace[pad] = -1
+    parents[pad] = np.arange(b)
+    src = np.stack([rng.permutation(b)[:r] for _ in range(n)])
+    args = (torch.as_tensor(parents, device=dev).to(par), torch.as_tensor(trace, device=dev).to(tok),
+            torch.as_tensor(src, device=dev))
+    before = tb.backtrace_paths.launches
+    got = tb.backtrace_paths(*args)
+    torch.cuda.synchronize()
+    assert tb.backtrace_paths.launches == before + 1
+    want = tb.backtrace_paths_ref(*args)
+    assert got.dtype == tok and got.shape == (n, r, t)
+    assert torch.equal(got, want)

@@ -235,6 +235,18 @@ def piece_logits(seed, labels, n_words, forced_break=True):
     return mat
 
 
+def conformer_width(pieces):
+    """129 columns, as a Conformer-CTC's 128 pieces + blank: ``pieces`` after 81 filler
+    pieces (seeded), so the pieces the logits spell, and the blank, have ids above 120."""
+    rng = np.random.RandomState(9)
+    fill = []
+    while len(fill) < 81:
+        piece = ("▁" if rng.rand() < 0.5 else "") + "".join(rng.choice(list("acdefhijklmopqrtvwxz"), 2))
+        if piece not in fill:
+            fill.append(piece)
+    return pieces[:2] + fill + pieces[2:]
+
+
 def one_hot(labels, pieces):
     """A one-hot logit matrix spelling ``pieces`` (normalized labels), one frame each."""
     mat = np.zeros((len(pieces), len(labels)), dtype=np.float32)
