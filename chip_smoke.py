@@ -166,12 +166,19 @@ Phases (any failed check exits non-zero and prints no result line):
 13. sharded (after the profiles of phase 7): ``ShardedCTCDecoder(shard_lm=True)``
    over a world-size-1 NCCL group brought up by ``parallel.launch``, member
    A's bucket planes row-sharded, every probe one collective round trip;
-   the dense call and the serving options (chunks, blank collapse), both
-   with ``collect_stats``: results equal phases 5 and 6's (lm_score
-   difference 0), counters equal the unsharded decoder's, launches as the
-   code implies; a ``device_profile`` of 100 frames unsharded with the
-   counters off and on and sharded (device ops a step; what the counters
-   and the collective round trip add); ``probe_rows`` over 2
+   by default through the main decoder's captured graphs, the collectives
+   captured inside them, and in an eager column (a wrapped decoder made
+   with ``with_options(segment_frames=0)``); the dense call and the serving
+   options (chunks, blank collapse), both with ``collect_stats``, on both
+   columns: results equal phases 5 and 6's (lm_score difference 0),
+   counters equal the unsharded decoder's, launches as the code implies
+   (graphs: whole segments); latency, audio-s/s and peak device memory of
+   each column, the graphs' first call with each capture's seconds and a
+   warm call that captures nothing; a ``device_profile`` of 100 frames
+   under graphs, unsharded with the counters off and on and sharded
+   (device ops a step, idle share; what the counters and the collective
+   round trip add); the keys the phase adds to the main decoder's graph
+   cache and its evictions; ``probe_rows`` over 2
    and 4 row windows of member A's planes on a real dense step's queries,
    each window against its plain version, summed bit-equal to the whole
    probe, each timed warm and L2-flushed beside the whole table, with its
@@ -189,10 +196,18 @@ Phases (any failed check exits non-zero and prints no result line):
    and streams of 100 frames with no hotwords and with two hotword sets:
    the keys it holds after each call, the distinct keys, the evictions at
    ``GRAPH_KEYS`` and an LRU of 8's on the same requests, the captures'
-   seconds and the memory the cache adds.
+   seconds and the memory the cache adds;
+16. evaluation (after the graph cache): ``evaluation.evaluate_corpus`` on
+   the main decoder for the dense configuration (32 utterances, beam 100,
+   member A, after its warm-up batch): WER beside the greedy WER,
+   audio-s/s, its hypotheses the dense phase's texts and its launches
+   those of its two decodes; ``compare_engines`` of the host oracle over
+   the same LM against the card on the first 4 utterances (both WERs,
+   top-1 agreement, which must be 1, ``wer_delta``, speedup; the card's
+   hypotheses the dense phase's); ``utils.normalize_to_logp_torch`` on the
+   card against the CPU (logits and probabilities, within 1e-6).
 
-The sharded decode runs the eager loop (its NCCL collectives stay outside
-graph capture). Depth cuts of
+Depth cuts of
 the earlier paths, to keep the script's time as the phases above were
 added (constants below): the CPU cross-checks of phases
 8 and 9 decode the first ``CPU_FRAMES`` frames of their utterances (the
@@ -279,6 +294,8 @@ KENLM_TOL = 1e-4  # the binary holds the ARPA's f32 probabilities: the same sums
 QUANT_BITS = (8, 8)  # kenlm build_binary's default -q 8 -b 8
 QUANT_UTTS = 2
 NATIVE_UTTS = 4  # utterances decoded over both readers' tables in the native phase
+EVAL_HOST_UTTS = 4  # utterances compare_engines decodes on the host oracle and the card
+NORM_TOL = 1e-6  # normalize_to_logp_torch on the card against the CPU (atol and rtol)
 
 
 _T0 = time.perf_counter()
@@ -2489,17 +2506,28 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
     member A's bucket planes are row-sharded over it, so every probe of a
     step and of a finalize is one collective round trip (``all_gather`` of
     the queries, one ``probe_rows`` launch on the local window,
-    ``all_reduce`` of the answers). ``decode_beams_batch`` dense and with the
-    serving options (chunks, blank collapse), both with ``collect_stats``:
-    texts, frames and LM states equal the dense and serving results from
-    earlier in the run (lm_score difference 0), the counters equal the
-    unsharded decoder's for the same call, the launches ``expected_counts``.
-    Profiled (``device_profile``): the dense decode's first
+    ``all_reduce`` of the answers). Two columns: graphs (the default: the
+    main decoder's segments of 16 steps and its finalize, each a captured
+    CUDA graph with the collectives inside, in the main decoder's graph
+    cache) and eager (a wrapped decoder made with
+    ``with_options(segment_frames=0)``). ``decode_beams_batch`` dense and with
+    the serving options (chunks, blank collapse), both with
+    ``collect_stats``, on each column: texts, frames and LM states equal
+    the dense and serving results from earlier in the run (lm_score
+    difference 0), the counters equal the unsharded decoder's for the same
+    call, the launches ``expected_counts`` (graphs: padded to whole
+    segments). Logged for each: latency, audio-s/s and peak device memory;
+    for graphs the first call (with its captures, and each capture's
+    seconds) and a warm call (replays only: no capture). Profiled
+    (``device_profile``), under graphs: the dense decode's first
     ``PROFILE_FRAMES`` frames, unsharded with the counters off and on, and
     sharded (device ops a step, busy s, idle share against the unprofiled
     latency); what the counters and the collective round trip add is the
-    difference to the unsharded decode with the counters off. ``windows`` is
-    :func:`window_phase`'s record, kept with this phase's.
+    difference to the unsharded decode with the counters off. The keys the
+    phase adds to the main decoder's cache, and its evictions, are logged;
+    the sharded keys are dropped before the group goes (their graphs hold
+    its communicator's collectives). ``windows`` is :func:`window_phase`'s
+    record, kept with this phase's.
     """
     import socket
 
@@ -2508,6 +2536,7 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.parallel import ShardedCTCDecoder, make_data_mesh
     from pyctcdecode_torch.parallel.launch import initialize_from_env
+    from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
     from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
 
     t_phase = time.perf_counter()
@@ -2521,64 +2550,112 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
         port = sock.getsockname()[1]
     check(initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0),
           "the process group did not come up")
+    keys0, evicted0 = len(decoder._graphs), decoder._graph_evictions
     rec: dict = {}
+    sharded = None
     try:
         mesh = make_data_mesh()
         check(dist.get_backend() == "nccl" and mesh.size() == 1, "not a world-size-1 NCCL mesh")
+        torch.cuda.synchronize()
+        resident0 = torch.cuda.memory_allocated()  # what the run holds on the card before the sharded tables
         t0 = time.perf_counter()
         sharded = ShardedCTCDecoder(decoder, mesh=mesh, shard_lm=True)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        fp = sharded._tabs["lms"][0]["fp"]
+        resident1 = torch.cuda.memory_allocated()
+        eager = ShardedCTCDecoder(decoder.with_options(segment_frames=0), mesh=mesh, shard_lm=True)
+        torch.cuda.synchronize()
+        rec["resident_before_gb"] = resident0 / 1e9
+        rec["sharded_tables_gb"] = [(resident1 - resident0) / 1e9, (torch.cuda.memory_allocated() - resident1) / 1e9]
+        log(f"[sharded] device memory held before the phase {rec['resident_before_gb']:.3f} GB; each column's "
+            f"sharded tables (member A's bucket planes, one window at world size 1) add "
+            f"{rec['sharded_tables_gb'][0]:.3f} and {rec['sharded_tables_gb'][1]:.3f} GB (the graphs column's "
+            f"in {setup_s:.2f} s)")
+        tabs = sharded._tabs
+        fp = tabs["lms"][0]["fp"]
         check(all(t["row0"] == 0 and t["bucket"].shape[0] == t["size"] for t in fp)
-              and "shard" in sharded._tabs["lms"][0], "the sharded tables are not one whole window")
+              and "shard" in tabs["lms"][0], "the sharded tables are not one whole window")
         t0 = time.perf_counter()  # NCCL makes its communicator at the first collective: not in a latency
-        sharded.decode_beams_batch([logits[0][:8]], beam_width=BEAM)
+        eager.decode_beams_batch([logits[0][:8]], beam_width=BEAM)
         first_s = time.perf_counter() - t0
         beams_kw = dict(beam_width=BEAM, prune_history=True, top_n=1, collect_stats=True)
         serve_kw = dict(token_chunking=True, blank_collapse=True)
         mats, _, _ = normalize_collapse_batch(logits, LIBRI_LABELS.index(""), DEFAULT_MIN_TOKEN_LOGP)
         v_steps = int(max(token_timeline_batch(mats, DEFAULT_MIN_TOKEN_LOGP, CHUNK)[1]))
-        for tag, kw, steps, want_beams in (("dense", {}, t_max, dense_beams), ("serving", serve_kw, v_steps, serve_beams)):
+
+        def sharded_keys() -> list:
+            return [key for key in decoder._graphs if key[3] == id(tabs)]
+
+        def run(tag: str, column: str, dec, kw: dict, steps: int, want_beams, want_stats) -> tuple:
+            """One sharded decode of the corpus: its record, results and counters, each checked."""
             reset_counts(wrappers)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            got, stats = sharded.decode_beams_batch(logits, **beams_kw, **kw)
+            got, stats = dec.decode_beams_batch(logits, **beams_kw, **kw)
             latency = time.perf_counter() - t0
             launches = read_counts(wrappers)
-            check_counts(f"sharded {tag}", launches, expected_counts([lm], steps, 1))
-            d = check_same_results(f"sharded {tag} vs {tag}", want_beams, got, 0.0)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check_counts(f"sharded {tag} {column}", launches, expected_counts([lm], steps, 1))
+            d = check_same_results(f"sharded {tag} {column} vs {tag}", want_beams, got, 0.0)
+            check(stats == want_stats, f"sharded {tag} {column}: the counters differ from the unsharded decoder's")
+            return dict(latency_s=latency, audio_s_per_s=audio_s / latency, launches=launches, steps=steps,
+                        peak_device_gb=peak_gb, max_lm_score_diff=d), got, stats
+
+        for tag, kw, steps, want_beams in (("dense", {}, t_max, dense_beams), ("serving", serve_kw, v_steps, serve_beams)):
             t0 = time.perf_counter()
             _, want_stats = decoder.decode_beams_batch(logits, **beams_kw, **kw)
             stats_latency = time.perf_counter() - t0
-            check(stats == want_stats, f"sharded {tag}: the counters differ from the unsharded decoder's")
+            held = set(sharded_keys())
+            graphs, got, stats = run(tag, "graphs", sharded, kw, launched(steps), want_beams, want_stats)
+            new = [key for key in sharded_keys() if key not in held]
+            check(len(new) == 1, f"sharded {tag}: {len(new)} new graph keys, expected 1")
+            seg_graph = decoder._graphs[new[0]]
+            check(seg_graph.graph is not None and all(f.graph is not None for f in seg_graph.finals.values()),
+                  f"sharded {tag}: the decode did not run through captured graphs")
+            graphs["first_call_s"] = graphs["latency_s"]
+            graphs["capture_s"] = {"segment": seg_graph.capture_s,
+                                   "finalize": [f.capture_s for f in seg_graph.finals.values()]}
+            held_graphs = (seg_graph.graph, [f.graph for f in seg_graph.finals.values()])
+            warm, _, _ = run(tag, "graphs warm", sharded, kw, launched(steps), want_beams, want_stats)
+            check((seg_graph.graph, [f.graph for f in seg_graph.finals.values()]) == held_graphs
+                  and len(sharded_keys()) == len(held) + 1, f"sharded {tag}: the warm call captured again")
+            graphs.update(latency_s=warm["latency_s"], audio_s_per_s=warm["audio_s_per_s"],
+                          peak_device_gb=max(graphs["peak_device_gb"], warm["peak_device_gb"]))
+            eager_r, _, _ = run(tag, "eager", eager, kw, steps, want_beams, want_stats)
             totals = {key: sum(st[key] for st in stats) for key in stats[0]}
-            log(f"[sharded] {tag} decode_beams_batch {N_UTTS} x beam {BEAM}, shard_lm on, collect_stats: equal to "
-                f"the {tag} results (lm_score diff {d:.3g}), counters equal the unsharded decoder's; {latency:.3f} s, "
-                f"{audio_s / latency:.1f} audio-s/s, {steps} steps (unsharded with the counters: {stats_latency:.3f} s); "
+            log(f"[sharded] {tag} decode_beams_batch {N_UTTS} x beam {BEAM}, shard_lm on, collect_stats, graphs and "
+                f"eager: both equal to the {tag} results (lm_score diff {graphs['max_lm_score_diff']:.3g}, "
+                f"{eager_r['max_lm_score_diff']:.3g}), counters equal the unsharded decoder's; graphs "
+                f"{graphs['latency_s']:.3f} s warm ({graphs['audio_s_per_s']:.1f} audio-s/s; first call "
+                f"{graphs['first_call_s']:.3f} s with captures of {graphs['capture_s']['segment']:.3f} s segment, "
+                f"{', '.join(f'{c:.3f}' for c in graphs['capture_s']['finalize'])} s finalize), {launched(steps)} "
+                f"steps, peak {graphs['peak_device_gb']:.3f} GB; eager {eager_r['latency_s']:.3f} s "
+                f"({eager_r['audio_s_per_s']:.1f} audio-s/s), {steps} steps, peak {eager_r['peak_device_gb']:.3f} GB; "
+                f"x{eager_r['latency_s'] / graphs['latency_s']:.2f}; unsharded with the counters {stats_latency:.3f} s; "
                 f"counter totals {totals} [{card}]")
-            rec[tag] = dict(latency_s=latency, unsharded_stats_latency_s=stats_latency, launches=launches,
-                            steps=steps, counters_total=totals, max_lm_score_diff=d)
+            rec[tag] = dict(graphs=graphs, eager=eager_r, launches=graphs["launches"],
+                            unsharded_stats_latency_s=stats_latency, counters_total=totals)
         rec["setup_s"], rec["first_collective_call_s"] = setup_s, first_s
 
-        # device ops a step: unsharded with the counters off and on, and sharded, all on the
-        # eager loop (the sharded decode's: its collectives stay outside graph capture)
+        # device ops a step under graphs: unsharded with the counters off and on, and sharded
         head = [m[:PROFILE_FRAMES] for m in logits]
         plain_kw = dict(beam_width=BEAM, prune_history=True, top_n=1)
-        eager = decoder.with_options(segment_frames=0)
         reports = {}
-        for tag, run in (("unsharded", lambda: eager.decode_beams_batch(head, **plain_kw)),
-                         ("unsharded, counters on", lambda: eager.decode_beams_batch(head, collect_stats=True, **plain_kw)),
-                         ("sharded", lambda: sharded.decode_beams_batch(head, **plain_kw))):
+        for tag, run_head in (("unsharded", lambda: decoder.decode_beams_batch(head, **plain_kw)),
+                              ("unsharded, counters on",
+                               lambda: decoder.decode_beams_batch(head, collect_stats=True, **plain_kw)),
+                              ("sharded", lambda: sharded.decode_beams_batch(head, **plain_kw))):
+            run_head()  # a new key captures here, outside the timed and profiled calls
             reset_counts(wrappers)
             t0 = time.perf_counter()
-            run()
+            run_head()
             lat = time.perf_counter() - t0
             launches = read_counts(wrappers)
             steps = launches["expand_merge_prune"]
-            prof = device_profile(torch, run, steps, lat, launches)
-            log(f"[sharded] profile, {tag}, the first {PROFILE_FRAMES} frames: {steps} steps, unprofiled latency "
-                f"{lat:.3f} s")
+            prof = device_profile(torch, run_head, steps, lat, launches)
+            log(f"[sharded] profile under graphs, {tag}, the first {PROFILE_FRAMES} frames: {steps} steps, "
+                f"unprofiled latency {lat:.3f} s")
             log_profile(f"sharded profile {tag}", prof, lat, card)
             if prof is not None:
                 prof.update(frames=PROFILE_FRAMES, steps=steps, latency_s=lat, launches=launches)
@@ -2589,25 +2666,113 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
             added = dict(ops_per_step=shd["device_ops_per_step"] - off["device_ops_per_step"],
                          device_ms_per_step=(shd["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
                          latency_ratio=shd["latency_s"] / off["latency_s"])
-            log(f"[sharded] the collective round trip adds {added['ops_per_step']:.1f} device ops and "
+            log(f"[sharded] under graphs the collective round trip adds {added['ops_per_step']:.1f} device ops and "
                 f"{added['device_ms_per_step']:.5f} device ms a step (sharded minus unsharded), latency x"
                 f"{added['latency_ratio']:.3f} [{card}]")
         if off and on:
             counters_added = dict(ops_per_step=on["device_ops_per_step"] - off["device_ops_per_step"],
                                   device_ms_per_step=(on["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
                                   latency_ratio=on["latency_s"] / off["latency_s"])
-            log(f"[sharded] the counters add {counters_added['ops_per_step']:.1f} device ops and "
+            log(f"[sharded] under graphs the counters add {counters_added['ops_per_step']:.1f} device ops and "
                 f"{counters_added['device_ms_per_step']:.5f} device ms a step, latency x"
                 f"{counters_added['latency_ratio']:.3f} [{card}]")
         rec["profile"] = reports
         rec["collectives_added"], rec["counters_added"] = added, counters_added
-        del sharded
+        keys = sharded_keys()
+        rec["graph_keys"] = dict(held_before=keys0, held_after=len(decoder._graphs), sharded=len(keys),
+                                 evictions=decoder._graph_evictions - evicted0, limit=GRAPH_KEYS)
+        log(f"[sharded] the main decoder's graph cache: {keys0} keys before the phase, {len(decoder._graphs)} after "
+            f"({len(keys)} sharded keys, {len(decoder._graphs) - keys0 - len(keys)} unsharded), evictions "
+            f"{rec['graph_keys']['evictions']} at the limit {rec['graph_keys']['limit']}; the sharded keys are "
+            f"dropped before the group goes")
     finally:
+        if sharded is not None:  # the sharded keys' graphs replay the group's collectives: they go first
+            for key in [key for key in decoder._graphs if key[3] == id(sharded._tabs)]:
+                del decoder._graphs[key]
+            torch.cuda.synchronize()
+        del sharded
         dist.destroy_process_group()
 
     rec["probe_windows"] = windows
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"[sharded] phase in {rec['seconds']:.1f} s")
+    return rec
+
+
+def add_counts(*counts: dict) -> dict:
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def evaluation_phase(torch, P, merge, gather, decoder, corpus, texts: list, wer_greedy: float, card: str) -> dict:
+    """The corpus evaluation harness on the card: ``evaluate_corpus``, ``compare_engines``, ``normalize_to_logp_torch``.
+
+    ``evaluate_corpus`` decodes the dense configuration (the corpus, beam
+    100, member A) on the main decoder after its warm-up batch (utterance
+    0): WER beside the greedy WER, audio-s/s; its hypotheses must be the
+    dense phase's ``texts``, its launches those of the warm-up and the
+    corpus decode. ``compare_engines`` holds the host oracle over the same
+    LM against the card on the first ``EVAL_HOST_UTTS`` utterances: both
+    WERs, top-1 agreement (every utterance must agree, the JAX package's
+    0.99 bound at this count), ``wer_delta`` and the speedup; the card's
+    hypotheses must be the dense phase's. ``normalize_to_logp_torch`` of
+    utterance 0's logits and of its probabilities on the card must be
+    within ``NORM_TOL`` of the same call on the CPU.
+    """
+    from pyctcdecode_torch.evaluation import Corpus, compare_engines, evaluate_corpus
+    from pyctcdecode_torch.utils import normalize_to_logp_torch
+
+    t_phase = time.perf_counter()
+    wrappers = counters(merge, gather)
+    lm = decoder.language_model
+    logits = corpus.logits
+    warm_steps = launched(logits[0].shape[0])
+    reset_counts(wrappers)
+    report = evaluate_corpus(decoder, corpus, beam_width=BEAM, max_tokens_per_frame=None)
+    launches = read_counts(wrappers)
+    check_counts("evaluation evaluate_corpus", launches,
+                 add_counts(expected_counts([lm], warm_steps, 1),
+                            expected_counts([lm], launched(max(m.shape[0] for m in logits)), 1)))
+    check(report["hypotheses"] == texts, "evaluate_corpus: the hypotheses differ from the dense decode's")
+    check(report["n_utterances"] == N_UTTS and report["beam_width"] == BEAM, "evaluate_corpus: a bad report")
+    log(f"[evaluation] evaluate_corpus on the card, {N_UTTS} utterances x beam {BEAM}, member A: WER "
+        f"{report['wer']:.4f} (greedy {wer_greedy:.4f}), {report['audio_sec_per_sec']:.1f} audio-s/s "
+        f"({report['wall_seconds']:.4f} s for {report['audio_seconds']:.2f} audio-s, after the warm-up batch); "
+        f"hypotheses equal the dense decode's [{card}]")
+
+    first = Corpus(corpus.references[:EVAL_HOST_UTTS], logits[:EVAL_HOST_UTTS], corpus.labels)
+    host = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm)
+    reset_counts(wrappers)
+    cmp = compare_engines(host, decoder, first, beam_width=BEAM, max_tokens_per_frame=None)
+    c_launches = read_counts(wrappers)
+    check_counts("evaluation compare_engines", c_launches,
+                 add_counts(expected_counts([lm], warm_steps, 1),
+                            expected_counts([lm], launched(max(m.shape[0] for m in first.logits)), 1)))
+    check(cmp["device_hypotheses"] == texts[:EVAL_HOST_UTTS],
+          "compare_engines: the card's hypotheses differ from the dense decode's")
+    check(cmp["top1_agreement"] == 1.0, f"compare_engines: top-1 agreement {cmp['top1_agreement']}")
+    log(f"[evaluation] compare_engines, the first {EVAL_HOST_UTTS} utterances x beam {BEAM}: host oracle WER "
+        f"{cmp['host']['wer']:.4f} ({cmp['host']['audio_sec_per_sec']:.1f} audio-s/s, one core), card WER "
+        f"{cmp['device']['wer']:.4f} ({cmp['device']['audio_sec_per_sec']:.1f} audio-s/s), top-1 agreement "
+        f"{cmp['top1_agreement']}, wer_delta {cmp['wer_delta']}, speedup x{cmp['speedup']} [{card}]")
+
+    norm = {}
+    x = logits[0]
+    probs = np.exp(x - x.max(-1, keepdims=True))
+    probs = (probs / probs.sum(-1, keepdims=True)).astype(np.float32)
+    for kind, mat in (("logits", x), ("probs", probs)):
+        dev = normalize_to_logp_torch(torch.as_tensor(mat, device="cuda"))
+        cpu = normalize_to_logp_torch(torch.as_tensor(mat))
+        err = float((dev.cpu() - cpu).abs().max())
+        check(dev.is_cuda and torch.allclose(dev.cpu(), cpu, rtol=NORM_TOL, atol=NORM_TOL),
+              f"normalize_to_logp_torch on {kind}: the card's result is {err} off the CPU's")
+        norm[kind] = err
+    log(f"[evaluation] normalize_to_logp_torch on utterance 0's logits and probabilities {list(x.shape)}: the card "
+        f"within {NORM_TOL} of the CPU (max abs diff {norm['logits']:.3g}, {norm['probs']:.3g})")
+    rec = dict(evaluate_corpus={k: v for k, v in report.items() if k != "hypotheses"}, wer_greedy=wer_greedy,
+               launches=launches, compare_engines={k: v for k, v in cmp.items() if not k.endswith("_hypotheses")},
+               compare_launches=c_launches, normalize_max_abs_diff=norm,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[evaluation] phase in {rec['seconds']:.1f} s")
     return rec
 
 
@@ -3103,6 +3268,9 @@ def main() -> int:
     # ---- the graph cache of one decoder that serves batches and streams, never cleared
     cache_rec = graph_cache_phase(torch, decoder, logits, card)
 
+    # ---- the evaluation harness: evaluate_corpus and compare_engines on the dense configuration
+    eval_rec = evaluation_phase(torch, P, merge, gather, decoder, corpus, texts, wer_greedy, card)
+
     # ---- the hot2lm path: two LM members and hotwords (the single-LM
     # decoders' tables go first, so that the peak memory is the new decoder's own)
     park(decoder)
@@ -3168,6 +3336,8 @@ def main() -> int:
             "launches_kenlm_serving": kenlm_rec["serving"]["launches"][kname],
             "launches_sharded": sharded_rec["dense"]["launches"][kname],
             "launches_sharded_serving": sharded_rec["serving"]["launches"][kname],
+            "launches_sharded_eager": sharded_rec["dense"]["eager"]["launches"][kname],
+            "launches_evaluation": eval_rec["launches"][kname],
         })
         if kname == "expand_merge_prune":
             for tag, r_bpe in (("bpe", rec[("expand_merge_prune", f"n={N_UTTS},k={BPE_V},lmax={BPE_LMAX}")]),
@@ -3215,6 +3385,7 @@ def main() -> int:
                         launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
         "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "segments": seg_rec, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
         "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec, "graph_cache": cache_rec,
+        "evaluation": eval_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,
     }

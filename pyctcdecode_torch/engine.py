@@ -1198,6 +1198,17 @@ class _Captured:
     ``launches`` the launches its capture made (counted and taken back at
     capture, which runs nothing, whether it succeeds or fails). A capture
     or replay error raises; nothing runs the program eagerly instead.
+
+    Collectives (a row-sharded LM's probes,
+    :func:`~pyctcdecode_torch.models.device_tables.probe_rows_sharded`) are
+    captured with the rest. The eager first run comes before the capture on
+    purpose: NCCL makes its communicator and its stream at a group's first
+    collective, which must not fall inside a capture. In the capture each
+    collective runs on the process group's NCCL stream, forked from the side
+    stream by an event and joined back by one before the call returns, so
+    every fork is joined before ``capture_end``. A replay issues the same
+    collectives, so every process of the group must replay its graphs in
+    the same order (see ``TorchBeamSearchDecoderCTC._segment_graph``).
     """
 
     def __init__(self, device: torch.device, pool) -> None:

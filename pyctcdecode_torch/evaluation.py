@@ -1,27 +1,48 @@
-"""Synthetic evaluation data: a CTC corpus and a parity-scale n-gram LM.
+"""Corpus evaluation: synthetic data, corpus WER and throughput, and engine parity.
 
 Environments without audio data or network access still need realistic
-decoding work. :func:`synthesize_corpus` builds a reproducible noisy CTC
-corpus (reference transcripts plus frame-level logit matrices), and
-:func:`make_parity_arpa` writes a 3-gram ARPA with the shape statistics of
-the pruned LibriSpeech 3-gram (200k-word vocabulary, 1.5M bigrams, 1.1M
-trigrams). Both are made from fixed seeds, so every run sees the same data.
+decoding work, and users need one call that reports what they pay for:
+
+* :func:`synthesize_corpus` builds a reproducible noisy CTC corpus
+  (reference transcripts plus frame-level logit matrices), at a difficulty
+  preset (``DEV_OTHER_DIFFICULTY``, ``FIXTURE_DIFFICULTY``) or its own
+  settings.
+* :func:`make_parity_arpa` writes a 3-gram ARPA with the shape statistics
+  of the pruned LibriSpeech 3-gram (200k-word vocabulary, 1.5M bigrams,
+  1.1M trigrams).
+* :func:`evaluate_corpus` decodes a corpus on either engine (the host
+  oracle :class:`~pyctcdecode_torch.decoder.BeamSearchDecoderCTC` or
+  :class:`~pyctcdecode_torch.torch_decoder.TorchBeamSearchDecoderCTC`) and
+  reports corpus WER and decoded audio-seconds per wall-second, after a
+  warm-up batch that takes the card's graph captures.
+* :func:`compare_engines` runs the host oracle and the device decoder on
+  the same corpus at matched parameters: both WERs, top-1 agreement and
+  the throughput ratio.
+
+Both data makers use fixed seeds, so every run sees the same data. CLI:
+``python scripts/torch_eval_corpus.py --help``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .utils.metrics import word_error_rate
+
 FRAME_SEC = 0.02  # Wav2Vec2 / QuartzNet CTC frame stride
 
-# :func:`synthesize_corpus` difficulty preset calibrated against the
+# :func:`synthesize_corpus` difficulty presets calibrated against the
 # reference's artifacts (decode cost is strongly data-dependent, so pinning
 # difficulty is what makes corpus timings comparable):
-# ``DEV_OTHER_DIFFICULTY`` — greedy argmax decoding scores ~10% WER,
-# matching the reference's published greedy WER on LibriSpeech dev-other,
-# its benchmark split (10.08%, ref 03_eval_performance.ipynb cell 25).
+# * ``DEV_OTHER_DIFFICULTY`` — greedy argmax decoding scores ~10% WER,
+#   matching the reference's published greedy WER on LibriSpeech dev-other,
+#   its benchmark split (10.08%, ref 03_eval_performance.ipynb cell 25).
+# * ``FIXTURE_DIFFICULTY`` — matches the reference's real Wav2Vec2 test
+#   fixture ``libri_logits.json`` (1.13 mean admitted tokens a frame at the
+#   default -5.0 threshold, 39% blank-certain frames).
 DEV_OTHER_DIFFICULTY: Dict[str, object] = dict(
     words_per_utterance=(14, 20),
     frames_per_char=(1, 2),
@@ -29,6 +50,14 @@ DEV_OTHER_DIFFICULTY: Dict[str, object] = dict(
     peak=8.0,
     noise=1.7,
     blank_peak=12.5,
+)
+FIXTURE_DIFFICULTY: Dict[str, object] = dict(
+    words_per_utterance=(14, 20),
+    frames_per_char=(1, 2),
+    blank_frames=(1, 2),
+    peak=8.0,
+    noise=0.8,
+    blank_peak=11.0,
 )
 
 
@@ -113,6 +142,86 @@ def synthesize_corpus(
             mat[arr == blank_id, blank_id] += b_peak - peak
         mats.append(mat)
     return Corpus(references=refs, logits=mats, labels=list(labels))
+
+
+# decode options only the device decoder takes; the host oracle decodes without them
+_DEVICE_ONLY_KWARGS = (
+    "max_tokens_per_frame",
+    "blank_collapse",
+    "length_bucketing",
+    "token_chunking",
+)
+
+
+def _decode_all(decoder, corpus: Corpus, beam_width: int, **kwargs) -> List[str]:
+    """Batch top-1 transcripts on either engine (the host oracle's ``decode_batch`` takes a pool first)."""
+    from .decoder import BeamSearchDecoderCTC
+
+    if isinstance(decoder, BeamSearchDecoderCTC):
+        kwargs = {k: v for k, v in kwargs.items() if k not in _DEVICE_ONLY_KWARGS}
+        return decoder.decode_batch(None, corpus.logits, beam_width=beam_width, **kwargs)
+    return decoder.decode_batch(corpus.logits, beam_width=beam_width, **kwargs)
+
+
+def evaluate_corpus(
+    decoder: "object",
+    corpus: Corpus,
+    beam_width: int = 100,
+    warmup: bool = True,
+    **decode_kwargs: "object",
+) -> Dict:
+    """Decode a corpus and report its WER and decoded audio-seconds per wall-second.
+
+    ``warmup`` decodes the first utterance first, untimed, so that the
+    card's one-time work (kernel builds, graph captures) is not billed to
+    throughput (the reference times warm decoding too, ref
+    03_eval_performance.ipynb cells 29-30). The timed decode is the whole
+    corpus in one ``decode_batch`` call, which waits for its results.
+    """
+    if warmup:
+        _decode_all(decoder, Corpus(corpus.references[:1], corpus.logits[:1], corpus.labels),
+                    beam_width, **decode_kwargs)
+    t0 = time.perf_counter()
+    hyps = _decode_all(decoder, corpus, beam_width, **decode_kwargs)
+    wall = time.perf_counter() - t0
+    return {
+        "wer": word_error_rate(corpus.references, hyps),
+        "audio_seconds": round(corpus.audio_seconds, 2),
+        "wall_seconds": round(wall, 4),
+        "audio_sec_per_sec": round(corpus.audio_seconds / wall, 2),
+        "n_utterances": len(corpus),
+        "beam_width": beam_width,
+        "hypotheses": hyps,
+    }
+
+
+def compare_engines(
+    host_decoder: "object",
+    device_decoder: "object",
+    corpus: Corpus,
+    beam_width: int = 100,
+    **decode_kwargs: "object",
+) -> Dict:
+    """Decode the same corpus on the host oracle and the device decoder at matched parameters.
+
+    Returns both :func:`evaluate_corpus` reports (without hypotheses), the
+    fraction of utterances whose top-1 transcripts agree exactly (the
+    device's f32 score accumulation can flip exact ties the host's f64
+    keeps, see PARITY.md), the WER difference, the throughput ratio, and
+    both engines' hypotheses.
+    """
+    host = evaluate_corpus(host_decoder, corpus, beam_width, **decode_kwargs)
+    dev = evaluate_corpus(device_decoder, corpus, beam_width, **decode_kwargs)
+    agree = sum(h == d for h, d in zip(host["hypotheses"], dev["hypotheses"])) / len(corpus)
+    return {
+        "host": {k: v for k, v in host.items() if k != "hypotheses"},
+        "device": {k: v for k, v in dev.items() if k != "hypotheses"},
+        "top1_agreement": round(agree, 4),
+        "wer_delta": round(dev["wer"] - host["wer"], 6),
+        "speedup": round(host["wall_seconds"] / dev["wall_seconds"], 2),
+        "host_hypotheses": host["hypotheses"],
+        "device_hypotheses": dev["hypotheses"],
+    }
 
 
 # parity-scale 3-gram (shape statistics of the pruned LibriSpeech 3-gram)

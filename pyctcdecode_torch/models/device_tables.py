@@ -1082,6 +1082,12 @@ def probe_rows_sharded(shard: LMShard, full: torch.Tensor, ctx_len: torch.Tensor
     packed ``(found, prob, backoff)`` planes. Exactly one process owns a
     query's row and the others add zeros, so the sums are exact. Returns
     this process's block, as ``probe_rows`` would on the whole tables.
+
+    It is safe to capture in a CUDA graph: no host sync, every shape fixed
+    by ``full``'s and the group's (``shard.size`` and ``shard.rank`` are
+    host constants), and ``every`` and ``packed`` are intermediates that a
+    capture takes from its graph's pool. The gloo group of the CPU is never
+    captured.
     """
     import torch.distributed as dist
 

@@ -21,10 +21,15 @@ holds ``1 / processes`` of the tables, and every probe of a step or a
 finalize becomes one collective round trip
 (:func:`~pyctcdecode_torch.models.device_tables.probe_rows_sharded`). Every
 process runs the same steps (the global batch's longest row), so the
-collectives line up. These decodes run the eager frame loop
-(``segment_frames=0``): their probes' NCCL collectives stay outside CUDA
-graph capture. Without ``shard_lm`` each process decodes its rows as the
-single decoder does, segments and captured graphs included.
+collectives line up. Sharded or not, each process decodes its rows as the
+wrapped decoder does: in segments of its ``segment_frames`` (16 on the
+card), each one replay of a captured CUDA graph, with the key's finalize
+graph after them. With ``shard_lm`` the probes' NCCL ``all_gather`` and
+``all_reduce`` are captured inside those graphs, and every replay issues
+them; every process's cache sees the same keys in the same order (see
+``TorchBeamSearchDecoderCTC._segment_graph``). A wrapped decoder made with
+``with_options(segment_frames=0)`` runs the eager frame loop instead, and
+so does the CPU (gloo), where nothing is captured.
 """
 from __future__ import annotations
 
@@ -115,7 +120,9 @@ class ShardedCTCDecoder:
     row-shards the n-gram tables over the mesh axis: each process holds
     ``1 / processes`` of every bucket plane and probes through collectives.
     Decodes are element-wise identical to the replicated layout and to the
-    single decoder.
+    single decoder, and run as the wrapped decoder's do: as captured graphs
+    on the card, collectives included; pass a decoder made with
+    ``with_options(segment_frames=0)`` for the eager frame loop.
     """
 
     def __init__(self, decoder: "object", mesh: "object" = None, axis: str = "data",
@@ -128,8 +135,7 @@ class ShardedCTCDecoder:
         self._group = self._mesh.get_group(axis)
         self._rank = dist.get_rank(self._group)
         self._world = dist.get_world_size(self._group)
-        self._shard_lm = bool(shard_lm) and bool(decoder._device_lm)
-        if self._shard_lm:
+        if shard_lm and decoder._device_lm:
             self._tabs = build_table_args(
                 decoder._tokens, decoder._device_lm, decoder.device,
                 shard=LMShard(self._group, self._rank, self._world),
@@ -153,15 +159,15 @@ class ShardedCTCDecoder:
     def _decode_local(self, logits_list: Sequence[np.ndarray], collect_stats: bool, **kw: Any):
         """Launch and collect this process's rows of the global batch: ``(results, stats)``.
 
-        With ``shard_lm`` an eager clone decodes, made per call so that it
-        reads the wrapped decoder's LM knobs as they are now.
+        The wrapped decoder runs them, with its ``segment_frames`` and its
+        graph cache; a ``shard_lm`` decode's keys differ from the replicated
+        ones by its tables (``self._tabs``).
         """
-        d = self._decoder.with_options(segment_frames=0) if self._shard_lm else self._decoder
-        handle = d._dispatch_batch(
+        handle = self._decoder._dispatch_batch(
             list(logits_list), batch_pad=self._world, row_block=self._rows(len(logits_list)),
             tabs=self._tabs, collect_stats=collect_stats, **kw,
         )
-        return d._collect_batch(handle, with_stats=True)
+        return self._decoder._collect_batch(handle, with_stats=True)
 
     def decode_beams_batch(
         self,

@@ -664,6 +664,15 @@ class TorchBeamSearchDecoderCTC:
         ``GRAPH_KEYS`` keys are kept, each with its finalize graphs; all
         share one memory pool, a new one whenever no captured graph is left
         (the cache emptied, or a capture failed).
+
+        A row-sharded LM's decode (``ShardedCTCDecoder(shard_lm=True)``)
+        has keys of its own through ``id(tables)``, and its graphs hold the
+        probes' collectives. Every process of the group must then capture,
+        replay and evict the same keys in the same order, or the
+        collectives stop meeting their peers'. They do: every process
+        passes the same global batch, pads it to the same step count (its
+        longest row) and the same rows a process, and makes the same calls,
+        so each process's cache sees the same keys in the same order.
         """
         key = (dataclasses.replace(cfg, emit_paths=None), n_frames.shape[0], seg, id(tables), id(hot))
         graph = self._graphs.get(key)

@@ -3,7 +3,8 @@
 Parity surface: ref ``decoder.py:180-197, 699-705, 759-765``. Rows summing to
 ~1 are treated as probabilities (log + clip); anything else goes through a
 clipped log-softmax. Host-side numpy: the decoder uploads the normalized
-float32 log-probs once per call.
+float32 log-probs once per call. :func:`normalize_to_logp_torch` is the
+same normalization in torch ops, on the tensor's own device.
 
 The serving path's host prep lives here too, all numpy over the batch's
 concatenated frame axis: :func:`blank_collapse` (drop blank-certain frames),
@@ -17,6 +18,7 @@ import math
 import threading
 
 import numpy as np
+import torch
 
 from ..constants import MIN_TOKEN_CLIP_P
 
@@ -44,6 +46,28 @@ def normalize_to_logp(logits: np.ndarray) -> np.ndarray:
     # raw logits (or already log-probs; log-softmax is idempotent-enough and
     # matches the reference behavior exactly)
     return np.clip(log_softmax_np(logits, axis=1), math.log(MIN_TOKEN_CLIP_P), 0)
+
+
+def normalize_to_logp_torch(logits: torch.Tensor, assume: str = "auto") -> torch.Tensor:
+    """Torch twin of :func:`normalize_to_logp` on ``logits``' own device, with no host sync.
+
+    ``assume`` may be ``"auto"`` (the probabilities sniff as a device-side
+    ``torch.where``: the mean row sum close to 1 at rtol 1e-9), ``"probs"``,
+    ``"logits"`` or ``"logp"`` to skip the sniff when the caller knows the
+    domain. Log-probabilities are clipped at ``log(MIN_TOKEN_CLIP_P)``.
+    """
+    if assume == "logp":
+        return logits
+    floor = math.log(MIN_TOKEN_CLIP_P)
+    if assume == "probs":
+        return torch.log(logits.clamp(MIN_TOKEN_CLIP_P, 1.0))
+    as_logits = torch.log_softmax(logits, dim=-1).clamp(floor, 0.0)
+    if assume == "logits":
+        return as_logits
+    as_probs = torch.log(logits.clamp(MIN_TOKEN_CLIP_P, 1.0))
+    row_sum_mean = logits.sum(dim=-1).mean()
+    is_probs = torch.isclose(row_sum_mean, torch.ones_like(row_sum_mean), rtol=1e-9, atol=0.0)
+    return torch.where(is_probs, as_probs, as_logits)
 
 
 def blank_collapse(

@@ -56,3 +56,8 @@ def word_error_rate(
     if total == 0:
         raise ValueError("Reference corpus is empty; WER is undefined.")
     return edits / total
+
+
+def character_error_rate(references: Sequence[str], hypotheses: Sequence[str]) -> float:
+    """Corpus-level CER: :func:`word_error_rate` over characters."""
+    return word_error_rate(references, hypotheses, use_cer=True)

@@ -8,6 +8,11 @@ the bit: texts, ``text_frames``, LM states and scores (tolerance 0). The
 launch counters must count the kernels the replays run, as the eager loop
 counts its own (plus the padded steps of the last segment).
 
+``ShardedCTCDecoder(shard_lm=True)`` runs the same way, its probes' NCCL
+collectives captured inside the graphs: over a one-process NCCL group it
+must equal its eager column (a wrapped decoder made with
+``segment_frames=0``) and the unsharded graph decode to the bit.
+
 Every test here needs an NVIDIA GPU and skips without one. The module
 imports neither JAX nor the JAX package:
 
@@ -228,3 +233,102 @@ def test_a_capture_error_raises(tmp_path, monkeypatch):
     # the failed capture launched nothing, so it leaves no count behind
     assert len(at_capture) == 1
     assert [fn.launches for fn in WRAPPERS] == at_capture[0]
+
+
+@pytest.fixture
+def nccl_mesh():
+    """A one-process NCCL group on 127.0.0.1 (a free port) and its mesh; destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pyctcdecode_torch.parallel import make_data_mesh
+    from pyctcdecode_torch.parallel.launch import initialize_from_env
+
+    _cuda()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0)
+    try:
+        yield make_data_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def _captures(monkeypatch) -> list:
+    """A list that grows by one at every capture, segment or finalize graph."""
+    made, capture = [], engine._Captured._capture
+
+    def counted(program):
+        made.append(type(program).__name__)
+        capture(program)
+
+    monkeypatch.setattr(engine._Captured, "_capture", counted)
+    return made
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", ["dense", "serving"])
+def test_sharded_graph_decode_equals_eager_and_unsharded(tmp_path, nccl_mesh, monkeypatch, options):
+    """World size 1 over NCCL, ``collect_stats`` on: graphs = the eager sharded column = the unsharded graphs.
+
+    The launches are the unsharded graph decode's, the finalize's two probes
+    included; a second call replays every graph and captures none.
+    """
+    from pyctcdecode_torch.parallel import ShardedCTCDecoder
+
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), _lm(tmp_path))
+    sharded = ShardedCTCDecoder(dec, mesh=nccl_mesh, shard_lm=True)
+    eager = ShardedCTCDecoder(dec.with_options(segment_frames=0), mesh=nccl_mesh, shard_lm=True)
+    kw = dict(beam_width=BEAM, prune_history=True, collect_stats=True)
+    if options == "serving":
+        kw.update(token_chunking=3, blank_collapse=True)
+    (plain, plain_stats), plain_used = _counted(dec, BATCH, **kw)
+    (want, want_stats), eager_used = _counted(eager, BATCH, **kw)
+    made = _captures(monkeypatch)
+    (got, got_stats), graph_used = _counted(sharded, BATCH, **kw)
+    _assert_bit_equal(want, got)
+    _assert_bit_equal(plain, got)
+    assert got_stats == want_stats == plain_stats
+    assert graph_used == plain_used
+    steps = graph_used[0]
+    assert steps % 16 == 0 and steps >= eager_used[0]
+    assert graph_used[3] - steps == eager_used[3] - eager_used[0] == 2  # the finalize's probes: last word, </s>
+    keys = [key for key in dec._graphs if key[3] == id(sharded._tabs)]
+    assert len(keys) == 1 and len(dec._graphs) == 2  # the sharded key beside the unsharded one
+    graph = dec._graphs[keys[0]]
+    assert graph.graph is not None and all(f.graph is not None for f in graph.finals.values())
+    assert made == ["SegmentGraph", "FinalizeGraph"]
+    held = (graph.graph, [f.graph for f in graph.finals.values()])
+    (again, again_stats), again_used = _counted(sharded, BATCH, **kw)
+    _assert_bit_equal(want, again)
+    assert again_stats == want_stats and again_used == graph_used
+    assert made == ["SegmentGraph", "FinalizeGraph"]  # replays only
+    assert (graph.graph, [f.graph for f in graph.finals.values()]) == held
+
+
+@pytest.mark.cuda
+def test_a_capture_error_in_the_collective_probe_raises(tmp_path, nccl_mesh, monkeypatch):
+    """A host sync inside ``probe_rows_sharded`` during a capture: the decode raises and nothing reruns eagerly."""
+    from pyctcdecode_torch.models import device_tables
+    from pyctcdecode_torch.parallel import ShardedCTCDecoder
+
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), _lm(tmp_path))
+    sharded = ShardedCTCDecoder(dec, mesh=nccl_mesh, shard_lm=True)
+    probe, calls = device_tables.probe_rows_sharded, []
+
+    def syncing_probe(shard, full, *args):
+        capturing = torch.cuda.is_current_stream_capturing()
+        calls.append(capturing)
+        if capturing:
+            full.max().item()  # a device-to-host read: not allowed while a stream captures
+        return probe(shard, full, *args)
+
+    monkeypatch.setattr(device_tables, "probe_rows_sharded", syncing_probe)
+    with pytest.raises(RuntimeError):
+        sharded.decode_beams_batch(BATCH, beam_width=BEAM)
+    torch.cuda.synchronize()
+    # the eager first run of the first segment (16 steps), then the failed capture's first probe: no rerun
+    assert calls == [False] * 16 + [True]
+

@@ -18,6 +18,8 @@ import pyctcdecode_torch.models.kenlm_bin, pyctcdecode_torch.models.kenlm_trie, 
 import pyctcdecode_torch.models.native, pyctcdecode_torch.csrc.native, pyctcdecode_torch.parallel
 import pyctcdecode_torch.parallel.batch, pyctcdecode_torch.parallel.launch
 import pyctcdecode_torch.utils.profiling, pyctcdecode_torch.utils.tuning
+from pyctcdecode_torch.evaluation import FIXTURE_DIFFICULTY, compare_engines, evaluate_corpus, _decode_all
+from pyctcdecode_torch.utils import CharTrie, character_error_rate, normalize_to_logp_torch
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyctcdecode_tpu'))
 assert not bad, bad
 print('clean')
@@ -109,7 +111,10 @@ def test_every_new_module_is_in_the_source_scan():
                 "pyctcdecode_torch/models/native.py", "pyctcdecode_torch/parallel/__init__.py",
                 "pyctcdecode_torch/parallel/batch.py", "pyctcdecode_torch/parallel/launch.py",
                 "pyctcdecode_torch/utils/profiling.py", "pyctcdecode_torch/utils/tuning.py",
-                "pyctcdecode_torch/ops/backtrace.py", "pyctcdecode_torch/csrc/backtrace.cu"):
+                "pyctcdecode_torch/ops/backtrace.py", "pyctcdecode_torch/csrc/backtrace.cu",
+                "pyctcdecode_torch/evaluation.py", "pyctcdecode_torch/utils/__init__.py",
+                "pyctcdecode_torch/utils/metrics.py", "scripts/torch_eval_corpus.py",
+                "scripts/torch_sharded_ranks.py"):
         assert rel in scanned, rel
 
 

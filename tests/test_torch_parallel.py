@@ -10,7 +10,14 @@ counters equal, scores within ``SCORE_TOL``), as must the single-process
 port decoder, and it must equal the latter to the bit (one process owns
 each probed row and the others add zeros, so the sums are exact). Three
 processes over four utterances leave the last process
-nothing but padded rows. LM knobs set with ``reset_params`` on the wrapped
+nothing but padded rows. Each process also runs every case with ``shard_lm``
+through a wrapped decoder made with ``with_options(segment_frames=4)``: the
+segment and finalize programs the card captures, run eagerly here with
+their gloo collectives. Those results must equal the eager sharded decode's
+and the single decoder's to the bit, and every process must issue its
+collective probes at the same points of the segment and finalize programs
+(a log of each probe's query shape between the two). LM knobs set with
+``reset_params`` on the wrapped
 decoder after its first decodes reach the next one. The row windows themselves are checked in one
 process: ``probe_rows_ref`` over 2 and 3 windows, summed, equals the
 whole-table probe in both hash modes, and the windows are the JAX
@@ -38,6 +45,7 @@ CASES = {  # every case with shard_lm on; the first two with it off too
     "hotwords": dict(hotwords=HOTWORDS, hotword_weight=6.0),
     "auto_k": dict(max_tokens_per_frame="auto", blank_collapse=True),
 }
+SEGMENT = 4  # steps a segment of the segmented sharded decodes
 RETUNE = dict(alpha=0.9, beta=2.5)  # LM knobs set on the wrapped decoder after its sharded decodes
 
 
@@ -60,19 +68,47 @@ def _decoder(arpa):
     return P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), lm, device="cpu")
 
 
+def _logged_collectives(log: list):
+    """Record each collective probe's query shape, between ``"segments"`` and ``"finalize"`` marks."""
+    from pyctcdecode_torch import torch_decoder
+    from pyctcdecode_torch.models import device_tables
+
+    probe, run_segments = device_tables.probe_rows_sharded, torch_decoder.run_segments
+
+    def logged_probe(shard, full, *args, **kw):
+        log.append(tuple(full.shape))
+        return probe(shard, full, *args, **kw)
+
+    def logged_segments(*args, **kw):
+        log.append("segments")
+        state = run_segments(*args, **kw)
+        log.append("finalize")
+        return state
+
+    device_tables.probe_rows_sharded = logged_probe
+    torch_decoder.run_segments = logged_segments
+
+
 def _worker(out_path: str, arpa: str) -> None:
-    """One process of the group: every case with ``shard_lm`` off and on, pickled to ``out_path``."""
+    """One process of the group: every case with ``shard_lm`` off and on, and in segments, pickled to ``out_path``."""
     from pyctcdecode_torch.parallel import ShardedCTCDecoder, all_reduce_counts, make_data_mesh, process_shard
 
     mesh = make_data_mesh(device="cpu")
     rank = torch.distributed.get_rank()
     dec, batch = _decoder(arpa), _batch()
-    out = {"rank": rank, "shard": process_shard(len(batch))}
+    out = {"rank": rank, "shard": process_shard(len(batch)), "collectives": {}}
     for shard_lm in (False, True):
         sharded = ShardedCTCDecoder(dec, mesh=mesh, shard_lm=shard_lm)
         for name, kw in list(CASES.items())[: None if shard_lm else 2]:
             out[(shard_lm, name)] = sharded.decode_beams_batch(batch, beam_width=BEAM, **kw)
         out[(shard_lm, "multiprocess")] = sharded.decode_beams_batch_multiprocess(batch, beam_width=BEAM, top_n=2)
+    log: list = []
+    _logged_collectives(log)
+    segmented = ShardedCTCDecoder(dec.with_options(segment_frames=SEGMENT), mesh=mesh, shard_lm=True)
+    for name, kw in CASES.items():
+        del log[:]
+        out[("segmented", name)] = segmented.decode_beams_batch(batch, beam_width=BEAM, **kw)
+        out["collectives"][name] = list(log)
     out["texts"] = sharded.decode_batch(batch, beam_width=BEAM)
     out["planes"] = [(t["row0"], t["size"], t["bucket"].numpy()) for t in sharded._tabs["lms"][0]["fp"]]
     out["counts"] = all_reduce_counts(mesh, np.array([rank + 1, 10 * (rank + 1)]))
@@ -182,6 +218,18 @@ def test_sharded_decode_equals_the_single_decoder(world, arpa, tmp_path):
             for shard_lm in (False, True):
                 if (shard_lm, name) in part:
                     _check(wants[name], _split(kw, part[(shard_lm, name)]))
+            # in segments: JAX's results and the single decoder's, and the eager sharded decode's to the bit
+            got = _split(kw, part[("segmented", name)])
+            _check(wants[name], got)
+            eager = _split(kw, part[(True, name)])
+            _same(eager[0], got[0])
+            assert got[1] == eager[1]
+        # every process probed at the same points: each step of the padded segments, then the finalize
+        log = parts[0]["collectives"][name]
+        assert all(part["collectives"][name] == log for part in parts[1:])
+        assert log[0] == "segments" and log.count("segments") == log.count("finalize") == 1
+        steps, tail = log.index("finalize") - 1, len(log) - log.index("finalize") - 1
+        assert steps > 0 and steps % SEGMENT == 0 and tail in (1, 2)
     (j_top2, _), (p_top2, _) = wants["top2"]
     for part in parts:
         start, stop = min(part["rank"] * per, len(batch)), min((part["rank"] + 1) * per, len(batch))
