@@ -1000,19 +1000,22 @@ def segments_case(torch, tag: str, decoder, members, logits, kw: dict, steps: li
     the eager loop's: texts, frames, LM states, ``lm_score`` difference 0.
     Returns the record and each value's results.
     """
+    from pyctcdecode_torch.utils import profiling
+
     rec, beams = {}, {}
     for seg in seg_values:
         dec = decoder.with_options(segment_frames=seg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
-        t0 = time.perf_counter()
-        first = dec.decode_beams_batch(logits, **kw)
-        first_s = time.perf_counter() - t0
+        with profiling.tracing() as tr:
+            t0 = time.perf_counter()
+            first = dec.decode_beams_batch(logits, **kw)
+            first_s = time.perf_counter() - t0
         launches = read_counts(wrappers)
         n_steps = sum(launched(n, seg) for n in steps)
         check_counts(f"{tag} segment_frames={seg}", launches, expected_counts(members, n_steps, len(steps)))
-        captures = [g.capture_s for g in dec._graphs.values()]
+        captures = [s.seconds for s in tr.spans if s.name == "graph.capture" and s.note == "segment"]
         check((len(captures) > 0) == (seg > 0) and all(g.graph is not None for g in dec._graphs.values()),
               f"{tag} segment_frames={seg}: the decode did not run through captured graphs")
         stages = []
@@ -2080,6 +2083,8 @@ def stream_column(torch, tag: str, dec, members, utts, wrappers: dict, card: str
     from the host, and a profile of utterance 0's first ``PROFILE_FRAMES``
     frames (device busy, idle share, device ops a frame).
     """
+    from pyctcdecode_torch.utils import profiling
+
     seg = dec._segment_frames_effective()
     rec = {"segment_frames": seg}
 
@@ -2088,11 +2093,12 @@ def stream_column(torch, tag: str, dec, members, utts, wrappers: dict, card: str
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, warm_ms = run(chunked(utts[0]))
+    with profiling.tracing() as tr:
+        t0 = time.perf_counter()
+        _, warm_ms = run(chunked(utts[0]))
     rec.update(warmup_stream_s=time.perf_counter() - t0, first_chunk_ms=warm_ms[0], warmup_chunk_ms=warm_ms)
-    rec["captures"] = [{"segment_s": g.capture_s, "finalize_s": [f.capture_s for f in g.finals.values()]}
-                       for g in dec._graphs.values()]
+    rec["captures"] = {f"{kind}_s": [s.seconds for s in tr.spans if s.name == "graph.capture" and s.note == kind]
+                       for kind in ("segment", "finalize")}
     chunk_ms, views, states, launches, splits = [], [], [], None, []
     frames = 0
     with chunk_split() as split:
@@ -2188,6 +2194,7 @@ def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
     device memory the cache holds.
     """
     from pyctcdecode_torch import torch_decoder as td
+    from pyctcdecode_torch.utils import profiling
 
     requests: list = []
     original = td.TorchBeamSearchDecoderCTC._segment_graph
@@ -2198,7 +2205,7 @@ def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
             requests.append(next(reversed(self._graphs)))
         return graph
 
-    held0, evicted0 = list(decoder._graphs), decoder._graph_evictions
+    held0 = list(decoder._graphs)
     torch.cuda.synchronize()
     mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     calls, seen = [], set(held0)
@@ -2207,26 +2214,26 @@ def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
     td.TorchBeamSearchDecoderCTC._segment_graph = asked
     t0 = time.perf_counter()
     try:
-        for hot in (None, list(MIX_HOT[0])):
-            for n in MIX_SIZES:
-                for tag, kw in (("dense", dense_kw), ("serving", serve_kw)):
-                    decoder.decode_batch(head[:n], hotwords=hot, **kw)
-                    calls.append((f"{tag} {n}{' hot' if hot else ''}", len(decoder._graphs)))
-                    seen.update(decoder._graphs)
-        chunks = chunked(head[0])
-        for hot in (None,) + MIX_HOT:
-            run_stream(decoder, chunks, hot_calls=None if hot is None else [list(hot)] * len(chunks))
-            calls.append((f"stream{' ' + hot[0] if hot else ''}", len(decoder._graphs)))
-            seen.update(decoder._graphs)
+        with profiling.tracing() as tr:
+            for hot in (None, list(MIX_HOT[0])):
+                for n in MIX_SIZES:
+                    for tag, kw in (("dense", dense_kw), ("serving", serve_kw)):
+                        decoder.decode_batch(head[:n], hotwords=hot, **kw)
+                        calls.append((f"{tag} {n}{' hot' if hot else ''}", len(decoder._graphs)))
+                        seen.update(decoder._graphs)
+            chunks = chunked(head[0])
+            for hot in (None,) + MIX_HOT:
+                run_stream(decoder, chunks, hot_calls=None if hot is None else [list(hot)] * len(chunks))
+                calls.append((f"stream{' ' + hot[0] if hot else ''}", len(decoder._graphs)))
+                seen.update(decoder._graphs)
     finally:
         td.TorchBeamSearchDecoderCTC._segment_graph = original
     torch.cuda.synchronize()
     rec = dict(keys_held_before=len(held0), requests=len(requests), distinct_keys=len(seen),
                keys_held_after_each=calls, peak_keys_held=max(n for _, n in calls), limit=td.GRAPH_KEYS,
-               evictions=decoder._graph_evictions - evicted0,
+               evictions=tr.counters().get("graph.evictions", 0),
                lru8_evictions=lru_evictions(held0, requests, 8),
-               capture_s=sum(g.capture_s + sum(f.capture_s for f in g.finals.values())
-                             for g in decoder._graphs.values()),
+               capture_s=sum(s.seconds for s in tr.spans if s.name == "graph.capture"),
                graphs_held=sum(1 + len(g.finals) for g in decoder._graphs.values()),
                memory_added_gb=(torch.cuda.memory_allocated() - mem0) / 1e9,
                reserved_added_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9,
@@ -2235,8 +2242,8 @@ def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
         f"the earlier phases, then {len(calls)} calls ({len(requests)} key requests): keys held after each "
         f"{[n for _, n in calls]}, {rec['distinct_keys']} distinct keys, peak held {rec['peak_keys_held']} of the "
         f"limit GRAPH_KEYS = {rec['limit']}, evictions {rec['evictions']} (an LRU of 8 would drop "
-        f"{rec['lru8_evictions']}); {rec['graphs_held']} graphs held (segments and finalizes), their captures "
-        f"{rec['capture_s']:.3f} s; device memory added {rec['memory_added_gb']:.3f} GB allocated, "
+        f"{rec['lru8_evictions']}); {rec['graphs_held']} graphs held (segments and finalizes), the phase's "
+        f"captures {rec['capture_s']:.3f} s; device memory added {rec['memory_added_gb']:.3f} GB allocated, "
         f"{rec['reserved_added_gb']:.3f} GB reserved; {rec['seconds']:.1f} s [{card}]")
     return rec
 
@@ -2537,6 +2544,7 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
     from pyctcdecode_torch.parallel import ShardedCTCDecoder, make_data_mesh
     from pyctcdecode_torch.parallel.launch import initialize_from_env
     from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
+    from pyctcdecode_torch.utils import profiling
     from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
 
     t_phase = time.perf_counter()
@@ -2550,9 +2558,11 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
         port = sock.getsockname()[1]
     check(initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0),
           "the process group did not come up")
-    keys0, evicted0 = len(decoder._graphs), decoder._graph_evictions
+    keys0 = len(decoder._graphs)
     rec: dict = {}
     sharded = None
+    phase = contextlib.ExitStack()
+    tr = phase.enter_context(profiling.tracing())  # the phase's graph captures and evictions
     try:
         mesh = make_data_mesh()
         check(dist.get_backend() == "nccl" and mesh.size() == 1, "not a world-size-1 NCCL mesh")
@@ -2606,16 +2616,17 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
             t0 = time.perf_counter()
             _, want_stats = decoder.decode_beams_batch(logits, **beams_kw, **kw)
             stats_latency = time.perf_counter() - t0
-            held = set(sharded_keys())
+            held, n_spans = set(sharded_keys()), len(tr.spans)
             graphs, got, stats = run(tag, "graphs", sharded, kw, launched(steps), want_beams, want_stats)
+            captured = [s for s in tr.spans[n_spans:] if s.name == "graph.capture"]
             new = [key for key in sharded_keys() if key not in held]
             check(len(new) == 1, f"sharded {tag}: {len(new)} new graph keys, expected 1")
             seg_graph = decoder._graphs[new[0]]
             check(seg_graph.graph is not None and all(f.graph is not None for f in seg_graph.finals.values()),
                   f"sharded {tag}: the decode did not run through captured graphs")
             graphs["first_call_s"] = graphs["latency_s"]
-            graphs["capture_s"] = {"segment": seg_graph.capture_s,
-                                   "finalize": [f.capture_s for f in seg_graph.finals.values()]}
+            graphs["capture_s"] = {"segment": sum(s.seconds for s in captured if s.note == "segment"),
+                                   "finalize": [s.seconds for s in captured if s.note == "finalize"]}
             held_graphs = (seg_graph.graph, [f.graph for f in seg_graph.finals.values()])
             warm, _, _ = run(tag, "graphs warm", sharded, kw, launched(steps), want_beams, want_stats)
             check((seg_graph.graph, [f.graph for f in seg_graph.finals.values()]) == held_graphs
@@ -2680,7 +2691,7 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
         rec["collectives_added"], rec["counters_added"] = added, counters_added
         keys = sharded_keys()
         rec["graph_keys"] = dict(held_before=keys0, held_after=len(decoder._graphs), sharded=len(keys),
-                                 evictions=decoder._graph_evictions - evicted0, limit=GRAPH_KEYS)
+                                 evictions=tr.counters().get("graph.evictions", 0), limit=GRAPH_KEYS)
         log(f"[sharded] the main decoder's graph cache: {keys0} keys before the phase, {len(decoder._graphs)} after "
             f"({len(keys)} sharded keys, {len(decoder._graphs) - keys0 - len(keys)} unsharded), evictions "
             f"{rec['graph_keys']['evictions']} at the limit {rec['graph_keys']['limit']}; the sharded keys are "
@@ -2692,6 +2703,7 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
             torch.cuda.synchronize()
         del sharded
         dist.destroy_process_group()
+        phase.close()
 
     rec["probe_windows"] = windows
     rec["seconds"] = time.perf_counter() - t_phase

@@ -25,6 +25,7 @@ from .decoder import BeamSearchDecoderCTC
 from .models.language_model import LanguageModel
 from .models.ngram import load_unigram_set_from_arpa, open_ngram_file
 from .torch_decoder import TorchBeamSearchDecoderCTC
+from .utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -76,43 +77,47 @@ def build_ctcdecoder(
             f"engine options {sorted(engine_options)} apply to the device engine only; "
             "the host engine accepts none (remove them or use engine='torch')"
         )
-    ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
-    if kenlm_model_path is not None and kenlm_model_path.endswith(".arpa"):
-        logger.info(
-            "loading a plain-text ARPA model; the compiled .ctclm format "
-            "loads much faster for repeated use"
-        )
-    if unigrams is None and kenlm_model_path is not None:
-        if kenlm_model_path.endswith((".arpa", ".arpa.gz")):
-            unigrams = load_unigram_set_from_arpa(kenlm_model_path)
-        elif hasattr(ngram_model, "vocab_words"):
-            # KenLM binaries and .ctclm files carry their vocabulary strings;
-            # unlike the reference (whose kenlm binding cannot enumerate
-            # them, ref decoder.py:1080-1084) the word set is read directly
-            unigrams = [
-                w
-                for w in ngram_model.vocab_words()
-                if not (w.startswith("<") and w.endswith(">"))
-            ]
-        else:
-            logger.warning(
-                "no unigram vocabulary given and none can be read from a "
-                "non-ARPA model file; partial-word scoring will treat every "
-                "prefix as unknown"
+    with profiling.call("build"):
+        profiling.stage("build.read_lm")
+        ngram_model = None if kenlm_model_path is None else open_ngram_file(kenlm_model_path)
+        if kenlm_model_path is not None and kenlm_model_path.endswith(".arpa"):
+            logger.info(
+                "loading a plain-text ARPA model; the compiled .ctclm format "
+                "loads much faster for repeated use"
             )
-    alphabet = Alphabet.build_alphabet(labels)
-    if unigrams is not None:
-        verify_alphabet_coverage(alphabet, unigrams)
-    language_model: Optional[LanguageModel] = None
-    if ngram_model is not None:
-        language_model = LanguageModel(
-            ngram_model,
-            unigrams,
-            alpha=alpha,
-            beta=beta,
-            unk_score_offset=unk_score_offset,
-            score_boundary=lm_score_boundary,
-        )
-    if engine == "host":
-        return BeamSearchDecoderCTC(alphabet, language_model)
-    return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device, **engine_options)
+        profiling.stage("build.unigrams")
+        if unigrams is None and kenlm_model_path is not None:
+            if kenlm_model_path.endswith((".arpa", ".arpa.gz")):
+                unigrams = load_unigram_set_from_arpa(kenlm_model_path)
+            elif hasattr(ngram_model, "vocab_words"):
+                # KenLM binaries and .ctclm files carry their vocabulary strings;
+                # unlike the reference (whose kenlm binding cannot enumerate
+                # them, ref decoder.py:1080-1084) the word set is read directly
+                unigrams = [
+                    w
+                    for w in ngram_model.vocab_words()
+                    if not (w.startswith("<") and w.endswith(">"))
+                ]
+            else:
+                logger.warning(
+                    "no unigram vocabulary given and none can be read from a "
+                    "non-ARPA model file; partial-word scoring will treat every "
+                    "prefix as unknown"
+                )
+        alphabet = Alphabet.build_alphabet(labels)
+        if unigrams is not None:
+            verify_alphabet_coverage(alphabet, unigrams)
+        language_model: Optional[LanguageModel] = None
+        if ngram_model is not None:
+            profiling.stage("build.language_model")
+            language_model = LanguageModel(
+                ngram_model,
+                unigrams,
+                alpha=alpha,
+                beta=beta,
+                unk_score_offset=unk_score_offset,
+                score_boundary=lm_score_boundary,
+            )
+        if engine == "host":
+            return BeamSearchDecoderCTC(alphabet, language_model)
+        return TorchBeamSearchDecoderCTC(alphabet, language_model, device=device, **engine_options)

@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -79,10 +78,12 @@ from .models.device_tables import (
     lm_score_words,
     trie_fetch_rows,
 )
+from .ops import kernel_wrappers
 from .ops.backtrace import backtrace_paths
 from .ops.hashing import M32, as_lane, hash_extend_char_t, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
 from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
+from .utils import profiling
 
 _NODE_MASK = DeviceLM.NODE_MASK
 _BIT_IN_VOCAB = DeviceLM.BIT_IN_VOCAB
@@ -1211,28 +1212,24 @@ class _Captured:
     the same order (see ``TorchBeamSearchDecoderCTC._segment_graph``).
     """
 
+    KIND = ""  # the ``note`` of the tracer's ``graph.capture`` span
+
     def __init__(self, device: torch.device, pool) -> None:
         self.device, self.pool = device, pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.counts: Dict[Any, int] = {}
-        self.capture_s = 0.0  # host seconds of the capture
 
     def _body(self) -> None:
         raise NotImplementedError
 
     def _capture(self) -> None:
-        from .ops import backtrace as backtrace_ops
-        from .ops import gather as gather_ops
-        from .ops import merge as merge_ops
-
-        # every wrapper with a ``launches`` counter
-        wrappers = (merge_ops.expand_merge_prune, merge_ops.merge_prune, gather_ops.gather_rows,
-                    gather_ops.probe_rows, backtrace_ops.backtrace_paths)
+        wrappers = kernel_wrappers()
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        t_start = time.perf_counter()
+        tr = profiling.TRACER
+        span = None if tr is None else tr.span("graph.capture", self.KIND)
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -1248,8 +1245,10 @@ class _Captured:
             counts = {fn: fn.launches - n for fn, n in zip(wrappers, before)}
             for fn, n in counts.items():  # the capture ran nothing, failed or not
                 fn.launches -= n
+            if span is not None:
+                tr.end(span)
         torch.cuda.current_stream(self.device).wait_stream(side)
-        self.capture_s = time.perf_counter() - t_start
+        profiling.count("graph.captures")
         self.counts = counts
         self.graph = graph
 
@@ -1277,6 +1276,8 @@ class SegmentGraph(_Captured):
     ``seg_fn``'s tables (which its closure holds) and ``hot`` are read at
     the addresses captured, so the graph keeps them alive.
     """
+
+    KIND = "segment"
 
     def __init__(self, seg_fn, state: Dict, seg_in, n_frames: torch.Tensor, params: torch.Tensor,
                  hot: Optional[Dict], pool) -> None:
@@ -1334,6 +1335,8 @@ class FinalizeGraph(_Captured):
     anything can replay this graph again (a pipelined batch, a second
     stream on the same decoder).
     """
+
+    KIND = "finalize"
 
     def __init__(self, fn, segment: SegmentGraph) -> None:
         super().__init__(segment.device, segment.pool)
@@ -1400,9 +1403,13 @@ def make_stream_fns(cfg: EngineConfig, tables: Dict, seg_frames: int = 0):
     def chunk_fn(state: Dict, logp: torch.Tensor, params: np.ndarray, hot: Optional[Dict] = None,
                  graph_for: Optional[Callable[..., SegmentGraph]] = None):
         n, tc, v = logp.shape
+        t_pad = -(-tc // seg_frames) * seg_frames if seg_frames else tc
+        tr = profiling.TRACER
+        if tr is not None:
+            tr.count("steps.active", n * tc)
+            tr.count("steps.launched", n * t_pad)
         if seg_frames:
-            n_seg = -(-tc // seg_frames)
-            t_pad = n_seg * seg_frames
+            n_seg = t_pad // seg_frames
             padded = torch.nn.functional.pad(logp, (0, 0, 0, t_pad - tc))
             parents = torch.empty((n, t_pad, cfg.beam_width), dtype=par_dtype, device=device)
             trace = torch.empty((n, t_pad, cfg.beam_width), dtype=tok_dtype, device=device)

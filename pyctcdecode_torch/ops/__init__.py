@@ -1,1 +1,10 @@
 """Device-side building blocks: hashing, token tables and the merge kernels."""
+
+
+def kernel_wrappers():
+    """Every kernel wrapper with a ``launches`` counter."""
+    from .backtrace import backtrace_paths
+    from .gather import gather_rows, probe_rows
+    from .merge import expand_merge_prune, merge_prune
+
+    return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths)

@@ -76,6 +76,7 @@ from .models.language_model import LanguageModel, MultiLanguageModel
 from .ops.backtrace import backtrace_paths
 from .ops.merge import DEAD_THRESH
 from .ops.tokens import build_token_arrays
+from .utils import profiling
 from .utils.logits import (
     normalize_batch,
     normalize_collapse_batch,
@@ -323,6 +324,7 @@ class DeviceStreamState:
     # proportional to the frames since the last commit, not the stream length
     prefix_words: Optional[List[List[str]]] = None
     prefix_spans: Optional[List[List[Tuple[int, int]]]] = None
+    call_id: int = -1  # the tracer's id of this stream (utils.profiling), -1 before a traced call
 
 
 def _backtrace_chunks(
@@ -395,10 +397,13 @@ class TorchBeamSearchDecoderCTC:
         self._blank_id = self._labels.index("")  # CTC blank (always present)
         self._lm = language_model
         self._lm_members = members
-        self._tokens = build_token_arrays(alphabet)
-        self._device_lm = [build_device_lm(m, self._tokens) for m in members]
-        # tables are uploaded once here and reused by every decode call
-        self._tabs = build_table_args(self._tokens, self._device_lm, self._device)
+        with profiling.call("build"):
+            profiling.stage("build.device_lm")
+            self._tokens = build_token_arrays(alphabet)
+            self._device_lm = [build_device_lm(m, self._tokens) for m in members]
+            profiling.stage("build.upload")
+            # tables are uploaded once here and reused by every decode call
+            self._tabs = build_table_args(self._tokens, self._device_lm, self._device)
         # hotword tables on the device, keyed by the unigram set
         self._hot_cache: Dict[Tuple[str, ...], Dict[str, Any]] = {}
         self._empty_hot_tables: Optional[Dict[str, Any]] = None
@@ -410,7 +415,6 @@ class TorchBeamSearchDecoderCTC:
         """An empty cache of captured segment graphs (``_segment_graph``), with its own memory pool."""
         self._graphs: "collections.OrderedDict[Any, SegmentGraph]" = collections.OrderedDict()
         self._graph_pool: Any = None
-        self._graph_evictions = 0  # keys the cache dropped to make room
 
     # -- configuration ---------------------------------------------------
     @property
@@ -595,6 +599,11 @@ class TorchBeamSearchDecoderCTC:
             fills = (-1, 0, 0) if token_timeline else (0,)
             planes = tuple(np.pad(p, [(0, 0), (0, pad)] + [(0, 0)] * (p.ndim - 2), constant_values=fill)
                            for p, fill in zip(planes, fills))
+        tr = profiling.TRACER
+        if tr is not None:
+            tr.count("steps.active", int(np.sum(n_frames)))
+            tr.count("steps.launched", planes[0].shape[0] * planes[0].shape[1])
+            tr.stage("batch.upload")
         dev = self._device
         with torch.inference_mode():
             dev_in: Any = tuple(torch.as_tensor(p, device=dev) for p in planes)
@@ -604,6 +613,7 @@ class TorchBeamSearchDecoderCTC:
                 dev_in = dev_in[0]
             nf = torch.as_tensor(n_frames, dtype=torch.int64, device=dev)
             start = self._start_ctx(lm_start_state)
+            profiling.stage("batch.enqueue")
             if not seg:
                 return make_decode_fn(cfg, tables)(dev_in, nf, params, start, hot)
             return self._run_segmented(cfg, seg, tables, dev_in, nf, params, start, hot)
@@ -677,11 +687,13 @@ class TorchBeamSearchDecoderCTC:
         key = (dataclasses.replace(cfg, emit_paths=None), n_frames.shape[0], seg, id(tables), id(hot))
         graph = self._graphs.get(key)
         if graph is not None:
+            profiling.count("graph.hits")
             self._graphs.move_to_end(key)
             return graph
+        profiling.count("graph.misses")
         if len(self._graphs) >= GRAPH_KEYS:
             self._graphs.popitem(last=False)
-            self._graph_evictions += 1
+            profiling.count("graph.evictions")
         captured = any(g.graph is not None or any(f.graph is not None for f in g.finals.values())
                        for g in self._graphs.values())
         if not captured:  # a pool all of whose graphs are gone takes no further capture
@@ -700,9 +712,12 @@ class TorchBeamSearchDecoderCTC:
         """
         key = (cfg.emit_paths, score_boundary_flags(cfg, params), stream)
         fin = graph.finals.get(key)
-        if fin is None:
-            fin = FinalizeGraph(finalize_program(cfg, tables, key[1], stream), graph)
-            graph.finals[key] = fin
+        if fin is not None:
+            profiling.count("graph.hits")
+            return fin
+        profiling.count("graph.misses")
+        fin = FinalizeGraph(finalize_program(cfg, tables, key[1], stream), graph)
+        graph.finals[key] = fin
         return fin
 
     def _ready(self) -> Optional[torch.cuda.Event]:
@@ -779,21 +794,22 @@ class TorchBeamSearchDecoderCTC:
         (exactness-preserving at this call's ``token_min_logp``; see
         :func:`~pyctcdecode_torch.utils.logits.blank_collapse`).
         """
-        handle = self._dispatch_batch(
-            [np.asarray(logits)],
-            beam_width=beam_width,
-            beam_prune_logp=beam_prune_logp,
-            token_min_logp=token_min_logp,
-            prune_history=prune_history,
-            hotwords=hotwords,
-            hotword_weight=hotword_weight,
-            max_tokens_per_frame=max_tokens_per_frame,
-            batch_pad=1,
-            top_n=top_n,
-            blank_collapse=blank_collapse,
-            lm_start_state=lm_start_state,
-        )
-        return self._collect_batch(handle)[0]
+        with profiling.call("batch"):
+            handle = self._dispatch_batch(
+                [np.asarray(logits)],
+                beam_width=beam_width,
+                beam_prune_logp=beam_prune_logp,
+                token_min_logp=token_min_logp,
+                prune_history=prune_history,
+                hotwords=hotwords,
+                hotword_weight=hotword_weight,
+                max_tokens_per_frame=max_tokens_per_frame,
+                batch_pad=1,
+                top_n=top_n,
+                blank_collapse=blank_collapse,
+                lm_start_state=lm_start_state,
+            )
+            return self._collect_batch(handle)[0]
 
     @staticmethod
     def _pick_k(max_tokens_per_frame: Optional[Union[int, str]], counts: np.ndarray, v: int) -> int:
@@ -857,18 +873,20 @@ class TorchBeamSearchDecoderCTC:
             )
         v = len(self._labels)
         k = v if max_tokens_per_frame is None else min(int(max_tokens_per_frame), v)
-        init_fn, _, _ = self._get_stream_fns(beam_width, k, prune_history, hotwords_enabled)
-        with torch.inference_mode():
-            state = init_fn(self._start_ctx(lm_start_state))
-        return DeviceStreamState(
-            beam_state=state,
-            chunks=[],
-            processed_frames=0,
-            beam_width=beam_width,
-            k_tokens=k,
-            prune_history=prune_history,
-            use_hotwords=hotwords_enabled,
-        )
+        with profiling.call("stream.start") as root:
+            init_fn, _, _ = self._get_stream_fns(beam_width, k, prune_history, hotwords_enabled)
+            with torch.inference_mode():
+                state = init_fn(self._start_ctx(lm_start_state))
+            return DeviceStreamState(
+                beam_state=state,
+                chunks=[],
+                processed_frames=0,
+                beam_width=beam_width,
+                k_tokens=k,
+                prune_history=prune_history,
+                use_hotwords=hotwords_enabled,
+                call_id=-1 if root is None else root.call,
+            )
 
     def _rewalk_hot(self, partials: Sequence[str], hot: Dict[str, Any]) -> Tuple[np.ndarray, np.ndarray]:
         """Each carried slot's partial word walked through a new hot trie, on the host.
@@ -943,113 +961,122 @@ class TorchBeamSearchDecoderCTC:
         per-slot prefixes and drops the backpointer log. Chunked decoding
         equals the full decode.
         """
-        logits_chunk = np.asarray(logits_chunk)
-        if logits_chunk.ndim != 2 or logits_chunk.shape[1] != len(self._labels):
-            raise ValueError(
-                f"Input logits of shape {logits_chunk.shape}, but vocabulary "
-                f"is size {len(self._labels)}"
-            )
-        # materialized once: a generator would be used up by the first pass
-        hotwords = list(hotwords) if hotwords is not None else None
-        ss = stream_state
-        _, chunk_fn, finalize_fn = self._get_stream_fns(
-            ss.beam_width, ss.k_tokens, ss.prune_history, ss.use_hotwords
-        )
-        seg = self._segment_frames_effective()
-        if ss.use_hotwords:
-            hot, weight = self._hot_tables(hotwords, hotword_weight)
-            if hot is None:
-                hot, weight = self._empty_hot(), 0.0
-            # a new hotword set invalidates the carried hot-trie nodes: walk
-            # each carried slot's partial word through the new trie (the
-            # reference rebuilds prefix membership from strings every call)
-            new_sig = (tuple(sorted(hotwords)) if hotwords else (), float(weight))
-            if ss.hot_sig is not None and new_sig != ss.hot_sig:
-                nodes, bits = self._rewalk_hot(ss.last_partials or [""] * ss.beam_width, hot)
-                ss.beam_state = dict(ss.beam_state)
-                ss.beam_state["h_node"] = torch.as_tensor(nodes, device=self._device)[None]
-                ss.beam_state["h_bits"] = torch.as_tensor(bits, device=self._device)[None]
-            ss.hot_sig = new_sig
-        else:
-            if hotwords:
+        with profiling.call("chunk", stream_state.call_id) as root:
+            if root is not None:
+                stream_state.call_id = root.call
+            profiling.stage("chunk.prep")
+            logits_chunk = np.asarray(logits_chunk)
+            if logits_chunk.ndim != 2 or logits_chunk.shape[1] != len(self._labels):
                 raise ValueError(
-                    "stream state was created without hotword support; pass "
-                    "hotwords_enabled=True to get_starting_state"
+                    f"Input logits of shape {logits_chunk.shape}, but vocabulary "
+                    f"is size {len(self._labels)}"
                 )
-            hot, weight = None, 0.0
-        params = self._params_vector(token_min_logp, beam_prune_logp, weight)
-        t = logits_chunk.shape[0]
-        logp = (normalize_batch([logits_chunk])[0] if t
-                else np.zeros((0, len(self._labels)), dtype=np.float32))
-        committed = force_next_word or is_end
-        with torch.inference_mode():
-            logp_dev = torch.as_tensor(logp, device=self._device)[None]
-            if seg and self._device.type == "cuda":
-                new_state, ranked, parents, trace = self._stream_graphs(
-                    seg, chunk_fn, ss, logp_dev, params, committed, is_end, hot)
-            else:
-                state1, parents, trace = chunk_fn(ss.beam_state, logp_dev, params, hot)
-                ranked, committed_state = finalize_fn(state1, params, committed, is_end, hot)
-                new_state = committed_state if committed else state1
-            host = self._fetch(dict(ranked, parents=parents, trace=trace), 1)
-        if t:
-            ss.chunks.append((host["parents"][0].copy(), host["trace"][0].copy(), ss.processed_frames))
-        scores, logits_out = host["score"][0], host["logit"][0]
-        n_live = int(np.cumprod(scores > DEAD_THRESH).sum())
-        view_slots = host["src"][0][:n_live].astype(np.int64)
-        toks, frame_ids, origins = _backtrace_chunks(ss.chunks, view_slots)
-        frame_list = frame_ids.tolist()
-        beams: List[LMBeam] = []
-        rank_words: List[List[str]] = []  # per rank, the replay's own words (the fold's source)
-        rank_spans: List[List[Tuple[int, int]]] = []
-        for rank in range(n_live):
-            row = toks[rank]
-            words, spans, (partial, pframes) = replay_token_path(
-                row.tolist(), self._labels, self._alphabet.is_bpe, frame_ids=frame_list
+            # materialized once: a generator would be used up by the first pass
+            hotwords = list(hotwords) if hotwords is not None else None
+            ss = stream_state
+            _, chunk_fn, finalize_fn = self._get_stream_fns(
+                ss.beam_width, ss.k_tokens, ss.prune_history, ss.use_hotwords
             )
-            if ss.prefix_words is not None:
-                # the folded committed prefix of this beam's origin slot
-                words = ss.prefix_words[origins[rank]] + words
-                spans = ss.prefix_spans[origins[rank]] + spans
-            emitted = np.flatnonzero(row >= 0)
-            last_label = self._labels[row[emitted[-1]]] if emitted.size else None
-            if committed:
-                if partial:
-                    words = words + [partial]
-                    spans = spans + [pframes]
-                partial, pframes, last_label = "", NULL_FRAMES, None
-            rank_words.append(words)
-            rank_spans.append(spans)
-            beams.append(LMBeam(
-                text=" ".join(words),
-                next_word="",
-                partial_word=partial,
-                last_char=last_label,
-                text_frames=spans,
-                partial_frames=pframes,
-                logit_score=float(logits_out[rank]),
-                lm_score=float(scores[rank]),
-            ))
+            seg = self._segment_frames_effective()
+            if ss.use_hotwords:
+                hot, weight = self._hot_tables(hotwords, hotword_weight)
+                if hot is None:
+                    hot, weight = self._empty_hot(), 0.0
+                # a new hotword set invalidates the carried hot-trie nodes: walk
+                # each carried slot's partial word through the new trie (the
+                # reference rebuilds prefix membership from strings every call)
+                new_sig = (tuple(sorted(hotwords)) if hotwords else (), float(weight))
+                if ss.hot_sig is not None and new_sig != ss.hot_sig:
+                    nodes, bits = self._rewalk_hot(ss.last_partials or [""] * ss.beam_width, hot)
+                    ss.beam_state = dict(ss.beam_state)
+                    ss.beam_state["h_node"] = torch.as_tensor(nodes, device=self._device)[None]
+                    ss.beam_state["h_bits"] = torch.as_tensor(bits, device=self._device)[None]
+                ss.hot_sig = new_sig
+            else:
+                if hotwords:
+                    raise ValueError(
+                        "stream state was created without hotword support; pass "
+                        "hotwords_enabled=True to get_starting_state"
+                    )
+                hot, weight = None, 0.0
+            params = self._params_vector(token_min_logp, beam_prune_logp, weight)
+            t = logits_chunk.shape[0]
+            logp = (normalize_batch([logits_chunk])[0] if t
+                    else np.zeros((0, len(self._labels)), dtype=np.float32))
+            committed = force_next_word or is_end
+            profiling.stage("chunk.upload")
+            with torch.inference_mode():
+                logp_dev = torch.as_tensor(logp, device=self._device)[None]
+                profiling.stage("chunk.enqueue")
+                if seg and self._device.type == "cuda":
+                    new_state, ranked, parents, trace = self._stream_graphs(
+                        seg, chunk_fn, ss, logp_dev, params, committed, is_end, hot)
+                else:
+                    state1, parents, trace = chunk_fn(ss.beam_state, logp_dev, params, hot)
+                    ranked, committed_state = finalize_fn(state1, params, committed, is_end, hot)
+                    new_state = committed_state if committed else state1
+                profiling.stage("chunk.fetch")
+                host = self._fetch(dict(ranked, parents=parents, trace=trace), 1)
+            if t:
+                ss.chunks.append((host["parents"][0].copy(), host["trace"][0].copy(), ss.processed_frames))
+            profiling.stage("chunk.backtrace")
+            scores, logits_out = host["score"][0], host["logit"][0]
+            n_live = int(np.cumprod(scores > DEAD_THRESH).sum())
+            view_slots = host["src"][0][:n_live].astype(np.int64)
+            toks, frame_ids, origins = _backtrace_chunks(ss.chunks, view_slots)
+            profiling.stage("chunk.replay")
+            frame_list = frame_ids.tolist()
+            beams: List[LMBeam] = []
+            rank_words: List[List[str]] = []  # per rank, the replay's own words (the fold's source)
+            rank_spans: List[List[Tuple[int, int]]] = []
+            for rank in range(n_live):
+                row = toks[rank]
+                words, spans, (partial, pframes) = replay_token_path(
+                    row.tolist(), self._labels, self._alphabet.is_bpe, frame_ids=frame_list
+                )
+                if ss.prefix_words is not None:
+                    # the folded committed prefix of this beam's origin slot
+                    words = ss.prefix_words[origins[rank]] + words
+                    spans = ss.prefix_spans[origins[rank]] + spans
+                emitted = np.flatnonzero(row >= 0)
+                last_label = self._labels[row[emitted[-1]]] if emitted.size else None
+                if committed:
+                    if partial:
+                        words = words + [partial]
+                        spans = spans + [pframes]
+                    partial, pframes, last_label = "", NULL_FRAMES, None
+                rank_words.append(words)
+                rank_spans.append(spans)
+                beams.append(LMBeam(
+                    text=" ".join(words),
+                    next_word="",
+                    partial_word=partial,
+                    last_char=last_label,
+                    text_frames=spans,
+                    partial_frames=pframes,
+                    logit_score=float(logits_out[rank]),
+                    lm_score=float(scores[rank]),
+                ))
 
-        if committed:
-            # the committed state's rows are in rank order: fold each rank's
-            # transcript into its slot's prefix and drop the backpointer log,
-            # so the next backtrace walks only the frames after this boundary
-            ss.beam_state = new_state
-            ss.prefix_words = rank_words + [[] for _ in range(ss.beam_width - n_live)]
-            ss.prefix_spans = rank_spans + [[] for _ in range(ss.beam_width - n_live)]
-            ss.chunks = []
-            ss.last_partials = [""] * ss.beam_width
-        else:
-            ss.beam_state = new_state
-            # partial words by CARRIED slot (rank r lives in slot src[r];
-            # dead slots keep ""), for a hotword swap's rewalk next chunk
-            partials = [""] * ss.beam_width
-            for rank, slot in enumerate(view_slots.tolist()):
-                partials[slot] = beams[rank].partial_word
-            ss.last_partials = partials
-        ss.processed_frames += t
-        return beams
+            if committed:
+                # the committed state's rows are in rank order: fold each rank's
+                # transcript into its slot's prefix and drop the backpointer log,
+                # so the next backtrace walks only the frames after this boundary
+                ss.beam_state = new_state
+                ss.prefix_words = rank_words + [[] for _ in range(ss.beam_width - n_live)]
+                ss.prefix_spans = rank_spans + [[] for _ in range(ss.beam_width - n_live)]
+                ss.chunks = []
+                ss.last_partials = [""] * ss.beam_width
+            else:
+                ss.beam_state = new_state
+                # partial words by CARRIED slot (rank r lives in slot src[r];
+                # dead slots keep ""), for a hotword swap's rewalk next chunk
+                partials = [""] * ss.beam_width
+                for rank, slot in enumerate(view_slots.tolist()):
+                    partials[slot] = beams[rank].partial_word
+                ss.last_partials = partials
+            ss.processed_frames += t
+            return beams
 
     @staticmethod
     def _without_pool_arg(first: Any, rest: Tuple[Any, ...]) -> Any:
@@ -1141,8 +1168,9 @@ class TorchBeamSearchDecoderCTC:
             blank_collapse=blank_collapse,
             token_chunking=token_chunking,
         )
-        handles = self._launch_batch(logits_list, dispatch_kw, length_bucketing)
-        return self._collect_bucketed(handles, len(logits_list), collect_stats)
+        with profiling.call("batch"):
+            handles = self._launch_batch(logits_list, dispatch_kw, length_bucketing)
+            return self._collect_bucketed(handles, len(logits_list), collect_stats)
 
     def _launch_batch(
         self,
@@ -1157,6 +1185,7 @@ class TorchBeamSearchDecoderCTC:
         actually step through, not the raw input lengths. Returns
         ``(indices, handle)`` pairs for :meth:`_collect_bucketed`.
         """
+        profiling.stage("batch.prep")
         kw = dict(dispatch_kw)
         pre = None
         if bucketing and len(logits_list) > 1:
@@ -1292,6 +1321,7 @@ class TorchBeamSearchDecoderCTC:
         """
         if not logits_list:
             return None
+        profiling.stage("batch.prep")
         hot, hot_weight = self._hot_tables(hotwords, hotword_weight)
         v = len(self._labels)
         n = len(logits_list)
@@ -1422,7 +1452,9 @@ class TorchBeamSearchDecoderCTC:
         """
         if handle is None:
             return ([], None) if with_stats else []
+        profiling.stage("batch.fetch")
         host = self._fetch(handle["out"], handle["n"], handle["ready"])
+        profiling.stage("batch.replay")
         n = handle["n"]
         stats = None
         if "stats_names" in handle:
@@ -1507,7 +1539,7 @@ class TorchBeamSearchDecoderCTC:
         yields one result list per batch, in order.
         """
         pipeline_depth = max(int(pipeline_depth), 1)
-        pending: List[Tuple[List[Tuple[List[int], Optional[Dict[str, Any]]]], int]] = []
+        pending: List[Tuple[List[Tuple[List[int], Optional[Dict[str, Any]]]], int, Optional[profiling.Span]]] = []
         defaults = dict(
             beam_width=kwargs.pop("beam_width", DEFAULT_BEAM_WIDTH),
             beam_prune_logp=kwargs.pop("beam_prune_logp", DEFAULT_PRUNE_LOGP),
@@ -1531,14 +1563,20 @@ class TorchBeamSearchDecoderCTC:
         if kwargs:
             raise TypeError(f"unknown decode arguments: {sorted(kwargs)}")
         for logits_list in batches:
-            handles = self._launch_batch(logits_list, defaults, bucketing)
-            pending.append((handles, len(logits_list)))
+            # a batch's root span covers its launch here and its collect later (``profiling.resume``)
+            with profiling.call("batch") as root:
+                handles = self._launch_batch(logits_list, defaults, bucketing)
+            pending.append((handles, len(logits_list), root))
             if len(pending) > pipeline_depth:
-                prev_handles, prev_n = pending.pop(0)
-                yield self._collect_bucketed(prev_handles, prev_n)
+                yield self._collect_pending(pending.pop(0))
         while pending:
-            prev_handles, prev_n = pending.pop(0)
-            yield self._collect_bucketed(prev_handles, prev_n)
+            yield self._collect_pending(pending.pop(0))
+
+    def _collect_pending(self, pending: Tuple[Any, int, Optional[profiling.Span]]) -> List[List[OutputBeam]]:
+        """Collect one batch that :meth:`decode_beams_batches` launched, under its root span."""
+        handles, n, root = pending
+        with profiling.resume(root):
+            return self._collect_bucketed(handles, n)
 
     def decode_batch(
         self,

@@ -27,12 +27,32 @@ a device time. Typical use::
 
 The JAX reference package's ``summarize_xplane`` read XLA's xplane protobuf;
 :func:`summarize_trace` is its counterpart for a ``torch.profiler`` trace.
+
+The host side has a tracer of its own: spans and counters that the package
+records at the boundaries of its layers while a caller has tracing on::
+
+    with profiling.tracing() as tr:
+        decoder.decode_beams_batch(batch)
+    spans, counters = tr.drain()
+
+A public call opens a root span (``build``, ``batch``, ``stream.start``,
+``chunk``) with a call id of its own (a stream's chunks share the id its
+``get_starting_state`` took), and the stages inside it (``batch.prep``,
+``batch.upload``, ...) follow one another under it, each ending where the
+next begins, so that they tile the call. Times are ``time.perf_counter_ns``,
+the host clock a caller's own spans use. Tracing is off unless a caller turns
+it on: a site then checks one module-level reference (:data:`TRACER`) and
+does nothing else. On, a site reads the clock and appends to lists: no CUDA
+call, no synchronize, no event, and nothing inside a CUDA graph's capture
+changes what is captured. A trace records the calls of one thread.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 PRE_ROLL = 64
 PRE_ROLL_KERNEL = "FillFunctor<double>"  # the pre-roll's kernel (a decode fills no float64 tensor)
@@ -167,3 +187,181 @@ def profile_call(
             return report
         time.sleep(attempt + 1.0)
     raise RuntimeError(f"torch.profiler returned no complete trace in {tries} tries")
+
+
+# -- the host tracer --------------------------------------------------------------------------
+TRACER: Optional["Trace"] = None  # the trace that records, while a caller has tracing on
+_CALL_IDS = itertools.count()  # call ids, unique within the process
+_now = time.perf_counter_ns
+
+
+@dataclasses.dataclass(eq=False, slots=True)
+class Span:
+    """One span: ``start_ns`` / ``end_ns`` on ``time.perf_counter_ns``, ``end_ns`` None while open.
+
+    ``index`` numbers the spans of a trace in the order they opened,
+    ``parent`` is the enclosing span's index (-1 for a root) and ``call``
+    the id of the public call the span belongs to (-1 for none). ``note``
+    qualifies a name (a ``graph.capture``'s ``"segment"`` or ``"finalize"``).
+    """
+
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    parent: int
+    call: int
+    index: int
+    note: str = ""
+
+    @property
+    def seconds(self) -> float:
+        return ((self.end_ns or self.start_ns) - self.start_ns) * 1e-9
+
+
+def _launches() -> Dict[str, int]:
+    from ..ops import kernel_wrappers
+
+    return {f"launches.{fn.__name__}": fn.launches for fn in kernel_wrappers()}
+
+
+class Trace:
+    """The spans and counters recorded while tracing is on (:func:`tracing`).
+
+    :attr:`spans` holds the spans since the last :meth:`drain`, open ones
+    included; :meth:`counters` the counters since then, with the kernel
+    wrappers' ``launches`` counted in, as ``launches.<wrapper>``.
+    """
+
+    def __init__(self) -> None:
+        self.spans: List[Span] = []
+        self._counts: Dict[str, int] = {}
+        self._open: List[Span] = []  # the open spans, innermost last
+        self._stage: Optional[Span] = None  # the stage span opened last
+        self._next = 0  # the next span's index
+        self._launches0 = _launches()
+
+    def _push(self, name: str, call: int, note: str, now: int) -> Span:
+        open_ = self._open
+        if open_:
+            top = open_[-1]
+            span = Span(name, now, None, top.index, top.call, self._next, note)
+        else:
+            span = Span(name, now, None, -1, call, self._next, note)
+        self._next += 1
+        self.spans.append(span)
+        open_.append(span)
+        return span
+
+    def span(self, name: str, note: str = "") -> Span:
+        """A span inside the innermost open span (a root of no call where none is open)."""
+        return self._push(name, -1, note, _now())
+
+    def stage(self, name: str) -> None:
+        """End the stage open in the innermost span and open stage ``name`` there, at one clock reading.
+
+        A stage still open under the same name goes on; outside a call, nothing.
+        """
+        open_ = self._open
+        if not open_:
+            return
+        now = _now()
+        stage = self._stage
+        if open_[-1] is stage:
+            if stage.name == name:
+                return
+            stage.end_ns = now
+            open_.pop()
+        self._stage = self._push(name, -1, "", now)
+
+    def end(self, span: Span) -> None:
+        """End ``span`` now, and every span still open inside it."""
+        now = _now()
+        open_ = self._open
+        for i in range(len(open_) - 1, -1, -1):
+            if open_[i] is span:
+                for inner in open_[i + 1:]:
+                    inner.end_ns = now
+                del open_[i:]
+                break
+        span.end_ns = now
+
+    def count(self, name: str, n: int = 1) -> None:
+        self._counts[name] = self._counts.get(name, 0) + n
+
+    def counters(self) -> Dict[str, int]:
+        out = dict(self._counts)
+        out.update({key: n - self._launches0.get(key, 0) for key, n in _launches().items()})
+        return out
+
+    def drain(self) -> Tuple[List[Span], Dict[str, int]]:
+        """The spans and counters since the last drain; the trace goes on from empty."""
+        spans, counters = self.spans, self.counters()
+        self.spans, self._counts, self._launches0 = [], {}, _launches()
+        return spans, counters
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[Trace]:
+    """Record spans and counters of the package's calls inside the block, into the trace it yields."""
+    global TRACER
+    prev, TRACER = TRACER, Trace()
+    try:
+        yield TRACER
+    finally:
+        TRACER = prev
+
+
+class _Root:
+    """A public call's root span as a context (:func:`call`, :func:`resume`); it yields the span.
+
+    Inside another call it opens nothing and yields None: the inner call's
+    stages go under the outer call's root.
+    """
+
+    def __init__(self, trace: Trace, name: str, call: int, span: Optional[Span] = None) -> None:
+        self.trace, self.name, self.call, self.span = trace, name, call, span
+        self.opened: Optional[Span] = None
+
+    def __enter__(self) -> Optional[Span]:
+        tr = self.trace
+        if tr._open:
+            return None
+        if self.span is None:
+            self.opened = tr._push(self.name, next(_CALL_IDS) if self.call < 0 else self.call, "", _now())
+        else:
+            tr._open.append(self.span)
+            self.opened = self.span
+        return self.opened
+
+    def __exit__(self, *exc) -> None:
+        if self.opened is not None:
+            self.trace.end(self.opened)
+
+
+_OFF = contextlib.nullcontext()
+
+
+def call(name: str, call_id: int = -1):
+    """A root span around a public call (call id ``call_id``, -1: a new one), or nothing when off."""
+    tr = TRACER
+    return _OFF if tr is None else _Root(tr, name, call_id)
+
+
+def resume(span: Optional[Span]):
+    """Reopen a call's root (a pipelined batch's, launched before): its later stages go under it."""
+    tr = TRACER
+    return _OFF if tr is None or span is None else _Root(tr, span.name, span.call, span)
+
+
+def stage(name: str) -> None:
+    """The next stage of the open call (:meth:`Trace.stage`); nothing when off."""
+    tr = TRACER
+    if tr is not None:
+        tr.stage(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to a counter; nothing when off."""
+    tr = TRACER
+    if tr is not None:
+        tr.count(name, n)

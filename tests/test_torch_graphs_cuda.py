@@ -28,6 +28,7 @@ from pyctcdecode_torch.ops import backtrace as tb
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
+from pyctcdecode_torch.utils import profiling
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import (
@@ -183,9 +184,10 @@ def test_graphs_capture_again_after_the_cache_empties_or_evicts(tmp_path):
         dec._graphs.clear()
     limit = GRAPH_KEYS
     rows = BATCH * (limit // len(BATCH) + 1)
-    for n in range(1, limit + 2):  # batch_pad=1: one key a row count
-        got = dec.decode_beams_batch(rows[:n], beam_width=BEAM, batch_pad=1)
-    assert len(dec._graphs) == limit and dec._graph_evictions == 1
+    with profiling.tracing() as tr:
+        for n in range(1, limit + 2):  # batch_pad=1: one key a row count
+            got = dec.decode_beams_batch(rows[:n], beam_width=BEAM, batch_pad=1)
+    assert len(dec._graphs) == limit and tr.counters()["graph.evictions"] == 1
     _assert_bit_equal(eager.decode_beams_batch(rows[: limit + 1], beam_width=BEAM, batch_pad=1), got)
     one = dict(beam_width=BEAM, batch_pad=1)
     _assert_bit_equal(eager.decode_beams_batch(rows[:1], **one), dec.decode_beams_batch(rows[:1], **one))
