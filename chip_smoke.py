@@ -205,7 +205,16 @@ Phases (any failed check exits non-zero and prints no result line):
    the same LM against the card on the first 4 utterances (both WERs,
    top-1 agreement, which must be 1, ``wer_delta``, speedup; the card's
    hypotheses the dense phase's); ``utils.normalize_to_logp_torch`` on the
-   card against the CPU (logits and probabilities, within 1e-6).
+   card against the CPU (logits and probabilities, within 1e-6);
+17. winner replay (after backtrace): ``replay_winners``
+   (``csrc/replay.cu``) against its plain version, bit-exact, on the
+   arguments one real step gave it (recorded on the eager loop at frame 60):
+   the dense char step [32, 100] and the same at N = 1 (the stream's and a
+   single decode's shape), both with the LM and ``prune_history`` off as
+   the benchmark's cells run, and the bpe dense step [32, 100] (K = 129,
+   lmax 5, int16 tokens); each timed beside the plain version, with its
+   bound (every state and commit plane read once, the winners' ranked,
+   candidate and trie entries, the token tables, every output written once).
 
 Depth cuts of
 the earlier paths, to keep the script's time as the phases above were
@@ -253,7 +262,7 @@ RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
 CHUNK = 5  # token_chunking=True
 OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel",
-               "probe_rows_kernel", "backtrace_paths_kernel")
+               "probe_rows_kernel", "backtrace_paths_kernel", "replay_winners_kernel")
 WIDE_BEAM, WIDE_ROWS = 1024, 8  # the widest beam the merge kernels take, on a smaller batch
 CLUSTERS = (1, 2, 4, 8)  # blocks per utterance the merge kernels can be forced to
 PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
@@ -1229,6 +1238,71 @@ def backtrace_phase(torch, cases: dict, card: str) -> dict:
     return out
 
 
+def record_replay(torch, decoder, logits, step: int, **decode_kw):
+    """The arguments ``replay_winners`` gets at step ``step`` of a real decode (the eager loop)."""
+    from pyctcdecode_torch import engine
+
+    replay, seen, kept = engine.replay_winners, [0], []
+
+    def recorder(*args):
+        if seen[0] == step:
+            kept.append(args)
+        seen[0] += 1
+        return replay(*args)
+
+    engine.replay_winners = recorder
+    try:  # on the eager loop: a captured segment's replay calls no wrapper
+        decoder.with_options(segment_frames=0).decode_beams_batch(logits, beam_width=BEAM, **decode_kw)
+    finally:
+        engine.replay_winners = replay
+    torch.cuda.synchronize()
+    check(len(kept) == 1, f"a decode of {seen[0]} steps did not reach step {step}")
+    return kept[0]
+
+
+def replay_phase(torch, cases: dict, card: str) -> dict:
+    """``replay_winners`` against its plain version on real steps' arguments, bit-exact, and timed.
+
+    ``cases``: name -> the arguments ``record_replay`` kept. Device ms over
+    ``REPS`` calls (``time_call``), the plain version's over 5. Bound: the
+    bytes the replay needs over the card's memory rate: every state and
+    commit plane read once, each winner's ranked entry, candidate (``src``,
+    ``merged``, token) and trie entries once, the token tables once, every
+    output plane written once.
+    """
+    from pyctcdecode_torch.ops.replay import replay_winners, replay_winners_ref
+
+    out = {}
+    for name, args in cases.items():
+        before = replay_winners.launches
+        got = replay_winners(*args)
+        want = replay_winners_ref(*args)
+        torch.cuda.synchronize()
+        check(replay_winners.launches == before + 1, f"replay_winners {name}: not one launch")
+        for key, val in want[0].items():
+            check(torch.equal(got[0][key], val), f"replay_winners {name}: {key} differs from its plain version")
+        for g, w, what in zip(got[1:], want[1:], ("parent", "token", "flags")):
+            check((g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w)),
+                  f"replay_winners {name}: {what} differs from its plain version")
+        ms, call_ms = time_call(torch, lambda: replay_winners(*args))
+        plain_ms, _ = time_call(torch, lambda: replay_winners_ref(*args), reps=5)
+        state, cm, tok, win = args[:4]
+        n, b = state["logit"].shape
+        per_winner = [t for key, t in win.items() if key in ("order", "score") and t is not None]
+        moved = (nbytes(list(state.values()) + list(cm.values()) + list(tok.values()) + list(got[0].values())
+                     + [got[1], got[2]])
+                 + sum(t.element_size() for t in per_winner) * n * b
+                 + n * b * (4 + 4 + 8 + 8 * (len(win["ent"]) + (win.get("h_ent") is not None))))
+        bound, by = bound_ms(moved, 0.0)
+        out[name] = {"shape": [n, b, int(win["toks"].shape[1]), int(tok["raw_chars"].shape[1])],
+                     "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None, "max_abs_err": 0.0, "bytes": moved}
+        log(f"[replay_winners] {name}: [{n}, {b}], K {win['toks'].shape[1]}, lmax {tok['raw_chars'].shape[1]}, "
+            f"{len(win['ent'])} member(s): equal to the plain version; {ms:.4f} ms (call {call_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}, {moved} bytes) [{card}]")
+    return out
+
+
 def chain_entries(torch, parents, src) -> int:
     """Log entries the chains of ``src`` stand on: per utterance and frame, the distinct beams among them."""
     cur = src
@@ -1272,11 +1346,11 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
 
 
 def counters(merge, gather) -> dict:
-    from pyctcdecode_torch.ops import backtrace
+    from pyctcdecode_torch.ops import backtrace, replay
 
     return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
             "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows,
-            "backtrace_paths": backtrace.backtrace_paths}
+            "backtrace_paths": backtrace.backtrace_paths, "replay_winners": replay.replay_winners}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -1292,7 +1366,7 @@ def expected_counts(members, steps: int, finalizes: int, stream: bool = False) -
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
     ``members``: the LM members (one for a plain LM, none without an LM).
-    Every step launches ``expand_merge_prune`` once and, per member,
+    Every step launches ``expand_merge_prune`` and ``replay_winners`` once and, per member,
     ``gather_rows`` once (the beams' trie rows) and ``probe_rows`` once
     (every n-gram order >= 2 of the member's ``lm_score_words`` call). A
     finalization launches ``merge_prune`` once and, per member, scores the
@@ -1309,6 +1383,7 @@ def expected_counts(members, steps: int, finalizes: int, stream: bool = False) -
         "gather_rows": steps * len(members),
         "probe_rows": steps * len(probing) + finalizes * sum(2 if m.score_boundary else 1 for m in probing),
         "backtrace_paths": 0 if stream else finalizes,
+        "replay_winners": steps,
     }
 
 
@@ -3116,6 +3191,8 @@ def main() -> int:
         torch, decoder, head, step=head_plan["group_steps"][0] // 2, **SERVING))
     log(f"[main] warm-up decodes of 61 frames (dense, and serving: groups with {head_plan['group_steps']} "
         f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
+    replay_cases = {"dense": record_replay(torch, decoder, head, 60, prune_history=False),
+                    "n=1": record_replay(torch, decoder, head[:1], 60, prune_history=False, batch_pad=1)}
     gather_rec = gather_phases(torch, gather, step_calls)
     probe_rec = probe_phases(torch, gather, step_calls, lm_py.ngram_model.tables.ngrams)
     # probe_rows on row windows of the same tables (the sharded path's), on the same step's queries
@@ -3292,10 +3369,13 @@ def main() -> int:
     # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
     members = list(multi.language_model._language_models)
     bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
+    replay_cases["bpe"] = record_replay(torch, bpe_dec, [m[:61] for m in bpe_logits], 60, prune_history=False)
     park(bpe_dec)
     bt_cases["bpe"] = bpe_rec.pop("backtrace_args")
     bt_rec = backtrace_phase(torch, bt_cases, card)
     del bt_cases
+    replay_rec = replay_phase(torch, replay_cases, card)
+    del replay_cases
 
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
@@ -3384,8 +3464,25 @@ def main() -> int:
         "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                   for name, v in bt_rec.items()},
     })
+    rw = replay_rec["dense"]
+    kernels.append({
+        "name": "replay_winners", "route": "cuda", "source": "pyctcdecode_torch/csrc/replay.cu",
+        "replaces": f"{reference_site('engine.py', 1290)} (XLA's lowering of the step's tail and of "
+                    f"_select_fields_mxu; no Pallas kernel)",
+        "launches": launches["replay_winners"], "max_abs_err": 0.0,
+        "ms": rw["ms"], "plain_ms": rw["plain_ms"], "bound_ms": rw["bound_ms"], "bound_by": rw["bound_by"],
+        "library_ms": None, "shape": rw["shape"],
+        "launches_serving": s_launches["replay_winners"], "launches_hot2lm": hot_rec["launches"]["replay_winners"],
+        "launches_bpe": bpe_rec["launches"]["replay_winners"],
+        "launches_stream": stream_rec["launches"]["replay_winners"],
+        "launches_stream_eager": stream_rec["columns"]["eager"]["launches"]["replay_winners"],
+        "launches_kenlm": kenlm_rec["launches"]["replay_winners"],
+        "launches_sharded": sharded_rec["dense"]["launches"]["replay_winners"],
+        "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                  for name, v in replay_rec.items()},
+    })
     record = {
-        "kernels": kernels, "backtrace": bt_rec,
+        "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
         "gather_phases": gather_rec, "probe_phases": probe_rec,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,

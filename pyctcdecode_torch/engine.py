@@ -15,7 +15,8 @@ out: every state plane is ``[N, B, ...]`` (``decode_beams`` is the case
     4. rank the top B (stable sort: lowest position wins ties, as
        ``lax.top_k``);
     5. select the winners, replay their transitions, optionally prune
-       duplicate histories.
+       duplicate histories, and gate padded steps — the hand-written CUDA
+       kernel :func:`~pyctcdecode_torch.ops.replay.replay_winners`.
 
 Text never exists on the device: beams are 2x32-bit rolling hashes plus trie
 nodes, and each frame emits a ``(parent, token)`` backpointer pair; the final
@@ -80,8 +81,9 @@ from .models.device_tables import (
 )
 from .ops import kernel_wrappers
 from .ops.backtrace import backtrace_paths
-from .ops.hashing import M32, as_lane, hash_extend_char_t, hash_text_commit_t, mix4_t
+from .ops.hashing import M32, as_lane, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
+from .ops.replay import FLAG_ALIVE, FLAG_BND, FLAG_COMMIT, FLAG_DUP, beam_rows, replay_keys, replay_winners
 from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
 from .utils import profiling
 
@@ -455,13 +457,6 @@ def _partial_score(cfg: EngineConfig, hot: Optional[Dict], prm: Dict,
     return torch.where(hot_pref, hot_part, lm_part)
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[n, idx[n, j], ...]`` for ``x`` ``[N, B, ...]`` and ``idx`` ``[N, B']``."""
-    if x.dim() == 2:
-        return x.gather(1, idx)
-    return x.gather(1, idx[..., None].expand(-1, -1, *x.shape[2:]))
-
-
 def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
                n_frames: torch.Tensor):
     """Build the per-frame (timeline: per-chunk) step over ``[N, B]`` state planes."""
@@ -474,23 +469,24 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
     n = n_frames.shape[0]
     iota_b = torch.arange(b, device=device)
     iota_v = torch.arange(v, device=device)
-    sentinel = (-2 - iota_b).expand(n, b)
     # timeline chunks merge with the window off: the frame's max is only
     # known at its last chunk, where the pooled top-1 is that max
     if tl:
         prune = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
     else:  # a Python float, or a 0-d device view in the segment programs
         prune = torch.zeros((n,), dtype=torch.float32, device=device) + prm["beam_prune_logp"]
-    lower = torch.tril(torch.ones((b, b), dtype=torch.bool, device=device), diagonal=-1)
+    out_dtypes = (_parent_dtype(b), _path_dtype(v))  # the backpointers as the logs keep them
 
     def step(state: Dict, xs, t):
-        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay.
+        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay (kernel).
 
         ``xs`` is the frame's log-prob row ``[N, V]``, or with
         ``cfg.token_timeline`` one chunk ``(toks [N, K] (-1: empty slot),
         tok_logp [N, K], is_final [N])`` per utterance. ``t``, the step's
         index, is a Python int, or a 0-d int64 device tensor in the segment
-        programs (a captured graph must not freeze it).
+        programs (a captured graph must not freeze it). Returns the new
+        state and the step's ``(parent, token)`` backpointers ``[N, B]`` in
+        the logs' types (:func:`_parent_dtype`, :func:`_path_dtype`).
         """
         active = t < n_frames  # [N]
         if tl:
@@ -611,7 +607,6 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
         cid_planes = cids.permute(2, 0, 1).to(torch.int32, memory_format=torch.contiguous_format)
         sc, merged, src = expand_merge_prune(beam, tokp, cid_planes, pscore, prune, cfg.is_bpe)
 
-        new_state: Dict[str, torch.Tensor] = {}
         if tl:
             # ---- pool U chunk ranking. Ranking key = (score desc,
             # frame-local enumeration rank asc). One stable descending sort
@@ -650,125 +645,31 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             ]
             for i, e in enumerate(ent_w):
                 pool_new[f"pool_ent{i}"] = torch.where(fin2, 0, e)
+            h_w = None
             if use_hot:
                 h_w = pooled("pool_h", h_entry_n.transpose(1, 2)).gather(1, top_src)
                 pool_new["pool_h"] = torch.where(fin2, 0, h_w)
+            winners = {"parent": top_parent, "bp": parent, "tok": sel_tok, "logit": top_logit,
+                       "score": top_scores, "ent": ent_w, "h_ent": h_w}
+            # beam lanes advance only on the frame's last chunk, pool lanes on
+            # every active step; non-final steps emit identity backpointers
+            # with token -3 (carry marker): the backtrace composes through
+            # them unchanged and the host path replay skips them
+            gate = active & is_final
         else:
-            # ---- top-B; positional fields by gather
-            top_scores, top_idx = _top_b(sc.reshape(n, k * b), b)
-            tok_col = top_idx // b
-            top_parent = top_idx % b
-            src_w = src.reshape(n, k * b).gather(1, top_idx).to(torch.int64)
-            top_logit = merged.reshape(n, k * b).gather(1, top_idx)
-            sel_alive = top_scores > DEAD_THRESH
-            parent = src_w % b  # newest-wins, backtrace only
-            ent_w = []
-            if n_lms or use_hot:
-                flat_w = top_parent * k + tok_col
-                ent_w = [e.reshape(n, b * k).gather(1, flat_w) for e in p_entry_n]
-                if use_hot:
-                    h_w = h_entry_n.reshape(n, b * k).gather(1, flat_w)
-        for i, e in enumerate(ent_w):
-            new_state[f"p_node{i}"] = e & _NODE_MASK
-            new_state[f"p_flags{i}"] = e & ~_NODE_MASK
-        if use_hot:
-            new_state["h_node"] = h_w & HOT_NODE_MASK
-            new_state["h_bits"] = h_w & ~HOT_NODE_MASK
+            # ---- top-B (the kernel reads the first B of the ranking)
+            srt = torch.sort(sc.reshape(n, k * b), dim=-1, descending=True, stable=True)
+            winners = {"order": srt.indices, "score": srt.values, "src": src, "merged": merged,
+                       "toks": toks, "ent": p_entry_n, "h_ent": h_entry_n}
+            gate = active  # inactive (padded) frames pass state through untouched
 
-        # ---- transition replay for the winners: every other field is a
-        # deterministic function of (parent beam, token)
-        bsel = {
-            key: _rows(state[key], top_parent)
-            for key in ("text_lo", "text_hi", "p_lo", "p_hi", "p_len", "last_tok",
-                        "force", "fused", "n_words", "ring_lo", "ring_hi")
-        }
-        m_wfused = _rows(cm["word_fused"], top_parent)
-        if tl:
-            # winners may carry tokens from earlier chunks of the frame (pool
-            # entries): token planes resolve by full-vocabulary token id
-            tok_w = sel_tok.clamp(min=0)
-            kind_w = tok_dev["kind"][tok_w]
-            blank_w = kind_w == KIND_BLANK
-            boundary_w = kind_w == KIND_BOUNDARY
-            cid_w = tok_dev["raw_chars"][tok_w]  # [N, B, lmax]
-            seed_lo_w = tok_dev["seed_lo"][tok_w]
-            seed_hi_w = tok_dev["seed_hi"][tok_w]
-            plen_w = tok_dev["piece_len"][tok_w]
-            rlen_w = tok_dev["raw_len"][tok_w]
-            right_w = tok_dev["right_bound"][tok_w]
-        else:
-            tok_w = toks.gather(1, tok_col)
-            blank_w = blank.gather(1, tok_col)
-            boundary_w = boundary_kind.gather(1, tok_col)
-            cid_w = cids.gather(1, tok_col[..., None].expand(-1, -1, lmax))
-            seed_lo_w = seed_lo_k.gather(1, tok_col)
-            seed_hi_w = seed_hi_k.gather(1, tok_col)
-            plen_w = tok_plen.gather(1, tok_col)
-            rlen_w = tok_rlen.gather(1, tok_col)
-            right_w = tok_right.gather(1, tok_col)
-        commit_w = bsel["p_len"] > 0
-        mt_lo, mt_hi = hash_text_commit_t(bsel["text_lo"], bsel["text_hi"], bsel["p_lo"], bsel["p_hi"])
-        stay_w = blank_w | (bsel["last_tok"] == tok_w)
-        if cfg.is_bpe:
-            bnd_w = ~stay_w & (boundary_w | bsel["force"])
-        else:
-            bnd_w = ~stay_w & boundary_w
-        ext_lo_w, ext_hi_w = bsel["p_lo"], bsel["p_hi"]
-        for l in range(lmax):
-            c_w = cid_w[..., l]
-            nlo_w, nhi_w = hash_extend_char_t(ext_lo_w, ext_hi_w, c_w.clamp(min=0))
-            ext_lo_w = torch.where(c_w >= 0, nlo_w, ext_lo_w)
-            ext_hi_w = torch.where(c_w >= 0, nhi_w, ext_hi_w)
-        new_state["p_lo"] = torch.where(
-            stay_w, bsel["p_lo"], torch.where(bnd_w, seed_lo_w, ext_lo_w)
+        # ---- the winners' transition replay, history dedup and padded-step
+        # gate: one kernel (every other field is a deterministic function of
+        # (parent beam, token))
+        out_state, parent, token_sel, flags = replay_winners(
+            {key: state[key] for key in replay_keys(n_lms, use_hot)}, cm, tok_dev, winners, gate, active,
+            cfg.prune_history, cfg.is_bpe, cfg.collect_stats, out_dtypes,
         )
-        new_state["p_hi"] = torch.where(
-            stay_w, bsel["p_hi"], torch.where(bnd_w, seed_hi_w, ext_hi_w)
-        )
-        new_state["p_len"] = torch.where(
-            stay_w,
-            bsel["p_len"],
-            torch.where(bnd_w, plen_w, bsel["p_len"] + rlen_w),
-        )
-        m_text_lo = torch.where(commit_w, mt_lo, bsel["text_lo"])
-        m_text_hi = torch.where(commit_w, mt_hi, bsel["text_hi"])
-        new_state["text_lo"] = torch.where(bnd_w, m_text_lo, bsel["text_lo"])
-        new_state["text_hi"] = torch.where(bnd_w, m_text_hi, bsel["text_hi"])
-        new_state["fused"] = bsel["fused"] + torch.where(bnd_w, m_wfused, 0.0)
-        new_state["n_words"] = torch.where(bnd_w, bsel["n_words"] + commit_w.to(torch.int64), bsel["n_words"])
-        new_state["force"] = torch.where(bnd_w, right_w != 0, bsel["force"])
-        bnd2 = bnd_w[..., None]
-        c2 = (commit_w & bnd_w)[..., None]
-        new_state["ring_lo"] = torch.where(
-            c2, torch.cat([bsel["ring_lo"][..., 1:], bsel["p_lo"][..., None]], dim=-1), bsel["ring_lo"]
-        )
-        new_state["ring_hi"] = torch.where(
-            c2, torch.cat([bsel["ring_hi"][..., 1:], bsel["p_hi"][..., None]], dim=-1), bsel["ring_hi"]
-        )
-        for i in range(n_lms):
-            for key in (f"ctx{i}", f"ctx_len{i}", f"ctx_bo{i}"):
-                c_val = _rows(state[key], top_parent)
-                m_val = _rows(cm[key], top_parent)
-                new_state[key] = torch.where(bnd2 if c_val.dim() == 3 else bnd_w, m_val, c_val)
-        token_sel = tok_w  # == toks[src // b] by construction
-        new_state["logit"] = torch.where(sel_alive, top_logit, DEAD)
-        new_state["last_tok"] = torch.where(sel_alive, tok_w, sentinel)
-
-        if cfg.prune_history:
-            # fold (partial, last token, word count, history ring) into two
-            # mixed 32-bit lanes; dedup B x B, the older beam survives
-            nw_cap = new_state["n_words"].clamp(max=cfg.ring_width)
-            nw_cap = nw_cap | (new_state["force"].to(torch.int64) << 16)
-            last_u = new_state["last_tok"] & M32
-            hk_lo = mix4_t(new_state["p_lo"], new_state["p_hi"], last_u, nw_cap)
-            hk_hi = mix4_t(new_state["p_hi"], new_state["p_lo"], nw_cap, last_u ^ 0x9E3779B9)
-            for i in range(cfg.ring_width):
-                hk_lo = mix4_t(hk_lo, new_state["ring_lo"][..., i], new_state["ring_hi"][..., i], 2 * i + 1)
-                hk_hi = mix4_t(hk_hi, new_state["ring_hi"][..., i], new_state["ring_lo"][..., i], 2 * i + 2)
-            eq = (hk_lo[:, :, None] == hk_lo[:, None, :]) & (hk_hi[:, :, None] == hk_hi[:, None, :])
-            dup_h = (eq & lower).any(dim=2)
-            new_state["logit"] = torch.where(dup_h, DEAD, new_state["logit"])
-            new_state["last_tok"] = torch.where(dup_h, sentinel, new_state["last_tok"])
 
         if cfg.collect_stats:
             # per-utterance counts of this step (stats_fields). The kernel's
@@ -785,52 +686,35 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
             else:
                 live = (own & (merged > DEAD_THRESH)).sum((1, 2))
                 window_pruned = live - (sc > DEAD_THRESH).sum((1, 2))
+            all_bits = FLAG_BND | FLAG_COMMIT | FLAG_ALIVE
             counts = [
                 torch.ones_like(alive_ct) * fin_gate,  # frames
                 alive_ct,
                 alive_ct * admit.sum(1),  # candidates_valid
                 alive_ct * admit.sum(1) - own.sum((1, 2)),  # merged_dups
                 window_pruned,
-                fin_gate * sel_alive.sum(1),
-                fin_gate * dup_h.sum(1) if cfg.prune_history else torch.zeros_like(alive_ct),
+                fin_gate * ((flags & FLAG_ALIVE) != 0).sum(1),
+                fin_gate * ((flags & FLAG_DUP) != 0).sum(1) if cfg.prune_history else torch.zeros_like(alive_ct),
                 # words actually committed: winners that cross a boundary holding a partial
-                fin_gate * (bnd_w & commit_w & sel_alive).sum(1),
+                fin_gate * ((flags & all_bits) == all_bits).sum(1),
             ]
             if n_lms:
                 counts.append(n_lms * alive_ct)  # probe_queries
                 for order_n in range(1, max(cfg.orders) + 1):
                     counts.append(sum((hits[order_n - 1] & alive).sum(1)
                                       for hits in cm["probe_hits"] if order_n <= len(hits)))
-            new_state["stats"] = state["stats"] + torch.stack(counts, dim=1)
+            new_stats = state["stats"] + torch.stack(counts, dim=1)
 
-        if tl:
-            # beam lanes advance only on the frame's last chunk, pool lanes on
-            # every active step. Non-final steps emit identity backpointers
-            # with token -3 (carry marker): the backtrace composes through
-            # them unchanged and the host path replay skips them.
-            promote = active & is_final
-            out_state = {}
-            for key, old in state.items():
-                if key.startswith("pool_"):
-                    out_state[key] = torch.where(active[:, None], pool_new[key], old)
-                elif key == "stats":  # every active step; frame-shaped counts are gated above
-                    out_state[key] = torch.where(active[:, None], new_state[key], old)
-                else:
-                    gate = promote.view((n,) + (1,) * (old.dim() - 1))
-                    out_state[key] = torch.where(gate, new_state[key], old)
-            parent = torch.where(promote[:, None], parent, iota_b)
-            token_sel = torch.where(promote[:, None], token_sel, -3)
-            token_sel = torch.where(active[:, None], token_sel, -1)
-            return out_state, (parent, token_sel)
-
-        # inactive (padded) frames pass state through untouched
-        out_state = {}
+        # the keys the kernel does not write: the pool lanes (timeline) and the
+        # counters advance on every active step
+        merged_state = {}
         for key, old in state.items():
-            act = active.view((n,) + (1,) * (old.dim() - 1))
-            out_state[key] = torch.where(act, new_state[key], old)
-        parent = torch.where(active[:, None], parent, iota_b)
-        token_sel = torch.where(active[:, None], token_sel, -1)
-        return out_state, (parent, token_sel)
+            if key in out_state:
+                merged_state[key] = out_state[key]
+            else:
+                fresh = new_stats if key == "stats" else pool_new[key]
+                merged_state[key] = torch.where(active[:, None], fresh, old)
+        return merged_state, (parent, token_sel)
 
     return step
 
@@ -937,8 +821,8 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict
         if score_word is not None:
             view = torch.where(score_word[..., None], ctx2, state[f"ctx{i}"])
             view_len = torch.where(score_word, ctx2_len, state[f"ctx_len{i}"])
-        out[f"ctx{i}"] = _rows(view, src)
-        out[f"ctx_len{i}"] = _rows(view_len, src)
+        out[f"ctx{i}"] = beam_rows(view, src)
+        out[f"ctx_len{i}"] = beam_rows(view_len, src)
     out["carry"] = {"commit": commit, "text_lo": text_lo, "text_hi": text_hi,
                     "fused": fused_scored, "ctx": ctx_out}
     return out
@@ -963,26 +847,26 @@ def _committed_state(cfg: EngineConfig, state: Dict, fin: Dict) -> Dict:
         return torch.zeros((n, b), dtype=torch.int64, device=device)
 
     new = {
-        "text_lo": _rows(carry["text_lo"], src),
-        "text_hi": _rows(carry["text_hi"], src),
+        "text_lo": beam_rows(carry["text_lo"], src),
+        "text_hi": beam_rows(carry["text_hi"], src),
         "p_lo": zeros(),
         "p_hi": zeros(),
         "p_len": zeros(),
         "last_tok": torch.where(sel_alive, -1, -2 - torch.arange(b, device=device)),
         "force": torch.zeros((n, b), dtype=torch.bool, device=device),
         "logit": torch.where(sel_alive, fin["logit"], DEAD),
-        "fused": _rows(carry["fused"], src),
-        "n_words": _rows(state["n_words"] + commit.to(torch.int64), src),
+        "fused": beam_rows(carry["fused"], src),
+        "n_words": beam_rows(state["n_words"] + commit.to(torch.int64), src),
     }
     for ring, lane in (("ring_lo", "p_lo"), ("ring_hi", "p_hi")):
         shifted = torch.cat([state[ring][..., 1:], state[lane][..., None]], dim=-1)
-        new[ring] = _rows(torch.where(c2, shifted, state[ring]), src)
+        new[ring] = beam_rows(torch.where(c2, shifted, state[ring]), src)
     for i, (ctx2, ctx2_len, ctx2_bo) in enumerate(carry["ctx"]):
         new[f"p_node{i}"] = zeros()
         new[f"p_flags{i}"] = zeros()
-        new[f"ctx{i}"] = _rows(torch.where(c2, ctx2, state[f"ctx{i}"]), src)
-        new[f"ctx_len{i}"] = _rows(torch.where(commit, ctx2_len, state[f"ctx_len{i}"]), src)
-        new[f"ctx_bo{i}"] = _rows(torch.where(c2, ctx2_bo, state[f"ctx_bo{i}"]), src)
+        new[f"ctx{i}"] = beam_rows(torch.where(c2, ctx2, state[f"ctx{i}"]), src)
+        new[f"ctx_len{i}"] = beam_rows(torch.where(commit, ctx2_len, state[f"ctx_len{i}"]), src)
+        new[f"ctx_bo{i}"] = beam_rows(torch.where(c2, ctx2_bo, state[f"ctx_bo{i}"]), src)
     if cfg.use_hotwords:
         new["h_node"] = zeros()
         new["h_bits"] = zeros()
@@ -1057,7 +941,6 @@ def make_segment_decode_fns(cfg: EngineConfig, tables: Dict, seg_frames: int):
     if seg_frames < 1:
         raise ValueError(f"seg_frames must be at least 1; got {seg_frames}")
     device = tables["tok"]["kind"].device
-    par_dtype, tok_dtype = _parent_dtype(cfg.beam_width), _path_dtype(cfg.vocab_size)
 
     def init_fn(start: Sequence[Dict], n: int) -> Dict:
         return _init_state(cfg, start, n, device)
@@ -1072,8 +955,8 @@ def make_segment_decode_fns(cfg: EngineConfig, tables: Dict, seg_frames: int):
             else:
                 xs = seg_in[:, i]
             state, (par, tok) = step(state, xs, t0 + i)
-            parents.append(par.to(par_dtype))
-            trace.append(tok.to(tok_dtype))
+            parents.append(par)
+            trace.append(tok)
         return state, (torch.stack(parents, dim=1), torch.stack(trace, dim=1))
 
     def fin_fn(state: Dict, params: np.ndarray, parents: torch.Tensor, trace: torch.Tensor,

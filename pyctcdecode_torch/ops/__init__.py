@@ -1,4 +1,4 @@
-"""Device-side building blocks: hashing, token tables and the merge kernels."""
+"""Device-side building blocks: hashing, token tables and the kernels."""
 
 
 def kernel_wrappers():
@@ -6,5 +6,6 @@ def kernel_wrappers():
     from .backtrace import backtrace_paths
     from .gather import gather_rows, probe_rows
     from .merge import expand_merge_prune, merge_prune
+    from .replay import replay_winners
 
-    return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths)
+    return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths, replay_winners)

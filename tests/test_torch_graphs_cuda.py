@@ -27,6 +27,7 @@ from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import backtrace as tb
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
+from pyctcdecode_torch.ops import replay as tr
 from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
 from pyctcdecode_torch.utils import profiling
 
@@ -100,6 +101,31 @@ def test_dense_graph_decode_equals_eager_at_every_cluster_size(tmp_path, k):
     # one backtrace of the whole logs
     assert eager_used == [45, 1, 45, 45 + 2, 1]
     assert graph_used == [48, 1, 48, 48 + 2, 1]
+
+
+@pytest.mark.cuda
+def test_a_captured_dense_decode_replays_the_winners_once_a_step(tmp_path):
+    """One ``replay_winners`` launch a launched step, as many as ``expand_merge_prune``'s, eager and
+    captured, and the tracer's ``launches.replay_winners`` counts them; the same beams to the bit."""
+    _cuda()
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), _lm(tmp_path))
+    eager = dec.with_options(segment_frames=0)
+    kw = dict(beam_width=BEAM, prune_history=True)
+
+    def run(decoder):
+        with profiling.tracing() as trace:
+            out = decoder.decode_beams_batch(BATCH, **kw)
+            torch.cuda.synchronize()
+        counters = trace.counters()
+        return out, [counters[f"launches.{fn.__name__}"] for fn in (tm.expand_merge_prune, tr.replay_winners)]
+
+    want, eager_used = run(eager)
+    got, graph_used = run(dec)  # the first segment eager, then its capture, then replays
+    _assert_bit_equal(want, got)
+    again, again_used = run(dec)  # replays only
+    _assert_bit_equal(want, again)
+    assert eager_used == [45, 45]  # the longest utterance's steps
+    assert graph_used == again_used == [48, 48]  # padded to whole segments of 16
 
 
 @pytest.mark.cuda
@@ -214,11 +240,11 @@ def test_a_capture_error_raises(tmp_path, monkeypatch):
     instead, and the launches counted under the failed capture are taken back."""
     _cuda()
     dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), _lm(tmp_path))
-    rows = engine._rows
+    replay = engine.replay_winners
 
-    def syncing_rows(x, idx):
-        idx.max().item()  # a device-to-host read: not allowed while a stream captures
-        return rows(x, idx)
+    def syncing_replay(state, *args):
+        state["logit"].max().item()  # a device-to-host read: not allowed while a stream captures
+        return replay(state, *args)
 
     body, at_capture = engine.SegmentGraph._body, []
 
@@ -227,7 +253,7 @@ def test_a_capture_error_raises(tmp_path, monkeypatch):
             at_capture.append([fn.launches for fn in WRAPPERS])
         body(graph)
 
-    monkeypatch.setattr(engine, "_rows", syncing_rows)
+    monkeypatch.setattr(engine, "replay_winners", syncing_replay)
     monkeypatch.setattr(engine.SegmentGraph, "_body", watched_body)
     with pytest.raises(RuntimeError):
         dec.decode_beams_batch(BATCH, beam_width=BEAM)

@@ -11,11 +11,13 @@ import pytest
 import torch
 
 import pyctcdecode_torch as P
+from pyctcdecode_torch import engine
 from pyctcdecode_torch.models import device_tables as tdt
 from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import backtrace as tb
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
+from pyctcdecode_torch.ops import replay as tr
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import (
@@ -27,6 +29,7 @@ from .torch_cases import (
     assert_outputs,
     assert_same_beams,
     chunk_token_planes,
+    conformer_width,
     expand_inputs,
     merge_inputs,
     piece_logits,
@@ -600,3 +603,99 @@ def test_backtrace_paths_matches_plain_version(n, t, b, r, par, tok):
     want = tb.backtrace_paths_ref(*args)
     assert got.dtype == tok and got.shape == (n, r, t)
     assert torch.equal(got, want)
+
+
+def _replay_checked(monkeypatch):
+    """Put a checker in place of the engine's ``replay_winners``: each step's kernel against its twin.
+
+    Every call of a decode's step runs the kernel and ``replay_winners_ref``
+    on the same real inputs and asserts every output equal to the bit. The
+    returned dict counts the calls and the cases the steps held: gated rows
+    emitting ``-3`` (a timeline's non-final chunk) and ``-1`` (inactive),
+    dead lanes, history duplicates.
+    """
+    seen = {"calls": 0, "carry": 0, "inactive": 0, "dead": 0, "dup": 0, "pooled": 0, "dense": 0}
+    kernel = engine.replay_winners
+
+    def checked(state, cm, tok, win, gate, active, prune_history, is_bpe, stats, out_dtypes):
+        before = tr.replay_winners.launches
+        got = kernel(state, cm, tok, win, gate, active, prune_history, is_bpe, stats, out_dtypes)
+        want = tr.replay_winners_ref(state, cm, tok, win, gate, active, prune_history, is_bpe, stats, out_dtypes)
+        torch.cuda.synchronize()
+        assert tr.replay_winners.launches == before + 1
+        for key in want[0]:
+            assert got[0][key].dtype == want[0][key].dtype and torch.equal(got[0][key], want[0][key]), key
+        for g, w, name in zip(got[1:], want[1:], ("parent", "token", "flags")):
+            assert (g is None) == (w is None), name
+            if w is not None:
+                assert g.dtype == w.dtype and torch.equal(g, w), name
+        seen["calls"] += 1
+        seen["pooled" if "parent" in win else "dense"] += 1
+        seen["carry"] += int((want[2] == -3).sum())
+        seen["inactive"] += int((~active).sum())
+        seen["dead"] += int((want[0]["logit"] < -1e29).sum())
+        if want[3] is not None:
+            seen["dup"] += int(((want[3] & tr.FLAG_DUP) != 0).sum())
+        return got
+
+    monkeypatch.setattr(engine, "replay_winners", checked)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["char", "char serving", "bpe", "bpe serving", "two members, hotwords",
+                                  "two members, hotwords, serving"])
+def test_replay_winners_matches_plain_version_on_real_steps(tmp_path, monkeypatch, case):
+    """``replay_winners`` against ``replay_winners_ref`` on every step of real decodes, to the bit.
+
+    Beam 100, ``prune_history`` and ``collect_stats`` on, three utterances
+    of unequal lengths (inactive rows); dense and serving (a timeline whose
+    non-final chunks emit ``-3``); the char alphabet with one LM, the same
+    with two members and hotwords, and a 129-piece BPE vocabulary (labels up
+    to 5 chars, int16 tokens).
+    """
+    _cuda()
+    members = []
+    for name, text, kw in (("a", ARPA, {}), ("b", ARPA_2GRAM, dict(alpha=0.3, beta=2.0, score_boundary=False))):
+        path = tmp_path / f"{name}.arpa"
+        path.write_text(text)
+        members.append(P.LanguageModel(open_ngram_file(str(path)), UNIGRAMS, **kw))
+    kw = dict(beam_width=100, prune_history=True, collect_stats=True)
+    if case.startswith("bpe"):
+        alphabet = P.Alphabet.build_alphabet(conformer_width(piece_vocabulary(LM_WORDS)))
+        lm = members[0]
+        batch = [piece_logits(seed, alphabet.labels, 6) for seed in range(3)]
+    else:
+        alphabet = P.Alphabet.build_alphabet(SAMPLE_LABELS)
+        lm = P.MultiLanguageModel(members) if "two members" in case else members[0]
+        batch = [word_logits(11, 33), word_logits(12, 17), word_logits(13, 40)]
+        if "hotwords" in case:
+            kw.update(hotwords=["bugs bunny", "sun"], hotword_weight=8.0)
+    if "serving" in case:
+        kw.update(token_chunking=3, blank_collapse=True, length_bucketing=2)
+    dec = P.TorchBeamSearchDecoderCTC(alphabet, lm).with_options(segment_frames=0)  # the eager loop: a call a step
+    seen = _replay_checked(monkeypatch)
+    dec.decode_beams_batch(batch, **kw)
+    assert seen["calls"] >= 17 and seen["inactive"] > 0 and seen["dead"] > 0 and seen["dup"] > 0
+    if "serving" in case:
+        assert seen["pooled"] == seen["calls"] and seen["carry"] > 0
+    else:
+        assert seen["dense"] == seen["calls"] and seen["carry"] == 0
+    if case.startswith("bpe"):
+        assert dec._tabs["tok"]["raw_chars"].shape[1] == 5
+
+
+@pytest.mark.cuda
+def test_replay_winners_matches_plain_version_on_a_stream(tmp_path, monkeypatch):
+    """The stream's N = 1 steps, chunk by chunk, to the bit."""
+    _cuda()
+    path = tmp_path / "a.arpa"
+    path.write_text(ARPA)
+    lm = P.LanguageModel(open_ngram_file(str(path)), UNIGRAMS)
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), lm).with_options(segment_frames=0)
+    seen = _replay_checked(monkeypatch)
+    mat = word_logits(21, 30)
+    state = dec.get_starting_state(beam_width=100)
+    for i in range(3):
+        dec.partial_decode_beams(state, mat[10 * i : 10 * (i + 1)], is_end=i == 2)
+    assert seen["calls"] == 30 and seen["dead"] > 0
