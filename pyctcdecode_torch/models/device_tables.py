@@ -24,15 +24,17 @@ probed on the device:
   word's LM id", "is it in the unigram set / the LM vocab" (OOV rule, ref
   ``language_model.py:349-353``).
 
-The numpy builders are bit-equal copies of the JAX reference package's; the
-probe functions are their torch counterparts. Geometry is read from
+The numpy builders are bit-equal copies of the JAX reference package's, but
+for labels that spell the LM's ``<s>`` / ``</s>`` (:func:`build_vocab_trie`
+keeps them as words there, as the host engine scores them); the probe
+functions are their torch counterparts. Geometry is read from
 ``_BUCKET_SLOTS`` / ``_SUB_WIDTH`` and :func:`trie_pack_params`, never
 assumed.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Collection, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +43,7 @@ from ..ops.gather import HASH_MODES, bucket_readout, gather_rows, probe_rows, qu
 from ..ops.hashing import KENLM_BASE_SEED as _KENLM_BASE_SEED
 from ..ops.hashing import fnv1a, fnv1a_seeded, kenlm_chain, mix32_pair
 from ..ops.tokens import TokenArrays
+from ..utils import profiling
 from .kenlm_bin import KenLMBinaryModel
 from .language_model import LanguageModel
 from .ngram import BOS_WORD, EOS_WORD, NGramModel, NGramTables
@@ -524,9 +527,19 @@ def build_vocab_trie(
     unigram_set: "object",
     char2id: Dict[str, int],
     unk_id: int,
+    label_chars: Collection[str],
 ) -> PackedTrie:
-    """Trie over LM vocab words (carrying word ids) and known unigrams."""
+    """Trie over LM vocab words (carrying word ids) and known unigrams.
+
+    The LM's sentence markers ``<s>`` and ``</s>`` are words like any other
+    where the labels can spell them (every char of theirs in
+    ``label_chars``, as with wav2vec2's ``<s>`` / ``</s>`` labels): the host
+    engine scores a decoded marker as the LM's word, and so does the device.
+    Where the labels cannot, they stay out, and the trie is the one the JAX
+    package's device engine builds.
+    """
     builder = _TrieBuilder(len(char2id))
+    label_chars = set(label_chars)
 
     def _ids(word: str) -> Optional[List[int]]:
         out = []
@@ -537,9 +550,14 @@ def build_vocab_trie(
             out.append(cid)
         return out
 
+    markers = 0
     for word, wid in vocab.items():
-        if wid == unk_id or word in (BOS_WORD, EOS_WORD):
+        if wid == unk_id:
             continue
+        if word in (BOS_WORD, EOS_WORD):
+            if not set(word) <= label_chars:
+                continue
+            markers += 1
         ids = _ids(word)
         if ids is None:
             continue
@@ -557,6 +575,7 @@ def build_vocab_trie(
         for cid in ids:
             cur = int(builder.next[cur][cid])
             builder.is_uni_prefix[cur] = True
+    profiling.count("build.sentence_words", markers)
     return builder.pack()
 
 
@@ -945,7 +964,7 @@ def build_device_lm(language_model: LanguageModel, tokens: TokenArrays) -> Devic
         for ch in word:
             if ch not in char2id:
                 char2id[ch] = len(char2id)
-    trie = build_vocab_trie(vocab, language_model.unigram_set, char2id, unk_id)
+    trie = build_vocab_trie(vocab, language_model.unigram_set, char2id, unk_id, tokens.char2id)
     seed_node = trie_seed_nodes(trie, tokens)
     ctx_width = max(order - 1, 1)
     start_ctx = np.full(ctx_width, -1, dtype=np.int32)

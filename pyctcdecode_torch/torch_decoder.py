@@ -73,6 +73,7 @@ from .models.device_tables import (
 )
 from .models.hotwords import HotwordScorer
 from .models.language_model import LanguageModel, MultiLanguageModel
+from .models.ngram import BOS_WORD, EOS_WORD
 from .ops.backtrace import backtrace_paths
 from .ops.merge import DEAD_THRESH
 from .ops.tokens import build_token_arrays
@@ -325,6 +326,19 @@ class DeviceStreamState:
     prefix_words: Optional[List[List[str]]] = None
     prefix_spans: Optional[List[List[Tuple[int, int]]]] = None
     call_id: int = -1  # the tracer's id of this stream (utils.profiling), -1 before a traced call
+
+
+_SENTENCE_WORDS = frozenset((BOS_WORD, EOS_WORD))
+
+
+def _count_replay(word_lists: Iterable[Sequence[str]]) -> None:
+    """Count the replayed beams (``replay.beams``) and those whose words hold ``<s>`` or ``</s>``; nothing when off."""
+    tr = profiling.TRACER
+    if tr is None:
+        return
+    word_lists = list(word_lists)
+    tr.count("replay.beams", len(word_lists))
+    tr.count("replay.sentence_beams", sum(1 for words in word_lists if not _SENTENCE_WORDS.isdisjoint(words)))
 
 
 def _backtrace_chunks(
@@ -1057,6 +1071,7 @@ class TorchBeamSearchDecoderCTC:
                     logit_score=float(logits_out[rank]),
                     lm_score=float(scores[rank]),
                 ))
+            _count_replay(rank_words)
 
             if committed:
                 # the committed state's rows are in rank order: fold each rank's
@@ -1509,6 +1524,7 @@ class TorchBeamSearchDecoderCTC:
                     lm_score=float(lm_score[u, r]) + off,
                 )
             )
+        _count_replay(words for words, _ in pairs)
         return (results, stats) if with_stats else results
 
     def _replay_bpe(self, toks: np.ndarray,

@@ -4,9 +4,14 @@
   seeds, unigrams, trie arrays, the packed trie plane, start context);
 * ``DeviceLM.from_numpy`` round-trips the JAX package's tables;
 * the torch probes (``probe_fp``, ``lm_score_words``, ``trie_fetch_rows``)
-  equal the JAX ``jnp`` functions on the same tables and queries.
+  equal the JAX ``jnp`` functions on the same tables and queries;
+* for every alphabet that cannot spell the LM's ``<s>`` / ``</s>`` (QuartzNet's
+  labels, the benchmark's 128 BPE pieces, the test alphabets) the tables are
+  JAX's, array for array; wav2vec2's labels spell them, and there the port's
+  trie gives the two markers their word ids where JAX's leaves them out.
 """
 import dataclasses
+import json
 import os
 
 import jax.numpy as jnp
@@ -27,7 +32,28 @@ from pyctcdecode_tpu.models.language_model import LanguageModel as JLanguageMode
 from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 
+from .helpers import SAMPLE_LABELS
+from .torch_cases import BPE_LABELS, LM_WORDS, piece_vocabulary
+
 LABELS = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["'", ""]
+W2V2_LABELS = ["<pad>", "<s>", "</s>", "<unk>", "|", "e", "t", "a", "o", "n", "i", "h", "s", "r", "d", "l",
+               "u", "m", "w", "c", "f", "g", "y", "p", "b", "v", "k", "'", "x", "j", "q", "z"]
+
+
+def _config_labels(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "cardbench", "configs", f"{name}.json")
+    with open(path, encoding="utf-8") as fh:
+        return json.load(fh)["labels"]
+
+
+# alphabets that cannot spell <s> / </s>: the tables must stay the JAX package's
+UNSPELLED = {
+    "quartznet": _config_labels("quartznet-char-3gram"),
+    "bpe128": _config_labels("conformer-bpe128-3gram"),
+    "sample": SAMPLE_LABELS,
+    "bpe": BPE_LABELS,
+    "pieces": piece_vocabulary(LM_WORDS),
+}
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +124,45 @@ def test_from_numpy_round_trips(tables):
     for ta, tb in zip(a["fp"], b["fp"]):
         assert torch.equal(ta["bucket"], tb["bucket"])
         assert (ta["seed_lo"], ta["seed_hi"], ta["size"]) == (tb["seed_lo"], tb["seed_hi"], tb["size"])
+
+
+@pytest.fixture(scope="module")
+def lms(tmp_path_factory):
+    """The JAX and the port LanguageModel over one small parity 3-gram (its <s> and </s> are unigram lines)."""
+    path = str(tmp_path_factory.mktemp("lm") / "small3.arpa")
+    make_parity_arpa(path, n_vocab=400, n_bigrams=3000, n_trigrams=2000)
+    unigrams = sorted(t_unigrams(path))
+    assert {"<s>", "</s>"} <= set(unigrams)
+    return (JLanguageModel(JNGramModel.from_file(path), unigrams),
+            TLanguageModel(open_ngram_file(path, backend="python"), unigrams))
+
+
+def _both(lms, labels):
+    jlm, tlm = lms
+    return (jdt.build_device_lm(jlm, j_tokens(JAlphabet.build_alphabet(labels))),
+            tdt.build_device_lm(tlm, t_tokens(TAlphabet.build_alphabet(labels))))
+
+
+@pytest.mark.parametrize("name", sorted(UNSPELLED))
+def test_alphabets_that_cannot_spell_the_markers_build_the_jax_tables(lms, name):
+    jdlm, tdlm = _both(lms, UNSPELLED[name])
+    _assert_same_lm(jdlm, tdlm)
+    np.testing.assert_array_equal(np.asarray(jdlm.as_device()["trie_rows"]), tdlm.trie_plane())
+    assert not np.isin(tdlm.trie.word_id, [lms[1].ngram_model.tables.vocab[w] for w in ("<s>", "</s>")]).any()
+
+
+def test_wav2vec2_labels_give_the_markers_their_word_ids(lms):
+    """The one difference from JAX's tables: the word ids at the ``<s>`` and ``</s>`` nodes (and their plane cells)."""
+    jdlm, tdlm = _both(lms, W2V2_LABELS)
+    vocab = lms[1].ngram_model.tables.vocab
+    differ = np.flatnonzero(jdlm.trie.word_id != tdlm.trie.word_id)
+    assert sorted(tdlm.trie.word_id[differ]) == sorted([vocab["<s>"], vocab["</s>"]])
+    assert (jdlm.trie.word_id[differ] == -1).all()
+    planes = np.asarray(jdlm.as_device()["trie_rows"]), tdlm.trie_plane()
+    # a marker's node slot (word id, unigram score, backoff, flag) and its parent's cell of the char
+    assert 0 < int((planes[0] != planes[1]).sum()) <= 5 * len(differ)
+    jdlm.trie.word_id = tdlm.trie.word_id
+    _assert_same_lm(jdlm, tdlm)
 
 
 def _queries(tdlm, rng, q, n):

@@ -61,19 +61,22 @@ def test_cuda_kernels_match_plain_versions():
     got = tm.merge_prune(*args)
     torch.cuda.synchronize()
     assert_outputs([g.cpu() for g in got], [w.cpu() for w in tm.merge_prune_ref(*args)])
-    for lmax, is_bpe in ((1, False), (3, True)):
-        beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(7), 4, 9, 100, lmax)
+    # (lmax, is_bpe, seed, [N, K], cluster sizes); the last is wav2vec2's 32-label char step, whose
+    # "</s>" makes lmax 4, at the picked cluster size and at every forced one
+    for lmax, is_bpe, seed, (n, k), clusters in ((1, False, 7, (4, 9), (0,)), (3, True, 7, (4, 9), (0,)),
+                                                 (4, False, 404, (32, 32), (0, 1, 2, 4, 8))):
+        beam, tok, cids, pscore, prune = expand_inputs(np.random.RandomState(seed), n, k, 100, lmax)
         eargs = (
             {key: val.to(dev) for key, val in torch_planes(beam).items()},
             {key: val.to(dev) for key, val in torch_planes(tok).items()},
             torch.as_tensor(cids).to(dev), torch.as_tensor(pscore).to(dev),
             torch.as_tensor(prune).to(dev), is_bpe,
         )
-        got = tm.expand_merge_prune(*eargs)
-        torch.cuda.synchronize()
-        assert_outputs(
-            [g.cpu() for g in got], [w.cpu() for w in tm.expand_merge_prune_ref(*eargs)]
-        )
+        want = [w.cpu() for w in tm.expand_merge_prune_ref(*eargs)]
+        for cluster in clusters:
+            got = tm.expand_merge_prune(*eargs, cluster=cluster)
+            torch.cuda.synchronize()
+            assert_outputs([g.cpu() for g in got], want)
 
 
 def _on(dev, args):
