@@ -43,7 +43,8 @@ Phases (any failed check exits non-zero and prints no result line):
    ``pyctcdecode_torch.build_ctcdecoder``; ``decode_batch`` of 32 synthetic
    dev-other utterances at beam 100 with every token expanded (K = 29). The
    launch counters must show one ``expand_merge_prune``, one ``gather_rows``
-   (trie rows) and one ``probe_rows`` launch per frame step, and per
+   (trie rows) and one ``commit_words`` launch (the word commit, its probes
+   in-kernel) per frame step, and per
    finalization one ``merge_prune`` launch and two ``probe_rows`` launches
    (the last word and ``</s>``). The shortest utterance decodes whole
    again with a ``device="cpu"`` decoder (the plain versions): identical
@@ -91,8 +92,8 @@ Phases (any failed check exits non-zero and prints no result line):
    fusion settings) and 28 hotwords (24 transcript words, 2 transcript
    phrases, 2 strings no LM knows) at the default hotword weight, through
    the dense call, the serving call and ``decode_beams_batches``. Per step
-   the counters must show one ``gather_rows`` and one ``probe_rows`` launch
-   per member, per finalization one ``probe_rows`` for the last word per
+   the counters must show one ``gather_rows`` launch per member and one
+   ``commit_words`` for both, per finalization one ``probe_rows`` for the last word per
    member plus one for ``</s>`` where the member scores it. Member B's
    ``gather_rows`` and ``probe_rows`` are held bit-exact on its own tables
    with a real step's nodes and queries, warm and with the L2 flushed; the
@@ -214,7 +215,15 @@ Phases (any failed check exits non-zero and prints no result line):
    the benchmark's cells run, and the bpe dense step [32, 100] (K = 129,
    lmax 5, int16 tokens); each timed beside the plain version, with its
    bound (every state and commit plane read once, the winners' ranked,
-   candidate and trie entries, the token tables, every output written once).
+   candidate and trie entries, the token tables, every output written once);
+18. word commit (after the winner replay): ``commit_words``
+   (``csrc/gather.cu``) against its plain version (the step's former PyTorch
+   composition around ``probe_rows``), bit-exact, on the arguments one real
+   step gave it (the eager loop at frame 60): the dense char step [32, 100],
+   the same with ``collect_stats`` (the hit masks) and at N = 1, the hot2lm
+   step (two members, the hotwords) and the bpe dense step; each timed beside
+   the plain version, with its bound (the state planes read, the trie rows'
+   last four words, one 512-byte bucket row a beam and table, the outputs).
 
 Depth cuts of
 the earlier paths, to keep the script's time as the phases above were
@@ -262,7 +271,7 @@ RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
 CHUNK = 5  # token_chunking=True
 OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel",
-               "probe_rows_kernel", "backtrace_paths_kernel", "replay_winners_kernel")
+               "probe_rows_kernel", "backtrace_paths_kernel", "replay_winners_kernel", "commit_words_kernel")
 WIDE_BEAM, WIDE_ROWS = 1024, 8  # the widest beam the merge kernels take, on a smaller batch
 CLUSTERS = (1, 2, 4, 8)  # blocks per utterance the merge kernels can be forced to
 PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
@@ -619,13 +628,17 @@ def record_step_reads(torch, decoder, logits, step: int, member: int = 0, **deco
     Decodes ``logits`` (``decode_batch`` with ``decode_kw``) with recorders
     in place of the two wrappers inside ``device_tables``: every step fetches
     each LM member's beams' trie rows (one ``gather_rows`` call with a slot
-    a member) and probes every n-gram order >= 2 (one ``probe_rows`` call a
-    member). Only the calls on LM member ``member``'s own tables are kept.
+    a member) and, with the step's commit on its PyTorch composition
+    (``commit_words_ref``, whose queries ``commit_words`` probes in-kernel),
+    probes every n-gram order >= 2 (one ``probe_rows`` call a member). Only
+    the calls on LM member ``member``'s own tables are kept.
     ``step`` counts from the start of the call's first decode (the first
     length group's, where the call splits). Returns ``{"gather": args,
     "probe": args}``.
     """
+    from pyctcdecode_torch import engine
     from pyctcdecode_torch.models import device_tables
+    from pyctcdecode_torch.ops.commit import commit_words
     from pyctcdecode_torch.ops.gather import gather_rows, probe_rows
 
     calls = {"gather": [], "probe": []}
@@ -646,10 +659,12 @@ def record_step_reads(torch, decoder, logits, step: int, member: int = 0, **deco
         return probe_rows(*args)
 
     device_tables.gather_rows, device_tables.probe_rows = gather_recorder, probe_recorder
+    engine.commit_words = engine.commit_words_ref  # the step's probes as one probe_rows call a member
     try:  # on the eager loop: a captured segment's replay calls no wrapper
         decoder.with_options(segment_frames=0).decode_batch(logits, beam_width=BEAM, **decode_kw)
     finally:
         device_tables.gather_rows, device_tables.probe_rows = gather_rows, probe_rows
+        engine.commit_words = commit_words
     torch.cuda.synchronize()
     check(min(len(calls["gather"]), len(calls["probe"])) > step, "fewer row reads than steps were recorded")
     return {"gather": calls["gather"][step], "probe": calls["probe"][step]}
@@ -1303,6 +1318,75 @@ def replay_phase(torch, cases: dict, card: str) -> dict:
     return out
 
 
+def record_commit(torch, decoder, logits, step: int, **decode_kw):
+    """The arguments ``commit_words`` gets at step ``step`` of a real decode (the eager loop), cloned."""
+    from pyctcdecode_torch import engine
+
+    commit, seen, kept = engine.commit_words, [0], []
+
+    def recorder(lms, prm, state, trie_rows, *flags):
+        if seen[0] == step:
+            kept.append((lms, prm, {key: val.clone() for key, val in state.items()},
+                         [rows.clone() for rows in trie_rows], *flags))
+        seen[0] += 1
+        return commit(lms, prm, state, trie_rows, *flags)
+
+    engine.commit_words = recorder
+    try:  # on the eager loop: a captured segment's replay calls no wrapper
+        decoder.with_options(segment_frames=0).decode_beams_batch(logits, beam_width=BEAM, **decode_kw)
+    finally:
+        engine.commit_words = commit
+    torch.cuda.synchronize()
+    check(len(kept) == 1, f"a decode of {seen[0]} steps did not reach step {step}")
+    return kept[0]
+
+
+def commit_phase(torch, cases: dict, card: str) -> dict:
+    """``commit_words`` against its plain version on real steps' arguments, bit-exact, and timed.
+
+    ``cases``: name -> the arguments ``record_commit`` kept. Device ms over
+    ``REPS`` calls (``time_call``), the plain version's (the composition the
+    step ran before, its probe the ``probe_rows`` kernel) over 5. Bound: the
+    bytes the commit needs over the card's memory rate: every state plane it
+    reads and every output written once, each member's trie rows' last four
+    words, and one 512-byte bucket row per beam and probe table.
+    """
+    from pyctcdecode_torch.ops.commit import commit_words, commit_words_ref
+
+    out = {}
+    for name, args in cases.items():
+        lms, prm, state, trie_rows, use_hot, stats = args
+        before = commit_words.launches
+        got = commit_words(*args)
+        want = commit_words_ref(*args)
+        torch.cuda.synchronize()
+        check(commit_words.launches == before + 1, f"commit_words {name}: not one launch")
+        check(sorted(got) == sorted(want), f"commit_words {name}: other outputs than its plain version's")
+        for key, val in want.items():
+            if key == "probe_hits":
+                same = all(torch.equal(g, w) for gm, wm in zip(got[key], val) for g, w in zip(gm, wm))
+            else:
+                same = got[key].dtype == val.dtype and torch.equal(got[key], val)
+            check(same, f"commit_words {name}: {key} differs from its plain version")
+        ms, call_ms = time_call(torch, lambda: commit_words(*args))
+        plain_ms, _ = time_call(torch, lambda: commit_words_ref(*args), reps=5)
+        n, b = state["p_len"].shape
+        keys = ["text_lo", "text_hi", "p_lo", "p_hi", "p_len"] + (["h_bits"] if use_hot else [])
+        keys += [f"{k}{i}" for i in range(len(lms)) for k in ("p_flags", "ctx", "ctx_len", "ctx_bo")]
+        tables = sum(len(lm["fp"]) for lm in lms)
+        written = [t for key, t in got.items() if key != "probe_hits"]
+        moved = (nbytes([state[k] for k in keys] + written) + n * b * (16 * len(lms) + 512 * tables)
+                 + (n * b * sum(lm["order"] for lm in lms) if stats else 0))
+        bound, by = bound_ms(moved, 0.0)
+        out[name] = {"shape": [n, b, len(lms), tables], "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None, "max_abs_err": 0.0, "bytes": moved,
+                     "commits": int((state["p_len"] > 0).sum())}
+        log(f"[commit_words] {name}: [{n}, {b}], {len(lms)} member(s), {tables} table(s), hotwords {use_hot}, "
+            f"stats {stats}: equal to the plain version; {ms:.4f} ms (call {call_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.6f} ms ({by}, {moved} bytes) [{card}]")
+    return out
+
+
 def chain_entries(torch, parents, src) -> int:
     """Log entries the chains of ``src`` stand on: per utterance and frame, the distinct beams among them."""
     cur = src
@@ -1346,11 +1430,12 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
 
 
 def counters(merge, gather) -> dict:
-    from pyctcdecode_torch.ops import backtrace, replay
+    from pyctcdecode_torch.ops import backtrace, commit, replay
 
     return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
             "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows,
-            "backtrace_paths": backtrace.backtrace_paths, "replay_winners": replay.replay_winners}
+            "backtrace_paths": backtrace.backtrace_paths, "replay_winners": replay.replay_winners,
+            "commit_words": commit.commit_words}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -1362,28 +1447,34 @@ def read_counts(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def expected_counts(members, steps: int, finalizes: int, stream: bool = False) -> dict:
+def expected_counts(members, steps: int, finalizes: int, stream: bool = False, sharded: bool = False) -> dict:
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
     ``members``: the LM members (one for a plain LM, none without an LM).
-    Every step launches ``expand_merge_prune`` and ``replay_winners`` once and, per member,
-    ``gather_rows`` once (the beams' trie rows) and ``probe_rows`` once
-    (every n-gram order >= 2 of the member's ``lm_score_words`` call). A
-    finalization launches ``merge_prune`` once and, per member, scores the
-    last word and, where the member scores the sentence boundary, ``</s>``:
-    one ``probe_rows`` launch each. A unigram member probes no table. A
-    batch decode's finalization backtraces its paths with one
-    ``backtrace_paths`` launch; a stream's chunk (``stream``) backtraces on
-    the host.
+    Every step launches ``expand_merge_prune`` and ``replay_winners`` once,
+    per member ``gather_rows`` once (the beams' trie rows), and the word
+    commit: one ``commit_words`` launch for every member, or, over
+    row-sharded tables (``sharded``), an order-1 member or more than 8 probe
+    tables, the PyTorch composition, one ``probe_rows`` launch a member of
+    order >= 2. A finalization launches ``merge_prune`` once and, per
+    member, scores the last word and, where the member scores the sentence
+    boundary, ``</s>``: one ``probe_rows`` launch each. A unigram member
+    probes no table. A batch decode's finalization backtraces its paths
+    with one ``backtrace_paths`` launch; a stream's chunk (``stream``)
+    backtraces on the host.
     """
     probing = [m for m in members if m.order > 1]
+    kernel = (not sharded and len(probing) == len(members) <= 8
+              and sum(m.order - 1 for m in members) <= 8)
     return {
         "expand_merge_prune": steps,
         "merge_prune": finalizes,
         "gather_rows": steps * len(members),
-        "probe_rows": steps * len(probing) + finalizes * sum(2 if m.score_boundary else 1 for m in probing),
+        "probe_rows": (0 if kernel else steps * len(probing))
+        + finalizes * sum(2 if m.score_boundary else 1 for m in probing),
         "backtrace_paths": 0 if stream else finalizes,
         "replay_winners": steps,
+        "commit_words": steps if kernel else 0,
     }
 
 
@@ -1964,8 +2055,9 @@ def record_stream_calls(torch, decoder, chunks, step: int) -> dict:
     ``step``'s step; ``merge_prune`` at the finalize of the chunk that holds
     that frame, which must not be the last (so it does not commit: the merge
     key carries the partial, last-token and force lanes). A one-member
-    decoder: one ``gather_rows`` a step, one ``probe_rows`` a step and two a
-    finalize.
+    decoder, its step's commit on the PyTorch composition
+    (``commit_words_ref``) while it records: one ``gather_rows`` a step, one
+    ``probe_rows`` a step and two a finalize.
     """
     from pyctcdecode_torch import engine
     from pyctcdecode_torch.models import device_tables
@@ -2001,11 +2093,14 @@ def record_stream_calls(torch, decoder, chunks, step: int) -> dict:
 
     for name, site in sites.items():
         setattr(site, name, recorder(name))
+    commit = engine.commit_words
+    engine.commit_words = engine.commit_words_ref  # the step's probes as one probe_rows call
     try:
         run_stream(decoder, chunks)
     finally:
         for name, site in sites.items():
             setattr(site, name, originals[name])
+        engine.commit_words = commit
     torch.cuda.synchronize()
     check(set(calls) == set(sites), f"a stream of {len(chunks)} chunks did not reach every recorded call")
     return calls
@@ -2681,7 +2776,7 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
             latency = time.perf_counter() - t0
             launches = read_counts(wrappers)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            check_counts(f"sharded {tag} {column}", launches, expected_counts([lm], steps, 1))
+            check_counts(f"sharded {tag} {column}", launches, expected_counts([lm], steps, 1, sharded=True))
             d = check_same_results(f"sharded {tag} {column} vs {tag}", want_beams, got, 0.0)
             check(stats == want_stats, f"sharded {tag} {column}: the counters differ from the unsharded decoder's")
             return dict(latency_s=latency, audio_s_per_s=audio_s / latency, launches=launches, steps=steps,
@@ -3193,6 +3288,9 @@ def main() -> int:
         f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
     replay_cases = {"dense": record_replay(torch, decoder, head, 60, prune_history=False),
                     "n=1": record_replay(torch, decoder, head[:1], 60, prune_history=False, batch_pad=1)}
+    commit_cases = {"dense": record_commit(torch, decoder, head, 60),
+                    "dense, stats": record_commit(torch, decoder, head, 60, collect_stats=True),
+                    "n=1": record_commit(torch, decoder, head[:1], 60, batch_pad=1)}
     gather_rec = gather_phases(torch, gather, step_calls)
     probe_rec = probe_phases(torch, gather, step_calls, lm_py.ngram_model.tables.ngrams)
     # probe_rows on row windows of the same tables (the sharded path's), on the same step's queries
@@ -3364,18 +3462,22 @@ def main() -> int:
     # decoders' tables go first, so that the peak memory is the new decoder's own)
     park(decoder)
     hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+    commit_cases["hot2lm"] = record_commit(torch, multi, head, 60, hotwords=hot)
     park(multi)
 
     # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
     members = list(multi.language_model._language_models)
     bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
     replay_cases["bpe"] = record_replay(torch, bpe_dec, [m[:61] for m in bpe_logits], 60, prune_history=False)
+    commit_cases["bpe"] = record_commit(torch, bpe_dec, [m[:61] for m in bpe_logits], 60)
     park(bpe_dec)
     bt_cases["bpe"] = bpe_rec.pop("backtrace_args")
     bt_rec = backtrace_phase(torch, bt_cases, card)
     del bt_cases
     replay_rec = replay_phase(torch, replay_cases, card)
     del replay_cases
+    commit_rec = commit_phase(torch, commit_cases, card)
+    del commit_cases
 
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
@@ -3482,7 +3584,7 @@ def main() -> int:
                   for name, v in replay_rec.items()},
     })
     record = {
-        "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec,
+        "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec, "commit": commit_rec,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
         "gather_phases": gather_rec, "probe_phases": probe_rec,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,

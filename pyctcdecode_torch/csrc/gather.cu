@@ -1,5 +1,6 @@
 // Row reads of the decode step's LM tables: a row gather with a slot select,
-// and the n-gram bucket probe fused with its readout.
+// the n-gram bucket probe fused with its readout, and the step's whole word
+// commit around that probe.
 //
 // Both replace the DMA-pipelined Pallas row gather of the JAX reference
 // (scripts/pallas_gather_probe.py, gather_kernel): there, scalar-prefetched
@@ -48,6 +49,22 @@
 //   without reading a row (one compare, uniform over the warp), so the
 //   windows' answers sum to the whole table's. The default window is the
 //   whole table.
+// * commit_words_kernel: the decode step's word commit, every LM member in
+//   one launch (ops/commit.py; its plain twin is the PyTorch composition
+//   the engine ran before, about 90 kernels a step). For each beam: the
+//   word it would commit (the trie row's word id, or <unk>) and its order-1
+//   probe off the row, every order >= 2 of every member probed as
+//   probe_rows_kernel probes (the same hashing and readout functions), the
+//   longest match, the backoff sum, the member's fused score alpha * raw10
+//   * ln 10 + beta with the OOV offset, the members' mean, the hotword gain,
+//   the out-state (context, length, suffix backoffs) and the committed
+//   text hash; a beam with no partial word keeps its state. The probes
+//   never leave registers. Every f32 operation rounds as PyTorch's separate
+//   kernels round it (__fadd_rn / __fmul_rn / __fdiv_rn, in the
+//   composition's order: nvcc would contract an unmarked a * b + c), and the
+//   hashing is uint32, so it equals the composition on the card to the bit.
+//   Neither row-sharded tables (their probe is collective) nor order-1
+//   members come here.
 //
 // Indices must lie in range (idx in [0, rows), slot in [0, row / stride)):
 // nothing is clamped or checked here.
@@ -128,6 +145,62 @@ __device__ __forceinline__ int word_of(const int4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
+// Table t's three hashes of an n-gram key, ids(0) the oldest id and ids(n - 1)
+// the newest: the base hash h and the two clamped fingerprint lanes, in the
+// table's mode.
+template <typename Ids>
+__device__ __forceinline__ void key_hashes(const ProbeTables& tabs, int t, int n, Ids ids,
+                                           uint32_t& h, uint32_t& lo, uint32_t& hi) {
+  h = FNV_OFFSET;
+  lo = tabs.seed_lo[t];
+  hi = tabs.seed_hi[t];
+  if (tabs.mode[t] == MODE_KENLM64) {
+    // newest word first, then the context nearest to oldest; w + 1 in
+    // uint32 (ops/hashing.py kenlm_chain)
+    uint64_t c = (uint64_t)(uint32_t)ids(n - 1);
+    for (int j = n - 2; j >= 0; --j)
+      c = (c * KENLM_MUL_A) ^ ((uint64_t)((uint32_t)ids(j) + 1u) * KENLM_MUL_B);
+    const uint32_t c_lo = (uint32_t)c, c_hi = (uint32_t)(c >> 32);
+    h = mix32_pair(c_lo, c_hi, KENLM_BASE_SEED);
+    lo = mix32_pair(c_lo, 0u, lo);
+    hi = mix32_pair(c_hi, 0u, hi);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const uint32_t id = (uint32_t)ids(j);
+      h = (h ^ id) * FNV_PRIME;
+      lo = (lo ^ id) * FNV_PRIME;
+      hi = (hi ^ id) * FNV_PRIME;
+    }
+  }
+  lo = min(lo, FP_MAX);
+  hi = min(hi, FP_MAX);
+}
+
+// The warp's readout of one bucket row, lane l holding its 16-byte vector l:
+// whether a slot's fingerprint is (lo, hi), and that slot's prob and backoff
+// bits (0 without a match), in every lane. All 32 lanes call it.
+__device__ __forceinline__ bool bucket_match(const int4& v, int lane, uint32_t lo, uint32_t hi,
+                                             int& p_bits, int& b_bits) {
+  // lane = 16 * sub-block + 4 * field + j4; the lane's words are slots
+  // 4 * j4 .. 4 * j4 + 3 of its field (0 fp_lo, 1 fp_hi, 2 prob, 3 backoff)
+  const int field = (lane >> 2) & 3;
+  const uint32_t want = field == 0 ? lo : hi;
+  const uint32_t eq = (uint32_t)((uint32_t)v.x == want) | ((uint32_t)((uint32_t)v.y == want) << 1) |
+                      ((uint32_t)((uint32_t)v.z == want) << 2) |
+                      ((uint32_t)((uint32_t)v.w == want) << 3);
+  const int lo_lane = (lane & 16) | (lane & 3);
+  const uint32_t hit = __shfl_sync(0xffffffffu, eq, lo_lane) &
+                       __shfl_sync(0xffffffffu, eq, lo_lane | 4);
+  const int mine = hit ? word_of(v, __ffs(hit) - 1) : 0;
+  // at most one slot of the row matches: its prob lane, and 4 lanes on its backoff lane
+  const uint32_t at = __ballot_sync(0xffffffffu, hit != 0 && field == 2);
+  const int src = at ? __ffs(at) - 1 : 0;
+  p_bits = __shfl_sync(0xffffffffu, mine, src);
+  b_bits = __shfl_sync(0xffffffffu, mine, src + 4);
+  if (!at) p_bits = b_bits = 0;
+  return at != 0;
+}
+
 // full: [n_query, order] ids, right-aligned (-1 pad); table t's key is the
 // last t + 2 ids. found u8 / prob f32 / backoff f32: [order - 1, n_query].
 __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ full,
@@ -140,28 +213,9 @@ __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ 
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
   for (long long q = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); q < n_query;
        q += warps) {
-    uint32_t h = FNV_OFFSET, lo = tabs.seed_lo[t], hi = tabs.seed_hi[t];
     const int64_t* key = full + q * order + (order - n);
-    if (tabs.mode[t] == MODE_KENLM64) {
-      // newest word first, then the context nearest to oldest; w + 1 in
-      // uint32 (ops/hashing.py kenlm_chain)
-      uint64_t c = (uint64_t)(uint32_t)key[n - 1];
-      for (int j = n - 2; j >= 0; --j)
-        c = (c * KENLM_MUL_A) ^ ((uint64_t)((uint32_t)key[j] + 1u) * KENLM_MUL_B);
-      const uint32_t c_lo = (uint32_t)c, c_hi = (uint32_t)(c >> 32);
-      h = mix32_pair(c_lo, c_hi, KENLM_BASE_SEED);
-      lo = mix32_pair(c_lo, 0u, lo);
-      hi = mix32_pair(c_hi, 0u, hi);
-    } else {
-      for (int j = 0; j < n; ++j) {
-        const uint32_t id = (uint32_t)key[j];
-        h = (h ^ id) * FNV_PRIME;
-        lo = (lo ^ id) * FNV_PRIME;
-        hi = (hi ^ id) * FNV_PRIME;
-      }
-    }
-    lo = min(lo, FP_MAX);
-    hi = min(hi, FP_MAX);
+    uint32_t h, lo, hi;
+    key_hashes(tabs, t, n, [&](int j) { return key[j]; }, h, lo, hi);
     const bool valid = ctx_len[q] + 1 >= n;
     const long long o = (long long)t * n_query + q;
     const uint32_t local = h % tabs.size[t] - tabs.row0[t];  // wraps above rows below the window
@@ -174,28 +228,220 @@ __global__ void probe_rows_kernel(ProbeTables tabs, const int64_t* __restrict__ 
       continue;
     }
     const int4 v = __ldg(tabs.bucket[t] + (long long)local * 32 + lane);
-
-    // lane = 16 * sub-block + 4 * field + j4; the lane's words are slots
-    // 4 * j4 .. 4 * j4 + 3 of its field (0 fp_lo, 1 fp_hi, 2 prob, 3 backoff)
-    const int field = (lane >> 2) & 3;
-    const uint32_t want = field == 0 ? lo : hi;
-    const uint32_t eq = (uint32_t)((uint32_t)v.x == want) | ((uint32_t)((uint32_t)v.y == want) << 1) |
-                        ((uint32_t)((uint32_t)v.z == want) << 2) |
-                        ((uint32_t)((uint32_t)v.w == want) << 3);
-    const int lo_lane = (lane & 16) | (lane & 3);
-    const uint32_t hit = __shfl_sync(0xffffffffu, eq, lo_lane) &
-                         __shfl_sync(0xffffffffu, eq, lo_lane | 4);
-    const int mine = hit ? word_of(v, __ffs(hit) - 1) : 0;
-    // at most one slot of the row matches: its prob lane, and 4 lanes on its backoff lane
-    const uint32_t at = __ballot_sync(0xffffffffu, hit != 0 && field == 2);
-    const int src = at ? __ffs(at) - 1 : 0;
-    const int p_bits = __shfl_sync(0xffffffffu, mine, src);
-    const int b_bits = __shfl_sync(0xffffffffu, mine, src + 4);
+    int p_bits, b_bits;
+    const bool hit = bucket_match(v, lane, lo, hi, p_bits, b_bits);
     if (lane == 0) {
-      const bool ok = valid && at != 0;
+      const bool ok = valid && hit;
       found[o] = ok ? 1 : 0;
       prob[o] = ok ? __int_as_float(p_bits) : 0.0f;
       backoff[o] = ok ? __int_as_float(b_bits) : 0.0f;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// commit_words: the decode step's word commit, every LM member in one launch.
+
+constexpr int COMMIT_MAX_MEMBERS = 8;  // ops/commit.py MAX_MEMBERS
+constexpr uint32_t TXT_A = 2654435761u, TXT_B = 40503u, TXT_SALT = 0x9E3779B9u;  // ops/hashing.py
+
+// Where a query's ids come from: a member's context planes and the word it
+// commits. [NB] planes, ctx / ctx_bo [NB, w] (right-aligned, -1 pad),
+// trie_row [NB, row_w], whose last four words are the word's unigram prob
+// and backoff bits, its order-1 flag and its word id. n: the table's order
+// (the member's own key leaves it 0).
+struct CommitKey {
+  const int64_t* ctx;
+  const int64_t* ctx_len;
+  const float* ctx_bo;
+  const int64_t* p_flags;
+  const int32_t* trie_row;
+  int64_t unk_id;
+  int w, row_w, n;
+};
+
+// One LM member: its key, <unk>'s unigram row, its scalars (a device f32, or
+// null: the *_v value), its outputs ([NB] and [NB, w]; hits [order, NB] or
+// null), its order and its first table in the launch's tables (the bigrams).
+struct CommitMember {
+  CommitKey key;
+  const float* uni_unk_row;
+  const float* alpha;
+  const float* beta;
+  const float* unk_offset;
+  int64_t* o_ctx;
+  int64_t* o_ctx_len;
+  float* o_ctx_bo;
+  uint8_t* o_hits;
+  float alpha_v, beta_v, unk_offset_v, unk_prob10;
+  int order, t0, has_unigrams;
+};
+
+// Field for field the ctypes struct _CommitArgs of ops/commit.py. Table t of
+// tabs holds keys[t].n-grams of the member whose key keys[t] copies.
+struct CommitArgs {
+  ProbeTables tabs;
+  CommitKey keys[MAX_TABLES];
+  CommitMember m[COMMIT_MAX_MEMBERS];
+  const int64_t* text_lo;
+  const int64_t* text_hi;
+  const int64_t* p_lo;
+  const int64_t* p_hi;
+  const int64_t* p_len;
+  const int64_t* h_bits;    // null without hotwords
+  const float* hot_weight;  // device f32, or null: hot_weight_v
+  int64_t* o_text_lo;
+  int64_t* o_text_hi;
+  float* o_word_fused;
+  int64_t bit_in_vocab, bit_uni_word, hot_word_bit;
+  float hot_weight_v, ln10;
+  long long nb;
+  int n_lms, n_tables, stats;
+};
+
+__device__ __forceinline__ float scalar(const float* dev, float v) { return dev ? __ldg(dev) : v; }
+
+// The word a beam commits: its trie node's word id where the node is a
+// vocabulary word, else <unk>.
+__device__ __forceinline__ int64_t committed_word(const CommitKey& k, long long q, int64_t bit_in_vocab,
+                                                  bool& in_model) {
+  in_model = (__ldg(&k.p_flags[q]) & bit_in_vocab) != 0;
+  return in_model ? (int64_t)__ldg(&k.trie_row[q * k.row_w + k.row_w - 1]) : k.unk_id;
+}
+
+// One warp a beam, in a grid-stride loop. Every lane hashes every table's
+// key and loads its vector of each table's bucket row, all loads issued
+// before any row is read; lane t keeps table t's answer, which the member
+// arithmetic takes with a shuffle. The arithmetic runs in every lane (the
+// control flow is the beam's, uniform over the warp); lane 0 writes the
+// beam's scalars and lane c each member's context column c.
+__global__ void __launch_bounds__(THREADS) commit_words_kernel(const CommitArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long q = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); q < a.nb; q += warps) {
+    const bool commit = __ldg(&a.p_len[q]) > 0;
+    // without a commit nothing but the hit counters reads the probes
+    const bool probe = commit || a.stats;
+
+    int4 v[MAX_TABLES];
+    uint32_t lo[MAX_TABLES], hi[MAX_TABLES];
+    bool read[MAX_TABLES];  // the query is valid and its row lies in the window: the row was loaded
+#pragma unroll
+    for (int t = 0; t < MAX_TABLES; ++t) {  // unrolled: constant offsets into the launch struct
+      read[t] = false;
+      if (t >= a.n_tables || !probe) continue;
+      const CommitKey k = a.keys[t];
+      const int n = k.n;
+      bool in_model;
+      const int64_t wid = committed_word(k, q, a.bit_in_vocab, in_model);
+      const int64_t* ctx = k.ctx + q * k.w + (k.w - (n - 1));
+      uint32_t h;
+      key_hashes(a.tabs, t, n, [&](int j) { return j < n - 1 ? __ldg(&ctx[j]) : wid; }, h, lo[t], hi[t]);
+      const uint32_t local = h % a.tabs.size[t] - a.tabs.row0[t];
+      read[t] = __ldg(&k.ctx_len[q]) + 1 >= n && local < a.tabs.rows[t];
+      if (read[t]) v[t] = __ldg(a.tabs.bucket[t] + (long long)local * 32 + lane);
+    }
+    int my_found = 0, my_p = 0, my_b = 0;  // lane t: table t's answer
+#pragma unroll
+    for (int t = 0; t < MAX_TABLES; ++t) {
+      if (!read[t]) continue;  // uniform over the warp
+      int p_bits, b_bits;
+      const bool hit = bucket_match(v[t], lane, lo[t], hi[t], p_bits, b_bits);
+      if (lane == t) {
+        my_found = hit;
+        my_p = p_bits;
+        my_b = b_bits;
+      }
+    }
+
+    // the members' fused word scores, summed in member order, and their new contexts
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < COMMIT_MAX_MEMBERS; ++i) {
+      if (i >= a.n_lms) break;
+      const CommitKey k = a.m[i].key;
+      const int w = k.w, order = a.m[i].order, t0 = a.m[i].t0;
+      const long long cq = q * w;
+      const int64_t klen = __ldg(&k.ctx_len[q]);
+      if (!probe) {  // the state passes through
+        if (lane < w) {
+          a.m[i].o_ctx[cq + lane] = __ldg(&k.ctx[cq + lane]);
+          a.m[i].o_ctx_bo[cq + lane] = __ldg(&k.ctx_bo[cq + lane]);
+        }
+        if (lane == 0) a.m[i].o_ctx_len[q] = klen;
+        continue;
+      }
+      bool in_model;
+      const int64_t wid = committed_word(k, q, a.bit_in_vocab, in_model);
+      const int32_t* row = k.trie_row + q * k.row_w + k.row_w - 4;
+      const float* unk = a.m[i].uni_unk_row;
+      const bool f1 = in_model ? __ldg(&row[2]) != 0 : __ldg(&unk[2]) > 0.5f;
+      const float p1 = f1 ? (in_model ? __int_as_float(__ldg(&row[0])) : __ldg(&unk[0])) : 0.0f;
+      const float b1 = f1 ? (in_model ? __int_as_float(__ldg(&row[1])) : __ldg(&unk[1])) : 0.0f;
+      const bool oov = !in_model || (a.m[i].has_unigrams && (__ldg(&k.p_flags[q]) & a.bit_uni_word) == 0);
+
+      // longest match over the full suffixes, and the out-state's length (capped at order - 1)
+      int matched = 0, out_n = 0;
+      float best = 0.0f;
+      for (int n = 1; n <= order; ++n) {
+        bool f = f1;
+        float p = p1;
+        if (n > 1) {
+          f = __shfl_sync(0xffffffffu, my_found, t0 + n - 2) != 0;
+          p = __int_as_float(__shfl_sync(0xffffffffu, my_p, t0 + n - 2));
+        }
+        if (f) {
+          matched = n;
+          best = p;
+          if (n < order) out_n = n;
+        }
+        if (a.m[i].o_hits != nullptr && lane == 0) a.m[i].o_hits[(n - 1) * a.nb + q] = f;
+      }
+      float score = best;
+      if (matched == 0) {
+        score = a.m[i].unk_prob10;
+        matched = 1;
+      }
+      // backoffs of the unmatched context suffixes, ascending j, one rounding each
+      for (int j = 1; j < order; ++j)
+        if (j >= matched && j <= klen) score = __fadd_rn(score, __ldg(&k.ctx_bo[cq + w - j]));
+      const float raw = __fadd_rn(
+          score, __fmul_rn(scalar(a.m[i].unk_offset, a.m[i].unk_offset_v), oov ? 1.0f : 0.0f));
+      const float fused = __fadd_rn(
+          __fmul_rn(__fmul_rn(scalar(a.m[i].alpha, a.m[i].alpha_v), raw), a.ln10),
+          scalar(a.m[i].beta, a.m[i].beta_v));
+      sum = i == 0 ? fused : __fadd_rn(sum, fused);
+
+      // the out-state: column w - j holds the suffix's j-th newest id and backoff
+      for (int j = 1; j <= w; ++j) {
+        bool f = f1;
+        int b_bits = __float_as_int(b1);
+        if (j > 1) {
+          f = __shfl_sync(0xffffffffu, my_found, t0 + j - 2) != 0;
+          b_bits = __shfl_sync(0xffffffffu, my_b, t0 + j - 2);
+        }
+        if (lane != w - j) continue;
+        const long long at = cq + lane;
+        const int64_t id = j > out_n ? -1 : (j > 1 ? __ldg(&k.ctx[at + 1]) : wid);
+        const float bo = j <= out_n && f ? __int_as_float(b_bits) : 0.0f;
+        a.m[i].o_ctx[at] = commit ? id : __ldg(&k.ctx[at]);
+        a.m[i].o_ctx_bo[at] = commit ? bo : __ldg(&k.ctx_bo[at]);
+      }
+      if (lane == 0) a.m[i].o_ctx_len[q] = commit ? out_n : klen;
+    }
+
+    if (lane == 0) {
+      const int64_t t_lo = __ldg(&a.text_lo[q]), t_hi = __ldg(&a.text_hi[q]);
+      a.o_text_lo[q] = commit ? (int64_t)((uint32_t)t_lo * TXT_A + ((uint32_t)__ldg(&a.p_lo[q]) ^ TXT_SALT)) : t_lo;
+      a.o_text_hi[q] = commit ? (int64_t)((uint32_t)t_hi * TXT_B + ((uint32_t)__ldg(&a.p_hi[q]) ^ TXT_SALT)) : t_hi;
+      // PyTorch's CUDA true division by a host scalar multiplies by its f32 reciprocal
+      float wf = 0.0f;
+      if (commit && a.n_lms > 0) wf = a.n_lms > 1 ? __fmul_rn(sum, __fdiv_rn(1.0f, (float)a.n_lms)) : sum;
+      if (a.h_bits != nullptr) {
+        const bool hot = commit && (__ldg(&a.h_bits[q]) & a.hot_word_bit) != 0;
+        wf = __fadd_rn(wf, __fmul_rn(scalar(a.hot_weight, a.hot_weight_v), hot ? 1.0f : 0.0f));
+      }
+      a.o_word_fused[q] = wf;
     }
   }
 }
@@ -253,5 +499,41 @@ extern "C" int probe_rows_launch(const void* const* buckets, const uint32_t* siz
   probe_rows_kernel<<<dim3((unsigned)blocks, (unsigned)(order - 1)), THREADS, 0,
                       (cudaStream_t)stream>>>(tabs, full, ctx_len, found, prob, backoff, n_query,
                                               order);
+  return (int)cudaGetLastError();
+}
+
+// sizeof(CommitArgs), for the wrapper to check its ctypes mirror against.
+extern "C" int commit_args_size() { return (int)sizeof(CommitArgs); }
+
+// args: the launch struct (CommitArgs) on the host; every plane on the
+// stream's device, contiguous, shaped as CommitArgs says; tables as
+// probe_rows_launch takes them. Refuses more than COMMIT_MAX_MEMBERS members,
+// more than MAX_TABLES tables, a member of order below 2 or whose tables are
+// not the launch's t0 .. t0 + order - 2, and a trie row of fewer than 4 words.
+extern "C" int commit_words_launch(const void* args, void* stream) {
+  const CommitArgs& a = *static_cast<const CommitArgs*>(args);
+  if (a.nb < 1 || a.n_lms < 0 || a.n_lms > COMMIT_MAX_MEMBERS || a.n_tables < 0 ||
+      a.n_tables > MAX_TABLES)
+    return (int)cudaErrorInvalidValue;
+  int next = 0;
+  for (int i = 0; i < a.n_lms; ++i) {
+    const CommitMember& m = a.m[i];
+    if (m.order < 2 || m.key.w != m.order - 1 || m.key.row_w < 4 || m.t0 != next)
+      return (int)cudaErrorInvalidValue;
+    for (int n = 2; n <= m.order; ++n, ++next) {
+      if (next >= a.n_tables || a.keys[next].n != n || a.keys[next].w != m.key.w)
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (next != a.n_tables) return (int)cudaErrorInvalidValue;
+  for (int t = 0; t < a.n_tables; ++t) {
+    if ((uintptr_t)a.tabs.bucket[t] % 16 != 0 || a.tabs.size[t] == 0 || a.tabs.rows[t] == 0 ||
+        (a.tabs.mode[t] != MODE_FNV && a.tabs.mode[t] != MODE_KENLM64))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int warps = THREADS / 32;
+  long long blocks = (a.nb + warps - 1) / warps;
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+  commit_words_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

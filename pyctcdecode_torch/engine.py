@@ -73,7 +73,6 @@ from .models.device_tables import (
     HOT_MINCOMP_MAX,
     HOT_MINCOMP_SHIFT,
     HOT_NODE_MASK,
-    HOT_WORD_BIT,
     DeviceLM,
     LMShard,
     lm_score_words,
@@ -81,6 +80,7 @@ from .models.device_tables import (
 )
 from .ops import kernel_wrappers
 from .ops.backtrace import backtrace_paths
+from .ops.commit import commit_kernel_fits, commit_words, commit_words_ref, hot_gain
 from .ops.hashing import M32, as_lane, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
 from .ops.replay import FLAG_ALIVE, FLAG_BND, FLAG_COMMIT, FLAG_DUP, beam_rows, replay_keys, replay_winners
@@ -289,83 +289,22 @@ def _init_state(cfg: EngineConfig, start: Sequence[Dict], n: int, device: torch.
     return state
 
 
-def _member_word_score(lm: Dict, lm_prm: Dict, trie_row, flags, ctx, ctx_len, ctx_bo,
-                       stats_out: Optional[Dict] = None):
-    """Fused word score + new context for each beam's committed partial.
-
-    ``flags`` are the node's packed entry bits carried on the beam; the word
-    id and its order-1 probe ride the beam's trie row (last four columns).
-    ``stats_out`` receives the probes' per-order hit masks.
-    """
-    in_model = (flags & _BIT_IN_VOCAB) != 0
-    wid = torch.where(in_model, trie_row[..., -1].to(torch.int64), lm["unk_id"])
-    unk = lm["uni_unk_row"]
-    f1 = torch.where(in_model, trie_row[..., -2] != 0, unk[2] > 0.5)
-    t_p = trie_row[..., -4].contiguous().view(torch.float32)
-    t_b = trie_row[..., -3].contiguous().view(torch.float32)
-    p1 = torch.where(f1, torch.where(in_model, t_p, unk[0]), 0.0)
-    b1 = torch.where(f1, torch.where(in_model, t_b, unk[1]), 0.0)
-    in_uni = (flags & _BIT_UNI_WORD) != 0
-    is_oov = ~in_model
-    if lm["has_unigrams"]:
-        is_oov = is_oov | ~in_uni
-    raw10, new_ctx, new_ctx_len, new_bo = lm_score_words(
-        lm, ctx, ctx_len, wid, ctx_bo, uni_probe=(f1, p1, b1), stats_out=stats_out
-    )
-    raw10 = raw10 + lm_prm["unk_offset"] * is_oov.to(torch.float32)
-    fused = lm_prm["alpha"] * raw10 * _LOG10 + lm_prm["beta"]
-    return fused, new_ctx, new_ctx_len, new_bo
-
-
-def _hot_gain(prm: Dict, h_bits: torch.Tensor, commit: torch.Tensor) -> torch.Tensor:
-    """Full-word hotword boost at commit (ref language_model.py:137-139)."""
-    is_hot_word = (h_bits & HOT_WORD_BIT) != 0
-    return prm["hot_weight"] * (is_hot_word & commit).to(torch.float32)
-
-
 def _commit_quantities(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dict,
                        trie_rows: List[torch.Tensor]) -> Dict:
     """Per-beam word-commit effects: text hash, fused word score, new contexts.
 
-    The members' fused scores are summed in member order and then divided
-    by the member count, as the reference does (float32 order matters at
-    1e-4); the hotword boost is added after. With ``cfg.collect_stats``,
+    One :func:`~pyctcdecode_torch.ops.commit.commit_words` launch for every
+    member where the kernel takes the members' tables; row-sharded tables
+    (a collective probe), an order-1 member or more than 8 probe tables in
+    all keep the PyTorch composition,
+    :func:`~pyctcdecode_torch.ops.commit.commit_words_ref`. The members'
+    fused scores are summed in member order and then divided by the member
+    count, as the reference does (float32 order matters at 1e-4); the
+    hotword boost is added after. With ``cfg.collect_stats``,
     ``"probe_hits"`` holds each member's per-order hit masks.
     """
-    commit = state["p_len"] > 0
-    t_lo, t_hi = hash_text_commit_t(
-        state["text_lo"], state["text_hi"], state["p_lo"], state["p_hi"]
-    )
-    out = {
-        "text_lo": torch.where(commit, t_lo, state["text_lo"]),
-        "text_hi": torch.where(commit, t_hi, state["text_hi"]),
-    }
-    fused_sum = None
-    c2 = commit[..., None]
-    if cfg.collect_stats:
-        out["probe_hits"] = []
-    for i, lm in enumerate(lms):
-        member_stats: Optional[Dict] = {} if cfg.collect_stats else None
-        fused, new_ctx, new_ctx_len, new_bo = _member_word_score(
-            lm, prm["lm"][i], trie_rows[i], state[f"p_flags{i}"], state[f"ctx{i}"],
-            state[f"ctx_len{i}"], state[f"ctx_bo{i}"], member_stats,
-        )
-        if cfg.collect_stats:
-            out["probe_hits"].append(member_stats["hits"])
-        fused_sum = fused if fused_sum is None else fused_sum + fused
-        out[f"ctx{i}"] = torch.where(c2, new_ctx, state[f"ctx{i}"])
-        out[f"ctx_len{i}"] = torch.where(commit, new_ctx_len, state[f"ctx_len{i}"])
-        out[f"ctx_bo{i}"] = torch.where(c2, new_bo, state[f"ctx_bo{i}"])
-    if fused_sum is None:
-        word_fused = torch.zeros_like(state["fused"])
-    else:
-        if len(lms) > 1:
-            fused_sum = fused_sum / len(lms)
-        word_fused = torch.where(commit, fused_sum, 0.0)
-    if cfg.use_hotwords:
-        word_fused = word_fused + _hot_gain(prm, state["h_bits"], commit)
-    out["word_fused"] = word_fused
-    return out
+    commit = commit_words if commit_kernel_fits(lms) else commit_words_ref
+    return commit(lms, prm, state, trie_rows, cfg.use_hotwords, cfg.collect_stats)
 
 
 def _decode_trie_cells(tp: Dict[str, int], fc, word, cid):
@@ -782,7 +721,7 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict
             word = torch.where(score_word, word, 0.0)
         fused_scored = fused_scored + word
     if cfg.use_hotwords:
-        fused_scored = fused_scored + _hot_gain(prm, state["h_bits"], commit)
+        fused_scored = fused_scored + hot_gain(prm, state["h_bits"], commit)
 
     if do_commit:
         # merge key: committed text only; the partial, last-token and force

@@ -4,8 +4,10 @@
 def kernel_wrappers():
     """Every kernel wrapper with a ``launches`` counter."""
     from .backtrace import backtrace_paths
+    from .commit import commit_words
     from .gather import gather_rows, probe_rows
     from .merge import expand_merge_prune, merge_prune
     from .replay import replay_winners
 
-    return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths, replay_winners)
+    return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths, replay_winners,
+            commit_words)

@@ -55,11 +55,19 @@ def _plain(results) -> list:
 
 
 def _launches() -> dict:
-    from pyctcdecode_torch.ops import backtrace, gather, merge
+    from pyctcdecode_torch.ops import backtrace, commit, gather, merge
 
     fns = (merge.expand_merge_prune, merge.merge_prune, gather.gather_rows, gather.probe_rows,
-           backtrace.backtrace_paths)
+           backtrace.backtrace_paths, commit.commit_words)
     return {fn.__name__: fn.launches for fn in fns}
+
+
+def _as_composition(launches: dict) -> dict:
+    """Launches with each ``commit_words`` launch counted as the one collective ``probe_rows`` call
+    of the PyTorch composition that commits words over row-sharded tables (one member)."""
+    out = dict(launches)
+    out["probe_rows"] += out.pop("commit_words")
+    return out
 
 
 def _rank(args) -> None:
@@ -110,7 +118,8 @@ def _rank(args) -> None:
         for name, other in (("graphs", got), ("graphs warm", again), ("eager", slow)):
             if other != want:
                 raise SystemExit(f"rank {rank}, {path}: the sharded decode ({name}) differs from the unsharded one")
-        if first["launches"] != warm["launches"] or first["launches"] != plain_rec["launches"]:
+        if (first["launches"] != warm["launches"] or first["launches"]["commit_words"]
+                or first["launches"] != _as_composition(plain_rec["launches"]) | {"commit_words": 0}):
             raise SystemExit(f"rank {rank}, {path}: launches {first['launches']}, warm {warm['launches']}, "
                              f"unsharded {plain_rec['launches']}")
         out["paths"][path] = dict(results=want, first=first, warm=warm, eager=eager_rec, unsharded=plain_rec)

@@ -25,6 +25,7 @@ import pyctcdecode_torch as P
 from pyctcdecode_torch import engine
 from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import backtrace as tb
+from pyctcdecode_torch.ops import commit as tc
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 from pyctcdecode_torch.ops import replay as tr
@@ -45,7 +46,8 @@ from .torch_cases import (
 
 BEAM = 16
 BATCH = [word_logits(21, 45), word_logits(22, 17), word_logits(23, 38)]  # 45 steps: 3 segments of 16
-WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows, tb.backtrace_paths)
+WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows, tb.backtrace_paths,
+            tc.commit_words)
 
 
 def _cuda() -> None:
@@ -96,11 +98,11 @@ def test_dense_graph_decode_equals_eager_at_every_cluster_size(tmp_path, k):
     assert dec._segment_frames_effective() == 16
     kw = dict(beam_width=BEAM, prune_history=True, max_tokens_per_frame=k)
     eager_used, graph_used = _assert_graphs_equal_eager(dec, BATCH, **kw)
-    # per step one merge kernel, one trie fetch and one probe; the graph decode
-    # pads 45 steps to 48; one finalize: one merge, two probes (last word, </s>);
-    # one backtrace of the whole logs
-    assert eager_used == [45, 1, 45, 45 + 2, 1]
-    assert graph_used == [48, 1, 48, 48 + 2, 1]
+    # per step one merge kernel, one trie fetch and one word commit (its probes
+    # in-kernel); the graph decode pads 45 steps to 48; one finalize: one merge,
+    # two probes (last word, </s>); one backtrace of the whole logs
+    assert eager_used == [45, 1, 45, 2, 1, 45]
+    assert graph_used == [48, 1, 48, 2, 1, 48]
 
 
 @pytest.mark.cuda
@@ -126,6 +128,38 @@ def test_a_captured_dense_decode_replays_the_winners_once_a_step(tmp_path):
     _assert_bit_equal(want, again)
     assert eager_used == [45, 45]  # the longest utterance's steps
     assert graph_used == again_used == [48, 48]  # padded to whole segments of 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [1, 2])
+def test_a_captured_dense_segment_commits_once_a_padded_step(tmp_path, members):
+    """One ``commit_words`` launch a launched step for every member, eager and captured, as the
+    tracer's ``launches.commit_words`` counts them; the step probes no table through ``probe_rows``
+    (the finalize's two probes a member scoring </s>, one a member that does not); the same beams to the bit."""
+    _cuda()
+    lm = _lm(tmp_path)
+    if members == 2:
+        lm = P.MultiLanguageModel([lm, _lm(tmp_path, "b", ARPA_2GRAM, alpha=0.3, beta=2.0, score_boundary=False)])
+    dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(SAMPLE_LABELS), lm)
+    eager = dec.with_options(segment_frames=0)
+    kw = dict(beam_width=BEAM, prune_history=True)
+    names = [f"launches.{fn.__name__}" for fn in (tm.expand_merge_prune, tc.commit_words, tg.probe_rows)]
+
+    def run(decoder):
+        with profiling.tracing() as trace:
+            out = decoder.decode_beams_batch(BATCH, **kw)
+            torch.cuda.synchronize()
+        counters = trace.counters()
+        return out, [counters[name] for name in names]
+
+    want, eager_used = run(eager)
+    got, graph_used = run(dec)  # the first segment eager, then its capture, then replays
+    _assert_bit_equal(want, got)
+    again, again_used = run(dec)  # replays only
+    _assert_bit_equal(want, again)
+    probes = 2 if members == 1 else 3
+    assert eager_used == [45, 45, probes]
+    assert graph_used == again_used == [48, 48, probes]  # padded to whole segments of 16
 
 
 @pytest.mark.cuda
@@ -302,7 +336,10 @@ def test_sharded_graph_decode_equals_eager_and_unsharded(tmp_path, nccl_mesh, mo
     """World size 1 over NCCL, ``collect_stats`` on: graphs = the eager sharded column = the unsharded graphs.
 
     The launches are the unsharded graph decode's, the finalize's two probes
-    included; a second call replays every graph and captures none.
+    included, except the word commit: over the row-sharded tables it is the
+    PyTorch composition, one collective probe a step, where the unsharded
+    decoder launches ``commit_words``; a second call replays every graph and
+    captures none.
     """
     from pyctcdecode_torch.parallel import ShardedCTCDecoder
 
@@ -319,8 +356,12 @@ def test_sharded_graph_decode_equals_eager_and_unsharded(tmp_path, nccl_mesh, mo
     _assert_bit_equal(want, got)
     _assert_bit_equal(plain, got)
     assert got_stats == want_stats == plain_stats
-    assert graph_used == plain_used
     steps = graph_used[0]
+    # the unsharded graph decode's launches, but its word commit in the composition over the
+    # collective probe: one probe a step in place of the commit kernel
+    assert graph_used[:3] + graph_used[4:5] == plain_used[:3] + plain_used[4:5]
+    assert graph_used[5] == eager_used[5] == 0 and plain_used[5] == steps
+    assert graph_used[3] == steps + plain_used[3]
     assert steps % 16 == 0 and steps >= eager_used[0]
     assert graph_used[3] - steps == eager_used[3] - eager_used[0] == 2  # the finalize's probes: last word, </s>
     keys = [key for key in dec._graphs if key[3] == id(sharded._tabs)]

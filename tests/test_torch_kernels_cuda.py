@@ -15,6 +15,7 @@ from pyctcdecode_torch import engine
 from pyctcdecode_torch.models import device_tables as tdt
 from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import backtrace as tb
+from pyctcdecode_torch.ops import commit as tc
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 from pyctcdecode_torch.ops import replay as tr
@@ -31,6 +32,7 @@ from .torch_cases import (
     chunk_token_planes,
     conformer_width,
     expand_inputs,
+    kenlm64_fp_tables,
     merge_inputs,
     piece_logits,
     piece_vocabulary,
@@ -424,18 +426,21 @@ def test_gpu_decode_matches_cpu_decode(tmp_path):
             assert abs(g.logit_score - c.logit_score) <= 1e-4
             assert abs(g.lm_score - c.lm_score) <= 1e-4
     # the serving call: chunks, collapse, two length groups; per step one trie fetch and
-    # one probe of both orders; per finalize one probe for the last word and one for </s>
+    # one word commit (both orders probed in-kernel); per finalize one probe for the last
+    # word and one for </s>
     kw = dict(beam_width=16, prune_history=True, token_chunking=3, blank_collapse=True,
               length_bucketing=2)
     expand_before = tm.expand_merge_prune.launches
     merge_before = tm.merge_prune.launches
     gather_before = tg.gather_rows.launches
     probe_before = tg.probe_rows.launches
+    commit_before = tc.commit_words.launches
     got = gpu.decode_beams_batch(batch, **kw)
     steps = tm.expand_merge_prune.launches - expand_before
     assert tm.merge_prune.launches - merge_before == 2  # one finalize per group
     assert tg.gather_rows.launches - gather_before == steps
-    assert tg.probe_rows.launches - probe_before == steps + 2 * 2
+    assert tc.commit_words.launches - commit_before == steps
+    assert tg.probe_rows.launches - probe_before == 2 * 2
     assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)
     assert_same_batch(want, got)  # and the dense decode's results
 
@@ -497,10 +502,11 @@ def test_expand_with_a_hotword_partial_score_and_no_lm():
 def test_gpu_two_member_hotword_decode_matches_cpu(tmp_path):
     """Two members (a 3-gram with ``</s>`` credit, a 2-gram without) and hotwords, CUDA vs CPU.
 
-    Per step: one ``expand_merge_prune``, one ``gather_rows`` and one
-    ``probe_rows`` per member; per finalize one ``merge_prune`` and, per
-    member, one ``probe_rows`` for the last word plus one for ``</s>`` where
-    the member scores it. Hotwords without an LM read no LM table.
+    Per step: one ``expand_merge_prune``, one ``gather_rows`` per member and
+    one ``commit_words`` for both (every probe in-kernel); per finalize one
+    ``merge_prune`` and, per member, one ``probe_rows`` for the last word
+    plus one for ``</s>`` where the member scores it. Hotwords without an LM
+    read no LM table: their commit is the same one launch, with no member.
     """
     _cuda()
     members = []
@@ -512,20 +518,21 @@ def test_gpu_two_member_hotword_decode_matches_cpu(tmp_path):
     lm = P.MultiLanguageModel(members)
     batch = [word_logits(11, 33), word_logits(12, 17), word_logits(13, 40)]
     hot = dict(hotwords=["bugs bunny", "sun"], hotword_weight=8.0)
-    for model, probes_per_step, probes_per_finalize in ((lm, 2, 3), (None, 0, 0)):
+    for model, probes_per_finalize in ((lm, 3), (None, 0)):
         gpu = P.TorchBeamSearchDecoderCTC(alphabet, model)
         cpu = P.TorchBeamSearchDecoderCTC(alphabet, model, device="cpu")
         for kw in (dict(beam_width=16, prune_history=True, **hot),
                    dict(beam_width=16, prune_history=True, token_chunking=3, blank_collapse=True,
                         length_bucketing=2, **hot)):
             before = {fn: fn.launches for fn in (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows,
-                                                 tg.probe_rows)}
+                                                 tg.probe_rows, tc.commit_words)}
             got = gpu.decode_beams_batch(batch, **kw)
             used = {fn: fn.launches - n for fn, n in before.items()}
             steps, finalizes = used[tm.expand_merge_prune], used[tm.merge_prune]
             assert steps >= 40 and finalizes == (2 if "length_bucketing" in kw else 1)
             assert used[tg.gather_rows] == (2 if model is not None else 0) * steps
-            assert used[tg.probe_rows] == probes_per_step * steps + probes_per_finalize * finalizes
+            assert used[tc.commit_words] == steps
+            assert used[tg.probe_rows] == probes_per_finalize * finalizes
             assert_same_batch(cpu.decode_beams_batch(batch, **kw), got)
 
 
@@ -702,3 +709,91 @@ def test_replay_winners_matches_plain_version_on_a_stream(tmp_path, monkeypatch)
     for i in range(3):
         dec.partial_decode_beams(state, mat[10 * i : 10 * (i + 1)], is_end=i == 2)
     assert seen["calls"] == 30 and seen["dead"] > 0
+
+
+def _commit_checked(monkeypatch):
+    """Put a checker in place of the engine's ``commit_words``: each step's kernel against its twin.
+
+    Every call of a decode's step runs the kernel and ``commit_words_ref`` on
+    the same real inputs and asserts every output equal to the bit, the
+    decode counters' hit masks included. The returned dict counts the calls,
+    the beams that commit and those that do not, and the hits at orders >= 2.
+    """
+    seen = {"calls": 0, "commits": 0, "idle": 0, "ngram_hits": 0}
+    kernel = engine.commit_words
+
+    def checked(lms, prm, state, trie_rows, use_hot, stats):
+        before = tc.commit_words.launches
+        got = kernel(lms, prm, state, trie_rows, use_hot, stats)
+        want = tc.commit_words_ref(lms, prm, state, trie_rows, use_hot, stats)
+        torch.cuda.synchronize()
+        assert tc.commit_words.launches == before + 1
+        assert sorted(got) == sorted(want)
+        for key, val in want.items():
+            if key == "probe_hits":
+                for g_member, w_member in zip(got[key], val, strict=True):
+                    for g, w in zip(g_member, w_member, strict=True):
+                        assert g.dtype == w.dtype and torch.equal(g, w), key
+                seen["ngram_hits"] += sum(int(hits.sum()) for member in val for hits in member[1:])
+            else:
+                assert got[key].dtype == val.dtype and torch.equal(got[key], val), key
+        seen["calls"] += 1
+        seen["commits"] += int((state["p_len"] > 0).sum())
+        seen["idle"] += int((state["p_len"] == 0).sum())
+        return got
+
+    monkeypatch.setattr(engine, "commit_words", checked)
+    return seen
+
+
+def _kenlm64_tables(lm, dev):
+    """``lm``'s n-gram tables keyed by KenLM's chain (``kenlm64``), as the device dicts the engine reads."""
+    return [{"bucket": torch.as_tensor(np.ascontiguousarray(t.bucket)).to(torch.int32).to(dev), "size": int(t.size),
+             "seed_lo": int(t.seed_lo), "seed_hi": int(t.seed_hi), "hash_mode": t.hash_mode}
+            for t in kenlm64_fp_tables(lm.ngram_model.tables.ngrams, lm.order)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["char", "char serving", "bpe", "two members, hotwords",
+                                  "two members, hotwords, serving", "three members", "kenlm64"])
+def test_commit_words_matches_plain_version_on_real_steps(tmp_path, monkeypatch, case):
+    """``commit_words`` against ``commit_words_ref`` on every step of real decodes, to the bit.
+
+    Beam 100 and ``collect_stats`` on (the hit masks), three utterances of
+    unequal lengths; dense and serving; the char alphabet with one 3-gram, with
+    two members (a 3-gram and a 2-gram at other parameters) and hotwords, with
+    three members (the members' mean divides by 3), with the 3-gram's tables
+    keyed by KenLM's chain (``kenlm64``), and a 129-piece BPE vocabulary.
+    """
+    _cuda()
+    members = []
+    for name, text, kw in (("a", ARPA, {}), ("b", ARPA_2GRAM, dict(alpha=0.3, beta=2.0, score_boundary=False)),
+                           ("c", ARPA_2GRAM, dict(alpha=0.7, beta=-0.5, unk_score_offset=-4.0))):
+        path = tmp_path / f"{name}.arpa"
+        path.write_text(text)
+        members.append(P.LanguageModel(open_ngram_file(str(path), backend="python"), UNIGRAMS, **kw))
+    kw = dict(beam_width=100, prune_history=True, collect_stats=True)
+    if case == "bpe":
+        alphabet = P.Alphabet.build_alphabet(conformer_width(piece_vocabulary(LM_WORDS)))
+        lm = members[0]
+        batch = [piece_logits(seed, alphabet.labels, 6) for seed in range(3)]
+    else:
+        alphabet = P.Alphabet.build_alphabet(SAMPLE_LABELS)
+        lm = members[0]
+        if "two members" in case:
+            lm = P.MultiLanguageModel(members[:2])
+        elif case == "three members":
+            lm = P.MultiLanguageModel(members)
+        batch = [word_logits(11, 33), word_logits(12, 17), word_logits(13, 40)]
+        if "hotwords" in case:
+            kw.update(hotwords=["bugs bunny", "sun"], hotword_weight=8.0)
+    if "serving" in case:
+        kw.update(token_chunking=3, blank_collapse=True, length_bucketing=2)
+    dec = P.TorchBeamSearchDecoderCTC(alphabet, lm).with_options(segment_frames=0)  # the eager loop: a call a step
+    if case == "kenlm64":
+        tabs = dec._tabs["lms"][0]
+        tabs["fp"] = _kenlm64_tables(members[0], tabs["fp"][0]["bucket"].device)
+        assert all(t["hash_mode"] == "kenlm64" for t in tabs["fp"])
+    seen = _commit_checked(monkeypatch)
+    dec.decode_beams_batch(batch, **kw)
+    assert seen["calls"] >= 17 and seen["commits"] > 0 and seen["idle"] > 0 and seen["ngram_hits"] > 0

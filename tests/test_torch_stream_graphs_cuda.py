@@ -30,6 +30,7 @@ from pyctcdecode_torch import engine
 from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP, DEFAULT_PRUNE_LOGP
 from pyctcdecode_torch.models.ngram import open_ngram_file
 from pyctcdecode_torch.ops import backtrace as tb
+from pyctcdecode_torch.ops import commit as tc
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 
@@ -45,7 +46,8 @@ from .torch_cases import (
     word_logits,
 )
 
-WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows, tb.backtrace_paths)
+WRAPPERS = (tm.expand_merge_prune, tm.merge_prune, tg.gather_rows, tg.probe_rows, tb.backtrace_paths,
+            tc.commit_words)
 CUTS = [0, 1, 8, 8, 33, 45]  # chunks of 1, 7, 0, 25 and 12 frames
 
 
@@ -112,8 +114,9 @@ def test_char_stream_graphs_equal_eager(tmp_path):
     mat = word_logits(9, 45)
     for force_at in (None, 3):
         views, eager_used, graph_used = _assert_graphs_equal_eager(dec, mat, force_at=force_at)
-        # per step one trie fetch and one probe; per finalize two probes (last word, </s>)
-        assert eager_used[2:4] == [45, 45 + 2 * 5] and graph_used[2] == graph_used[0]
+        # per step one trie fetch and one word commit; per finalize two probes (last word, </s>)
+        assert eager_used[2:4] == [45, 2 * 5] and graph_used[2] == graph_used[0]
+        assert eager_used[5] == 45 and graph_used[5] == graph_used[0]
     full = dec.decode_beams(mat, beam_width=16, prune_history=True)
     assert [b.text for b in full] == [v.text for v in views[-1]]
     # stream keys share the cache with batch keys: the full decode above is the stream's N = 1 key

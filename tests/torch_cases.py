@@ -1,6 +1,6 @@
 """Shared cases for the port's tests: merge-kernel inputs, a tiny 3-gram, beam checks.
 
-Imports numpy and torch only, so the card tests (``test_torch_kernels_cuda``)
+Imports numpy, torch and the port only (no JAX), so the card tests (``test_torch_kernels_cuda``)
 can use it on a machine without JAX.
 """
 import numpy as np
@@ -299,3 +299,20 @@ def assert_same_views(want, got, tol=SCORE_TOL):
         assert gb.last_char == wb.last_char
         assert abs(gb.logit_score - wb.logit_score) <= tol
         assert abs(gb.lm_score - wb.lm_score) <= tol
+
+
+def kenlm64_fp_tables(ngrams, order):
+    """Orders 2 .. ``order`` of ``ngrams`` (``NGramTables.ngrams``) as tables keyed by KenLM's 64-bit
+    chain (``kenlm64``), the layout a KenLM binary's tables take."""
+    from pyctcdecode_torch.models.device_tables import build_fp_table_from_hashes
+    from pyctcdecode_torch.ops.hashing import kenlm_chain_host
+
+    tables = []
+    for n in range(2, order + 1):
+        grams = ngrams[n - 1]
+        keys = np.array(list(grams), dtype=np.int64)
+        probs = np.array([v[0] for v in grams.values()], dtype=np.float32)
+        backoffs = np.array([v[1] for v in grams.values()], dtype=np.float32)
+        tables.append(build_fp_table_from_hashes(kenlm_chain_host(keys), probs, backoffs, n))
+    return tables
+
