@@ -1,10 +1,12 @@
-"""Chip smoke test: build the CUDA kernels, check them, drive the port's main paths.
+"""Chip smoke test: build the CUDA kernels, check them and time them alone, check the port's main paths.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--out DIR]
 
-Phases (any failed check exits non-zero and prints no result line):
+It times kernels, one at a time, and nothing larger: the speed of whole
+decodes and streams is the benchmark's (``cardbench/``). Phases (any failed
+check exits non-zero and prints no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: ``nvcc`` compiles every ``pyctcdecode_torch/csrc/*.cu`` for sm_90a,
@@ -18,226 +20,162 @@ Phases (any failed check exits non-zero and prints no result line):
    its step, and K = 1 with the window off for its final merge; the chunk
    step at N = 32 as well; the bpe path's BPE form, lmax 5, at [32, 129, 100]
    and chunk [16, 5, 100]), at B = 1024, and at every cluster size (blocks
-   per utterance) beside the one the kernel picks from K. Tolerances: scores and merged logits within atol
-   1e-5 + rtol 1e-6 (the kernel sums exponentials in another order); ``src``
-   exact at live entries; the pruned (DEAD) sets equal except within that
-   tolerance of the window threshold. Times are per-call device times over
-   30 launches;
-4. gather kernels: ``gather_rows`` against ``table[idx]``, bit-exact, at the
+   per utterance) beside the one the kernel picks from K. Tolerances: scores
+   and merged logits within atol 1e-5 + rtol 1e-6 (the kernel sums
+   exponentials in another order); ``src`` exact at live entries; the pruned
+   (DEAD) sets equal except within that tolerance of the window threshold;
+4. native: the C++ n-gram engine built with ``g++``; ``build_ctcdecoder``
+   over the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M trigrams,
+   written from a seed under ``build/``; ``"auto"`` reads plain ARPA with the
+   engine: the decoder of every later path) against the same decoder over
+   the file read in Python: the device tables equal (unigrams, trie, sizes,
+   seeds exactly; each bucket row's residents, whose slots may be ordered
+   otherwise: counted), the first 4 utterances decode equal (lm_score
+   difference 0);
+5. gather kernels: ``gather_rows`` against ``table[idx]``, bit-exact, at the
    shape of the reference's gather probe (int32 [524288, 64] table, 38 400
    queries, seeded alike), at the bucket rows' width (128 words), at ragged
    query counts, and with its slot select on the parity LM's own trie plane
    with the nodes of a real step of the dense decode ([32, 100]) and of a
-   serving decode's length group ([16, 100]; many repeats); timed beside
-   the plain version and ``torch.index_select`` (the library call, used
-   nowhere in the package). ``probe_rows`` (the hashes, bucket-row reads and
-   fingerprint readout of every n-gram order >= 2 in one launch) against its
-   plain version, bit-exact, on the queries of the same two real steps, warm
-   and with the L2 cache flushed; then, for the ``kenlm`` phase, the same
-   3-gram written as a KenLM PROBING binary (the port's writer) and read by
-   ``build_ctcdecoder``: that decoder's dense step issues the same queries,
-   and ``probe_rows`` in its KenLM hash mode on them (and on seeded queries
-   that hit every order) is held bit-exact and timed the same way;
-5. dense path: the parity-scale 3-gram (200k words, 1.5M bigrams, 1.1M
-   trigrams, written from a seed under ``build/``) behind
-   ``pyctcdecode_torch.build_ctcdecoder``; ``decode_batch`` of 32 synthetic
-   dev-other utterances at beam 100 with every token expanded (K = 29). The
-   launch counters must show one ``expand_merge_prune``, one ``gather_rows``
-   (trie rows) and one ``commit_words`` launch (the word commit, its probes
-   in-kernel) per frame step, and per
-   finalization one ``merge_prune`` launch and two ``probe_rows`` launches
-   (the last word and ``</s>``). The shortest utterance decodes whole
-   again with a ``device="cpu"`` decoder (the plain versions): identical
-   texts, frames and LM states, lm_score within 1e-3;
-6. serving path: the same utterances through ``decode_batch(...,
+   serving decode's length group ([16, 100]); timed beside the plain version
+   and ``torch.index_select`` (the library call, used nowhere in the
+   package). ``probe_rows`` (the hashes, bucket-row reads and fingerprint
+   readout of every n-gram order >= 2 in one launch) against its plain
+   version, bit-exact, on the queries of the same two real steps and on
+   seeded queries that hit every order, warm and with the L2 cache flushed;
+   over 2 and 4 row windows of the same planes (the row-sharded path's),
+   each window against its plain version and summed bit-equal to the whole
+   probe; then the same 3-gram written as a KenLM PROBING binary (the
+   port's writer) and read by ``build_ctcdecoder``: that decoder's dense
+   step issues the same queries, and ``probe_rows`` in its KenLM hash mode
+   on them (and on seeded queries) is held bit-exact and timed the same way;
+6. dense path: ``decode_batch`` of 32 synthetic dev-other utterances at beam
+   100 with every token expanded (K = 29). The launch counters must show one
+   ``expand_merge_prune``, one ``replay_winners``, one ``gather_rows`` (trie
+   rows) and one ``commit_words`` launch (the word commit, its probes
+   in-kernel) per launched step, and per finalization one ``merge_prune``,
+   two ``probe_rows`` (the last word and ``</s>``) and one
+   ``backtrace_paths`` launch; the same decode again gives the same texts;
+7. serving path: the same utterances through ``decode_batch(...,
    token_chunking=True, blank_collapse=True, length_bucketing=16)`` (two
-   length groups) and through ``decode_beams_batches`` over the batch and the
-   batch reversed. Texts equal the dense path's, lm_score within 1e-3 of it,
-   the shortest utterance identical on the CPU, whole, the pipelined generator gives
-   the serving call's results batch by batch, and the launch counters equal the virtual steps
-   that the host prep implies. One more batch is launched and collected in
-   separate timed stages (host prep, enqueue, wait, copy and assembly), and
-   the output copy through the decoder's pinned buffer is timed beside a
-   plain ``.cpu()`` of the same tensors;
-7. segments: every decode of the run goes through the port's segment
+   length groups) and through ``decode_beams_batches`` over the first 8
+   utterances and the same reversed. Texts equal the dense path's, lm_score
+   within 1e-3 of it, the pipelined generator gives the serving call's
+   results batch by batch, and the launch counters equal the steps that the
+   host prep implies;
+8. segments: every decode of the run goes through the port's segment
    programs (``segment_frames``, 16 by default on CUDA): each segment of 16
    steps is one replay of a captured CUDA graph, and the steps pad to whole
-   segments (the launch counts above are of the padded steps; a replay adds
-   to each wrapper's counter the launches its capture recorded). This phase
-   runs the dense and the serving call (then hot2lm's and bpe's dense call,
-   in their phases) with ``segment_frames`` 0 (the eager loop) and 16 in
-   turns, each on a clone with no graph yet: the graphs' results equal the
-   eager loop's (texts, frames, LM states, lm_score difference 0), both
-   launch counts equal ``expected_counts``; logged per value: the first
-   call (with the captures, and each graph's capture time), the latency of
-   two warm calls in stages (enqueue, wait, collect), host ms a step, peak
-   device memory, and a profile of the first 100 frames of every
-   utterance under ``torch.profiler`` (device time by kernel, device ops
-   per step, device busy per step against the measured step, device idle
-   share against the same decode unprofiled; the trace's own kernel rows
-   must count the counters' launches, replays included). The dense call
-   also at 4 and 32 steps a segment (equal to the eager loop).
-   The recording decodes that capture a real step's kernel arguments run
-   the eager loop, whose wrappers are called per step. A decode ends with
-   one replay of its key's captured finalize and one ``backtrace_paths``
-   launch; for dense and serving (then bpe dense) the end of one decode is
-   run both ways on the state and logs its segments left: before (the
-   finalize eagerly, then the plain backtrace, four launches a step) and
-   after (the finalize graph's replay, then the kernel), each part timed,
-   equal to the bit, device ops and busy ms of each from a profile; and the
-   device ops a decode of the first 100 frames issues outside its segment
-   replays;
-8. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram above,
-   and the same seed's 3-gram at half the bigrams and trigrams with other
-   fusion settings) and 28 hotwords (24 transcript words, 2 transcript
+   segments (a replay adds to each wrapper's counter the launches its
+   capture recorded). The dense and the serving call (then hot2lm's and
+   bpe's dense call, in their phases) run with ``segment_frames`` 0 (the
+   eager loop) and 16, each on a clone with no graph yet, then once more
+   warm: the graphs' results equal the eager loop's (texts, frames, LM
+   states, lm_score difference 0), every call's launch counts equal
+   ``expected_counts``; the dense call also at 4 and 32 steps a segment. The
+   end of one decode is run both ways on the state its segments left: the
+   finalize eagerly and the plain backtrace, against the finalize graph's
+   replay and ``backtrace_paths``: equal to the bit. The shortest utterance
+   decodes whole again with a ``device="cpu"`` decoder (the plain versions),
+   dense and serving: identical texts, frames and LM states, lm_score within
+   1e-3;
+9. sharded: ``ShardedCTCDecoder(shard_lm=True)`` over a world-size-1 NCCL
+   group brought up by ``parallel.launch``, member A's bucket planes
+   row-sharded, every probe one collective round trip; through the main
+   decoder's captured graphs (the collectives captured inside them, a warm
+   call capturing nothing) and in an eager column (a wrapped decoder made
+   with ``with_options(segment_frames=0)``); the dense call and the serving
+   options (chunks, blank collapse), both with ``collect_stats``, on both
+   columns: results equal phases 6 and 7's (lm_score difference 0), counters
+   equal the unsharded decoder's, launches as the code implies;
+10. evaluation: ``evaluation.evaluate_corpus`` on the main decoder for the
+   dense configuration: its hypotheses the dense phase's texts and its
+   launches those of its two decodes; ``compare_engines`` of the host oracle
+   over the same LM against the card on the first 4 utterances (top-1
+   agreement, which must be 1; the card's hypotheses the dense phase's);
+   ``utils.normalize_to_logp_torch`` on the card against the CPU (logits and
+   probabilities, within 1e-6);
+11. hot2lm: a ``MultiLanguageModel`` of two members (the parity 3-gram
+   above, and the same seed's 3-gram at half the bigrams and trigrams with
+   other fusion settings) and 28 hotwords (24 transcript words, 2 transcript
    phrases, 2 strings no LM knows) at the default hotword weight, through
    the dense call, the serving call and ``decode_beams_batches``. Per step
    the counters must show one ``gather_rows`` launch per member and one
-   ``commit_words`` for both, per finalization one ``probe_rows`` for the last word per
-   member plus one for ``</s>`` where the member scores it. Member B's
-   ``gather_rows`` and ``probe_rows`` are held bit-exact on its own tables
-   with a real step's nodes and queries, warm and with the L2 flushed; the
-   first utterance, and every utterance whose top text the hotwords
-   change, decode identically on the CPU (``MultiLMState`` last states);
-   WER and the top texts the hotwords change are logged; the dense call is
-   profiled;
-9. bpe: a 128-piece vocabulary of Conformer-CTC's width (V = 129 with the
+   ``commit_words`` for both, per finalization one ``probe_rows`` for the
+   last word per member plus one for ``</s>`` where the member scores it.
+   Member B's ``gather_rows`` and ``probe_rows`` are held bit-exact on its
+   own tables with a real step's nodes and queries, and timed; the first
+   utterance, and the first utterance whose top text the hotwords change,
+   decode identically on the CPU (50 frames; ``MultiLMState`` last states);
+   graphs equal the eager loop;
+12. bpe: a 128-piece vocabulary of Conformer-CTC's width (V = 129 with the
    blank, ``▁⁇▁`` bounded on the right, labels up to ``▁`` + 4 letters, grown
    from the parity LM's words) over the same 32 references, split into
    pieces, with the same noise model at 0.04 s a frame. ``expand_merge_prune``
    in its BPE form on a real dense and serving step against its plain
    version at every cluster size; the dense call (K = 129), the serving call
-   and ``decode_beams_batches`` (the batch and the batch reversed) with member A, and one dense
-   call with hot2lm's two members and hotwords, each with its launch counts;
-   serving and pipelined texts equal the dense texts; the first utterance
-   identical on the CPU (member A, and the two members with the hotwords),
-   dense; WER beside greedy WER; the dense call profiled;
-10. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
-   frames (0.5 s of audio), beam 100, K = 29, each decoder's tables put back
-   on the card for it, every path in two columns: through captured graphs
-   (the default: a chunk's segments of 16 steps, its logits padded to whole
-   segments, and the finalize graph of its ``(commit, is_end)``, replayed)
-   and on a ``with_options(segment_frames=0)`` clone (the eager loop, one
-   step a frame from the host). The graph stream's views and carried state
-   equal the eager stream's to the bit at every chunk (lm_score difference
-   0), for char, hot2lm and bpe. The first ``STREAM_UTTS`` utterances, each on its own state with
-   member A: the last view (``is_end``) equals the full decode of the
-   utterance (texts, spans, lm_score within 1e-3), and the launch counters
-   equal one step per launched step (padded to whole segments under graphs)
-   and one finalize per chunk, and no batch backtrace (a stream backtraces
-   on the host); the same two streams interleaved chunk by chunk on one
-   decoder give each stream's views alone. Each column of each path (char,
-   hot2lm, bpe) logs its chunk ms
-   (median, maximum, by position; a warm-up stream first, whose first chunk
-   holds the captures), the chunk's wall split (segments, finalize, fetch,
-   host backtrace and replay), capture seconds a key, peak device memory,
-   the frame steps and CUDA runtime calls the host makes a chunk (char
-   only), and a profile of utterance 0's first 100 frames. Each kernel against
-   its plain version on the inputs a stream gives it (frame 60's step
-   [1, 29, 100], its trie nodes [1, 100] and n-gram queries [1, 100, 3], and
-   the finalize of its chunk [1, 1, 100], which does not commit: the key
-   carries the partial, last-token and force lanes; recorded on the eager
-   column), timed. Utterance 0 with
-   ``force_next_word`` at its middle chunk: every chunk's top view equals the
-   host oracle's (``BeamSearchDecoderCTC``; words, partial words, spans,
-   scores within 2e-3), and graphs equal eager to the bit. Its first ``STREAM_CPU_CHUNKS`` chunks give identical views on the CPU.
-   hot2lm's two members and 28 hotwords: the stream equals the full decode;
-   with the hotword list written anew from the middle chunk on (the same
-   unigram set, so the reference's score caches and the device agree), the
-   host oracle's top views. The bpe path's utterance 0 (V = 129): the stream
-   equals the full decode. Logged besides: the host oracle's wall time, the
-   hotword set's capture seconds;
-11. kenlm: the decoder over member A's PROBING binary (phase 4) saved with
+   and ``decode_beams_batches`` with member A, and one dense call with
+   hot2lm's two members and hotwords, each with its launch counts; serving
+   and pipelined texts equal the dense texts; the first utterance identical
+   on the CPU (50 frames; member A, and the two members with the hotwords);
+   graphs equal the eager loop, and the captured end of a decode the eager
+   one;
+13. backtrace: ``backtrace_paths`` (``csrc/backtrace.cu``) against its plain
+   version, bit-exact, on the logs and ranked beams that real decodes left
+   (phase 8's ends): dense [32, 544, 100] int8 with all 100 ranks and with
+   the decode's top 1, a serving group's timeline logs (with -3 carry
+   markers), and bpe dense (int16 paths); each timed beside the plain
+   version, with its bound (the log entries the chains read, ``src`` and the
+   paths);
+14. winner replay: ``replay_winners`` (``csrc/replay.cu``) against its plain
+   version, bit-exact, on the arguments one real step gave it (recorded on
+   the eager loop at frame 60): the dense char step [32, 100] and the same
+   at N = 1, both with ``prune_history`` off as the benchmark's cells run,
+   and the bpe dense step [32, 100] (K = 129, lmax 5, int16 tokens); each
+   timed beside the plain version, with its bound;
+15. word commit: ``commit_words`` (``csrc/gather.cu``) against its plain
+   version (the step's PyTorch composition around ``probe_rows``),
+   bit-exact, on the arguments one real step gave it (frame 60): the dense
+   char step [32, 100], the same with ``collect_stats`` and at N = 1, the
+   hot2lm step (two members, the hotwords) and the bpe dense step; each
+   timed beside the plain version, with its bound;
+16. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
+   frames, beam 100, each decoder's tables put back on the card for it,
+   every path in two columns: through captured graphs (the default) and on a
+   ``with_options(segment_frames=0)`` clone (the eager loop). The graph
+   stream's views and carried state equal the eager stream's to the bit at
+   every chunk, for char, hot2lm and bpe. The first 2 utterances, each on
+   its own state with member A: the last view (``is_end``) equals the full
+   decode, the launch counters equal one step per launched step (padded to
+   whole segments under graphs), one finalize per chunk and no batch
+   backtrace; the same two streams interleaved chunk by chunk on one decoder
+   give each stream's views alone. Each kernel against its plain version on
+   the inputs a stream gives it (frame 60's step [1, 29, 100], its trie
+   nodes and n-gram queries, and its chunk's finalize [1, 1, 100]), timed.
+   Utterance 0 with ``force_next_word`` at its middle chunk: every chunk's
+   top view equals the host oracle's (``BeamSearchDecoderCTC``, within
+   2e-3), graphs equal eager; its first 2 chunks give identical views on the
+   CPU. hot2lm's stream equals the full decode, and with the hotword list
+   written anew from the middle chunk on, the host oracle's top views; the
+   bpe stream equals the full decode;
+17. kenlm: the decoder over member A's PROBING binary (phase 5) saved with
    ``save_to_dir`` and loaded back with
-   ``TorchBeamSearchDecoderCTC.load_from_dir`` (timed beside the ARPA
-   decoder's build); its ``probe_rows`` on a real dense step bit-exact; the
-   32 utterances dense and serving: texts, frames and LM states equal the
-   ARPA decoder's (the binary keeps its word ids), ``lm_score`` within
-   1e-4, the launch counts the code implies. Member B as a QUANT_TRIE binary (8 + 8 bits) through a saved
-   directory: 2 utterances on the card equal the host oracle's loaded from
-   the same directory (top texts; scores within 2e-3). The dense decode
-   profiled;
-12. native (runs right after the build, before phase 4): the C++ n-gram
-   engine built with ``g++``; ``build_ctcdecoder`` over member A's ARPA
-   (``"auto"`` reads plain ARPA with it: the decoder of every later path)
-   timed against the same decoder over the file read in Python; the device
-   tables equal (unigrams, trie, sizes, seeds exactly; each bucket row's
-   residents, whose slots may be ordered otherwise: counted); the first 4
-   utterances decode equal on both (lm_score difference 0);
-13. sharded (after the profiles of phase 7): ``ShardedCTCDecoder(shard_lm=True)``
-   over a world-size-1 NCCL group brought up by ``parallel.launch``, member
-   A's bucket planes row-sharded, every probe one collective round trip;
-   by default through the main decoder's captured graphs, the collectives
-   captured inside them, and in an eager column (a wrapped decoder made
-   with ``with_options(segment_frames=0)``); the dense call and the serving
-   options (chunks, blank collapse), both with ``collect_stats``, on both
-   columns: results equal phases 5 and 6's (lm_score difference 0),
-   counters equal the unsharded decoder's, launches as the code implies
-   (graphs: whole segments); latency, audio-s/s and peak device memory of
-   each column, the graphs' first call with each capture's seconds and a
-   warm call that captures nothing; a ``device_profile`` of 100 frames
-   under graphs, unsharded with the counters off and on and sharded
-   (device ops a step, idle share; what the counters and the collective
-   round trip add); the keys the phase adds to the main decoder's graph
-   cache and its evictions; ``probe_rows`` over 2
-   and 4 row windows of member A's planes on a real dense step's queries,
-   each window against its plain version, summed bit-equal to the whole
-   probe, each timed warm and L2-flushed beside the whole table, with its
-   bound;
-14. backtrace (after bpe): ``backtrace_paths`` (``csrc/backtrace.cu``)
-   against its plain version, bit-exact, on the logs and ranked beams that
-   real decodes left (phase 7's tails): dense [32, 544, 100] int8 with all
-   100 ranks and with the decode's top 1 (``emit_paths`` < B), a serving
-   group's timeline logs (with -3 carry markers), and bpe dense (int16
-   paths); each timed beside the plain version, with its bound (the log
-   entries the chains read, ``src`` and the paths);
-15. graph cache (after sharded): the main decoder, its cache never
-   cleared since phase 5, goes on with the dense and the serving call at
-   5, 12, 20 and 32 utterances (8 to 32 rows), the same with a hotword set,
-   and streams of 100 frames with no hotwords and with two hotword sets:
-   the keys it holds after each call, the distinct keys, the evictions at
-   ``GRAPH_KEYS`` and an LRU of 8's on the same requests, the captures'
-   seconds and the memory the cache adds;
-16. evaluation (after the graph cache): ``evaluation.evaluate_corpus`` on
-   the main decoder for the dense configuration (32 utterances, beam 100,
-   member A, after its warm-up batch): WER beside the greedy WER,
-   audio-s/s, its hypotheses the dense phase's texts and its launches
-   those of its two decodes; ``compare_engines`` of the host oracle over
-   the same LM against the card on the first 4 utterances (both WERs,
-   top-1 agreement, which must be 1, ``wer_delta``, speedup; the card's
-   hypotheses the dense phase's); ``utils.normalize_to_logp_torch`` on the
-   card against the CPU (logits and probabilities, within 1e-6);
-17. winner replay (after backtrace): ``replay_winners``
-   (``csrc/replay.cu``) against its plain version, bit-exact, on the
-   arguments one real step gave it (recorded on the eager loop at frame 60):
-   the dense char step [32, 100] and the same at N = 1 (the stream's and a
-   single decode's shape), both with the LM and ``prune_history`` off as
-   the benchmark's cells run, and the bpe dense step [32, 100] (K = 129,
-   lmax 5, int16 tokens); each timed beside the plain version, with its
-   bound (every state and commit plane read once, the winners' ranked,
-   candidate and trie entries, the token tables, every output written once);
-18. word commit (after the winner replay): ``commit_words``
-   (``csrc/gather.cu``) against its plain version (the step's former PyTorch
-   composition around ``probe_rows``), bit-exact, on the arguments one real
-   step gave it (the eager loop at frame 60): the dense char step [32, 100],
-   the same with ``collect_stats`` (the hit masks) and at N = 1, the hot2lm
-   step (two members, the hotwords) and the bpe dense step; each timed beside
-   the plain version, with its bound (the state planes read, the trie rows'
-   last four words, one 512-byte bucket row a beam and table, the outputs).
+   ``TorchBeamSearchDecoderCTC.load_from_dir``; its ``probe_rows`` on a real
+   dense step bit-exact; the 32 utterances dense and serving: texts, frames
+   and LM states equal the ARPA decoder's, ``lm_score`` within 1e-4, the
+   launch counts the code implies. Member B as a QUANT_TRIE binary (8 + 8
+   bits) through a saved directory: 2 utterances on the card equal the host
+   oracle's loaded from the same directory (top texts; scores within 2e-3).
 
-Depth cuts of
-the earlier paths, to keep the script's time as the phases above were
-added (constants below): the CPU cross-checks of phases
-8 and 9 decode the first ``CPU_FRAMES`` frames of their utterances (the
-card's batch texts are checked on the whole utterance; phases 5-6 hold the
-shortest utterance whole against the CPU), and hot2lm
-holds the first utterance the hotwords change against the CPU
-(``HOT_CPU_CHANGED``), not every one; ``decode_beams_batches`` runs the
-first ``PIPE_UTTS`` utterances and the same reversed; the dense calls run
-twice (one latency repeat), the main serving call twice; profiles decode
-the first ``PROFILE_FRAMES`` frames with ``PROFILE_RUNS`` unprofiled runs;
-the segments phase runs ``SEG_REPS`` warm calls of each value;
-the stream phase streams ``STREAM_UTTS`` utterances and holds
+Kernel times are device times: the summed CUPTI durations of a call's
+kernels under ``torch.profiler`` over 30 calls (:func:`time_call`), warm and,
+where a real caller finds the cache cold, with the L2 cache flushed before
+each call; each beside its bound, the larger of the bytes it must move over
+the card's memory rate and its operations over the float32 rate. The CPU
+cross-checks of phases 11 and 12 decode the first ``CPU_FRAMES`` frames of
+their utterances (the card's batch texts are checked on the whole
+utterance); ``decode_beams_batches`` runs the first ``PIPE_UTTS``
+utterances; the stream phase streams ``STREAM_UTTS`` utterances and holds
 ``STREAM_CPU_CHUNKS`` chunks against the CPU.
 
 The last three lines are the kernel record (JSON), the ``nvidia-smi`` name and
@@ -246,7 +184,6 @@ power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import itertools
 import json
 import os
@@ -270,8 +207,6 @@ LM_SCORE_TOL = 1e-3
 RERUN_TOL = 1e-4  # the same decode again on the same card
 SERVING = dict(token_chunking=True, blank_collapse=True, length_bucketing=GROUP_ROWS)
 CHUNK = 5  # token_chunking=True
-OWN_KERNELS = ("merge_prune_kernel", "expand_merge_prune_kernel", "gather_rows_kernel",
-               "probe_rows_kernel", "backtrace_paths_kernel", "replay_winners_kernel", "commit_words_kernel")
 WIDE_BEAM, WIDE_ROWS = 1024, 8  # the widest beam the merge kernels take, on a smaller batch
 CLUSTERS = (1, 2, 4, 8)  # blocks per utterance the merge kernels can be forced to
 PROBE_ROWS, PROBE_WIDTH, PROBE_QUERIES = 524_288, 64, 38_400  # the reference's gather probe
@@ -283,12 +218,9 @@ PEAK_F32 = 67e12
 REPS = 30
 WINDOW_REPS = 10  # calls a row window's timing sums over (six windows, each warm and L2-flushed)
 PROFILE_TRIES = 4
-PROFILE_FRAMES = 100  # profiles decode the first frames of every utterance (the profiler slows the host ~10x)
-PROFILE_RUNS = 2  # unprofiled runs of a profiled call: its latency is their median
 PIPE_UTTS = 8  # utterances of each of the two batches through decode_beams_batches
 SEG = 16  # the decoders' segment_frames on the card (their default): each segment a captured CUDA graph
 SEG_SIZES = (4, 32)  # other segment sizes the segments phase runs the dense path at
-SEG_REPS = 2  # warm calls of each path and segment size in the segments phase
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 FLUSH_KERNEL = "FillFunctor"  # the kernel of Tensor.fill_, which none of the timed calls runs
 # the hot2lm path: member B's fusion settings (the JAX package's mixed-member
@@ -868,259 +800,70 @@ def parity_lm(build_dir: str, name: str = "parity_3gram.arpa", **sizes):
     return path, vocab
 
 
-def is_own(kernel: str, name: str) -> bool:
-    """Whether a trace row ``name`` is the package's kernel ``kernel`` (a function name in ``OWN_KERNELS``)."""
-    return any(f"{lead}{kernel}{tail}" in f" {name}" for lead in ("::", " ") for tail in ("(", "<"))
-
-
-def own_launches(report) -> dict:
-    """Launches of each of the package's kernels in a ``TraceReport``, keyed as the wrappers' counters."""
-    return {kernel[: -len("_kernel")]: sum(op.count for op in report.ops if is_own(kernel, op.name))
-            for kernel in OWN_KERNELS}
-
-
-def device_profile(torch, run, steps: int, latency_s: float, launches: dict) -> dict:
-    """Device time by kernel over one call of ``run``, through ``utils.profiling.profile_call``.
-
-    Device busy is the union of the device rows' intervals (kernels,
-    memsets, copies). The profiler slows the host a lot, so the idle share
-    is taken against the unprofiled latency: 1 - device busy / latency. A
-    trace whose own kernels' rows do not count ``launches`` (the launch
-    counters of the same call) is incomplete and taken again. ``None`` when
-    the profiler returns no complete trace in any of its tries.
-    """
-    from pyctcdecode_torch.utils.profiling import profile_call
-
-    def complete(report) -> bool:
-        seen = own_launches(report)
-        if seen != launches:
-            log(f"[profiler] incomplete trace: own kernels' rows {seen}, launched {launches}")
-        return seen == launches
-
-    try:
-        report = profile_call(run, tries=PROFILE_TRIES, complete=complete)
-    except RuntimeError as err:
-        log(f"[profiler] {err}")
-        return None
-    own = {}  # the package's own kernels on this decode's data, those it launched: (device ms, launches)
-    for kernel in OWN_KERNELS:
-        if not launches.get(kernel[: -len("_kernel")]):
-            continue
-        hit = [op for op in report.ops if is_own(kernel, op.name)]
-        own[kernel] = (sum(op.total_ms for op in hit), sum(op.count for op in hit))
-    busy_s = report.busy_ms / 1e3
-    return {"device_busy_s": busy_s, "idle_share": 1.0 - busy_s / latency_s,
-            "device_ops_per_step": report.launches / steps,
-            "top": [(op.name, op.total_ms, op.count) for op in report.ops[:15]], "own": own}
-
-
-def log_profile(tag: str, prof, latency: float, card: str) -> None:
-    if prof is None:
-        log(f"[{tag}] not measured: the profiler returned no complete trace")
-        return
-    log(f"[{tag}] device busy {prof['device_busy_s']:.3f} s of the {latency:.3f} s batch: "
-        f"idle share {prof['idle_share']:.3f}; {prof['device_ops_per_step']:.1f} device ops per "
-        f"step [{card}]")
-    for kernel, (ms, count) in prof["own"].items():
-        check(count > 0, f"{tag}: {kernel} is not in the profile")
-        log(f"[{tag}]   {kernel}: {ms:.3f} ms over {count} launches, {ms / count:.5f} ms each")
-    for key, ms, count in prof["top"]:
-        log(f"[{tag}]   {ms:9.2f} ms  x{count:6d}  {key[:100]}")
-
-
-def profile_head(torch, tag: str, wrappers: dict, run, logits, card: str) -> dict:
-    """``device_profile`` of ``run`` on the first ``PROFILE_FRAMES`` frames of every utterance.
-
-    The same call unprofiled, ``PROFILE_RUNS`` times, gives the latency (median) the idle
-    share is taken against and the launch counts the trace must show; its
-    steps are its ``expand_merge_prune`` launches.
-    """
-    head = [m[:PROFILE_FRAMES] for m in logits]
-    latencies = []
-    for _ in range(PROFILE_RUNS):
-        reset_counts(wrappers)
-        t0 = time.perf_counter()
-        run(head)
-        latencies.append(time.perf_counter() - t0)
-    launches = read_counts(wrappers)
-    steps = launches["expand_merge_prune"]
-    latency = statistics.median(latencies)
-    prof = device_profile(torch, lambda: run(head), steps, latency, launches)
-    log(f"[{tag}] the first {PROFILE_FRAMES} frames of each utterance: {steps} steps, unprofiled latency median "
-        f"{latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}")
-    log_profile(tag, prof, latency, card)
-    if prof is not None:
-        prof.update(frames=PROFILE_FRAMES, steps=steps, latency_s=latency, launches=launches)
-    return prof
-
-
-def staged_call(torch, decoder, logits, kw: dict):
-    """``decoder.decode_beams_batch(logits, **kw)`` in timed stages.
-
-    Returns ``(results, launch_s, wait_s, collect_s, replay_s)``: the host
-    prep and every enqueue (``_launch_batch``, which waits for the device
-    only where its queue is full: the eager finalize and backtrace after a
-    decode's replays fill it), then the wait for the device, then the copy
-    and the assembly of the output beams; and the host seconds spent in
-    ``SegmentGraph.run`` (each segment's input copies and replay).
-    """
-    from pyctcdecode_torch import engine
-
-    from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP, DEFAULT_PRUNE_LOGP
-
-    dispatch_kw = dict(beam_width=BEAM, beam_prune_logp=DEFAULT_PRUNE_LOGP, token_min_logp=DEFAULT_MIN_TOKEN_LOGP,
-                       prune_history=True, hotwords=None, hotword_weight=DEFAULT_HOTWORD_WEIGHT,
-                       max_tokens_per_frame=None, batch_pad=8, top_n=1, collect_stats=False,
-                       blank_collapse=False, token_chunking=None)
-    kw = dict(kw)
-    bucketing = kw.pop("length_bucketing", False)
-    dispatch_kw.update(kw)
-    run, replay_s = engine.SegmentGraph.run, [0.0]
-
-    def timed_run(graph, *args):
-        t_run = time.perf_counter()
-        out = run(graph, *args)
-        replay_s[0] += time.perf_counter() - t_run
-        return out
-
-    torch.cuda.synchronize()
-    engine.SegmentGraph.run = timed_run
-    try:
-        t0 = time.perf_counter()
-        handles = decoder._launch_batch(logits, dispatch_kw, bucketing)
-        t1 = time.perf_counter()
-    finally:
-        engine.SegmentGraph.run = run
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    results = decoder._collect_bucketed(handles, len(logits))
-    return results, t1 - t0, t2 - t1, time.perf_counter() - t2, replay_s[0]
-
-
-def dense_prep_s(logits) -> float:
-    """Host seconds of the dense call's input prep (normalization into one padded batch)."""
-    from pyctcdecode_torch.utils.logits import normalize_batch
-
-    t0 = time.perf_counter()
-    normalize_batch(logits)
-    return time.perf_counter() - t0
-
-
-def segments_case(torch, tag: str, decoder, members, logits, kw: dict, steps: list, prep_s: float,
-                  audio_s: float, wrappers: dict, card: str, seg_values=(0, SEG), profile: bool = True):
+def segments_case(tag: str, decoder, members, logits, kw: dict, steps: list, wrappers: dict,
+                  seg_values=(0, SEG)) -> dict:
     """One path with ``segment_frames`` 0 (the eager loop) and ``SEG`` (captured graphs), in turns.
 
     Each value runs on its own clone of ``decoder`` (``with_options``: the
     same device tables, no graph yet). The first call captures each graph
     key (the eager first segment, then the capture); its launch counts must
     equal ``expected_counts`` for ``steps`` (the call's decodes' step
-    counts, one a length group; graphs pad each to whole segments). Then
-    ``SEG_REPS`` warm calls in stages (:func:`staged_call`): latency, the
-    host's enqueue time per launched step (the launch stage less the host
-    prep ``prep_s``), the wait for the device; the peak device memory over
-    them; and ``profile_head`` (device busy, idle share, ops a step; the
-    trace's own kernel rows must count the launch counters' launches, so
-    the profiler sees a replay's kernels). The graphs' results must equal
-    the eager loop's: texts, frames, LM states, ``lm_score`` difference 0.
-    Returns the record and each value's results.
+    counts, one a length group; graphs pad each to whole segments). A warm
+    call (replays only) must launch as much and give the first call's
+    results. The graphs' results must equal the eager loop's: texts,
+    frames, LM states, ``lm_score`` difference 0. Returns each value's
+    results.
     """
     from pyctcdecode_torch.utils import profiling
 
-    rec, beams = {}, {}
+    beams = {}
     for seg in seg_values:
         dec = decoder.with_options(segment_frames=seg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         reset_counts(wrappers)
         with profiling.tracing() as tr:
-            t0 = time.perf_counter()
             first = dec.decode_beams_batch(logits, **kw)
-            first_s = time.perf_counter() - t0
         launches = read_counts(wrappers)
         n_steps = sum(launched(n, seg) for n in steps)
         check_counts(f"{tag} segment_frames={seg}", launches, expected_counts(members, n_steps, len(steps)))
-        captures = [s.seconds for s in tr.spans if s.name == "graph.capture" and s.note == "segment"]
+        captures = [s for s in tr.spans if s.name == "graph.capture" and s.note == "segment"]
         check((len(captures) > 0) == (seg > 0) and all(g.graph is not None for g in dec._graphs.values()),
               f"{tag} segment_frames={seg}: the decode did not run through captured graphs")
-        stages = []
-        for _ in range(SEG_REPS):
-            reset_counts(wrappers)
-            res, launch_s, wait_s, collect_s, replay_s = staged_call(torch, dec, logits, kw)
-            check(read_counts(wrappers) == launches, f"{tag} segment_frames={seg}: a warm call launched otherwise")
-            check_same_results(f"{tag} segment_frames={seg} warm vs first", first, res, 0.0)
-            stages.append((launch_s, wait_s, collect_s, replay_s))
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        lat = [sum(st[:3]) for st in stages]
-        latency = statistics.median(lat)
-        launch_s, wait_s, collect_s, replay_s = (statistics.median(st[i] for st in stages) for i in range(4))
-        # the host's own cost a step: the eager loop is host-bound (its enqueue, the prep aside);
-        # with graphs, the segment loop (input copies and a replay a segment)
-        host_s = replay_s if seg else launch_s - prep_s
-        r = {"segment_frames": seg, "first_call_s": first_s, "latencies_s": lat, "latency_s": latency,
-             "audio_s_per_s": audio_s / latency, "steps": n_steps, "ms_per_step": latency / n_steps * 1e3,
-             "launch_s": launch_s, "wait_s": wait_s, "collect_s": collect_s, "replay_host_s": replay_s,
-             "host_prep_s": prep_s, "host_ms_per_step": host_s / n_steps * 1e3, "peak_device_gb": peak_gb,
-             "graphs": len(captures), "capture_s": captures, "launches": launches}
-        log(f"[segments] {tag}, segment_frames={seg}: latency median {latency:.3f} s of "
-            f"{', '.join(f'{x:.3f}' for x in lat)} (first call {first_s:.3f} s), {audio_s / latency:.1f} audio-s/s, "
-            f"{n_steps} steps, {r['ms_per_step']:.3f} ms a step; enqueue {launch_s:.3f} s (host prep {prep_s:.3f} s, "
-            f"segment loop {replay_s:.3f} s), wait {wait_s:.3f} s, collect {collect_s:.3f} s; "
-            f"{r['host_ms_per_step']:.4f} host ms a step; peak device memory {peak_gb:.3f} GB; "
-            f"{len(captures)} graphs captured in {', '.join(f'{c:.3f}' for c in captures) or '-'} s [{card}]")
-        if profile:
-            prof = profile_head(torch, f"profile {tag} segment_frames={seg}", wrappers,
-                                lambda b, d=dec: d.decode_beams_batch(b, **kw), logits, card)
-            r["profile"] = prof
-            if prof is not None:
-                r["device_ms_per_step"] = prof["device_busy_s"] * 1e3 / prof["steps"]
-                r["profiled_ms_per_step"] = prof["latency_s"] * 1e3 / prof["steps"]
-                log(f"[segments] {tag}, segment_frames={seg}: the device is busy {r['device_ms_per_step']:.4f} ms "
-                    f"of a step's {r['profiled_ms_per_step']:.4f} ms over the profiled frames: "
-                    f"{r['profiled_ms_per_step'] - r['device_ms_per_step']:.4f} ms a step off the bound [{card}]")
-        rec[seg], beams[seg] = r, res
+        reset_counts(wrappers)
+        beams[seg] = dec.decode_beams_batch(logits, **kw)
+        check(read_counts(wrappers) == launches, f"{tag} segment_frames={seg}: a warm call launched otherwise")
+        check_same_results(f"{tag} segment_frames={seg} warm vs first", first, beams[seg], 0.0)
         del dec
     for seg in seg_values[1:]:
-        d = check_same_results(f"{tag}: segment_frames={seg} vs the eager loop", beams[seg_values[0]], beams[seg], 0.0)
-        rec[seg]["max_lm_score_diff_vs_eager"] = d
-    if SEG in rec and 0 in rec:
-        log(f"[segments] {tag}: graphs {rec[SEG]['latency_s']:.3f} s against eager {rec[0]['latency_s']:.3f} s, "
-            f"x{rec[0]['latency_s'] / rec[SEG]['latency_s']:.2f}; results equal to the bit [{card}]")
-    return rec, beams
+        check_same_results(f"{tag}: segment_frames={seg} vs the eager loop", beams[seg_values[0]], beams[seg], 0.0)
+    log(f"[segments] {tag}: segment_frames {', '.join(map(str, seg_values))}: launch counts as the code implies, "
+        f"a warm call as the first; the results equal to the bit")
+    return beams
 
 
-TAIL_REPS = 5  # timed runs of each tail (median)
-
-
-def tail_case(torch, tag: str, decoder, logits, kw: dict, card: str) -> dict:
+def tail_case(torch, tag: str, decoder, logits, kw: dict) -> dict:
     """:func:`_tail_case` in inference mode, as the decoder's own calls run (the graphs' buffers are inference tensors)."""
     with torch.inference_mode():
-        return _tail_case(torch, tag, decoder, logits, kw, card)
+        return _tail_case(torch, tag, decoder, logits, kw)
 
 
-def _tail_case(torch, tag: str, decoder, logits, kw: dict, card: str) -> dict:
+def _tail_case(torch, tag: str, decoder, logits, kw: dict) -> dict:
     """The end of one graph decode (its first length group), eager against captured.
 
     The decode runs once through the graphs (``segment_frames=SEG``, the
     captures), recording its launch arguments; its segments are replayed
-    again into logs owned here. Then, on the state the segments left, each
-    ``TAIL_REPS`` times: *before*, the finalize run eagerly (``_ranked_outputs``
-    on the host vector) and the plain backtrace (four launches a step);
-    *after*, the finalize graph's replay with the copies out of its static
-    buffers and one ``backtrace_paths`` launch. Each part is timed on the
-    host clock around work that ends in a synchronize. The two tails give
-    the same outputs to the bit. Their device ops and busy ms come from a
-    profile of each. The ops a decode issues outside its segment replays:
-    a profile of the same decode on the first ``PROFILE_FRAMES`` frames
-    less its replays (one replay profiled alone). Returns the record and the backtrace kernel's
-    arguments: the logs with the full ranking (R = B) and with the
-    decode's own (``top_n``).
+    again into logs owned here. Then, on the state the segments left:
+    *before*, the finalize run eagerly (``_ranked_outputs`` on the host
+    vector) and the plain backtrace (four launches a step); *after*, the
+    finalize graph's replay with the copies out of its static buffers and
+    one ``backtrace_paths`` launch. The two tails must give the same outputs
+    to the bit. Returns the backtrace kernel's arguments: the logs with the
+    full ranking (R = B) and with the decode's own (``top_n``).
     """
     import dataclasses
 
     from pyctcdecode_torch import engine
     from pyctcdecode_torch import torch_decoder as td
     from pyctcdecode_torch.ops.backtrace import backtrace_paths, backtrace_paths_ref
-    from pyctcdecode_torch.utils.profiling import profile_call
 
     dec = decoder.with_options(segment_frames=SEG)
     seen = []
@@ -1153,66 +896,20 @@ def _tail_case(torch, tag: str, decoder, logits, kw: dict, card: str) -> dict:
     fin_graph = dec._finalize_graph(graph, cfg, tables, params)
     check(fin_graph.graph is not None, f"tail {tag}: the decode's finalize graph was not captured")
 
-    def before():
-        out = engine._ranked_outputs(cfg, tables["lms"], hot, engine._params_dict(cfg, params), state)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out["paths"] = backtrace_paths_ref(parents, trace, out["beam_src"].contiguous())
-        torch.cuda.synchronize()
-        return out, t1
-
-    def after():
-        out = {key: val.clone() for key, val in fin_graph.run().items()}
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out["paths"] = backtrace_paths(parents, trace, out["beam_src"])
-        torch.cuda.synchronize()
-        return out, t1
-
-    times = {"before": [], "after": []}
-    results = {}
-    for _ in range(TAIL_REPS):
-        for name, fn in (("before", before), ("after", after)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, t1 = fn()
-            t2 = time.perf_counter()
-            times[name].append((t1 - t0, t2 - t1))
-            results[name] = out
-    for key, val in results["before"].items():
-        check(torch.equal(val, results["after"][key]), f"tail {tag}: {key} differs between the eager and the captured tail")
-    rec = {"rows": n, "steps": t_pad, "r": int(results["after"]["paths"].shape[1])}
-    for name in ("before", "after"):
-        rec[name] = {"finalize_ms": statistics.median(x[0] for x in times[name]) * 1e3,
-                     "backtrace_ms": statistics.median(x[1] for x in times[name]) * 1e3}
-        report = profile_call(lambda fn=(before if name == "before" else after): fn(), tries=PROFILE_TRIES)
-        rec[name].update(device_ops=report.launches, device_busy_ms=report.busy_ms)
-    # the full ranking's source rows (R = B) for the kernel checks, before the replays below move the state
+    before = engine._ranked_outputs(cfg, tables["lms"], hot, engine._params_dict(cfg, params), state)
+    before["paths"] = backtrace_paths_ref(parents, trace, before["beam_src"].contiguous())
+    after = {key: val.clone() for key, val in fin_graph.run().items()}
+    after["paths"] = backtrace_paths(parents, trace, after["beam_src"])
+    torch.cuda.synchronize()
+    for key, val in before.items():
+        check(torch.equal(val, after[key]), f"tail {tag}: {key} differs between the eager and the captured tail")
+    log(f"[tail] {tag} ({n} rows, {t_pad} steps, R {int(after['paths'].shape[1])}): the eager finalize and plain "
+        f"backtrace equal the finalize graph's replay and backtrace_paths to the bit")
+    # the full ranking's source rows (R = B) for the kernel checks
     src_full = engine._ranked_outputs(dataclasses.replace(cfg, emit_paths=None), tables["lms"], hot,
                                       engine._params_dict(cfg, params), state)["beam_src"].contiguous()
-    args = {"full": (parents, trace, src_full), "top": (parents, trace, results["after"]["beam_src"])}
-    # device ops outside the segment replays: a decode of the first frames, less its replays
-    head = [m[:PROFILE_FRAMES] for m in logits]
-    whole = profile_call(lambda: dec.decode_beams_batch(head, **kw), tries=PROFILE_TRIES)
-    one = profile_call(lambda: graph.graph.replay(), tries=PROFILE_TRIES)
-    seen.clear()
-    td.TorchBeamSearchDecoderCTC._run_segmented = recording
-    try:
-        dec.decode_beams_batch(head, **kw)
-    finally:
-        td.TorchBeamSearchDecoderCTC._run_segmented = run_segmented
-    replays = sum((a[3][2] if a[0].token_timeline else a[3]).shape[1] // a[1] for a in seen)
-    rec["outside_replays"] = {"frames": PROFILE_FRAMES, "replays": replays, "ops_per_replay": one.launches,
-                              "decode_ops": whole.launches, "ops": whole.launches - replays * one.launches}
-    log(f"[tail] {tag} ({n} rows, {t_pad} steps, R {rec['r']}): eager finalize {rec['before']['finalize_ms']:.3f} ms + "
-        f"plain backtrace {rec['before']['backtrace_ms']:.3f} ms ({rec['before']['device_ops']} device ops, busy "
-        f"{rec['before']['device_busy_ms']:.3f} ms) against the finalize graph's replay "
-        f"{rec['after']['finalize_ms']:.3f} ms + backtrace_paths {rec['after']['backtrace_ms']:.3f} ms "
-        f"({rec['after']['device_ops']} device ops, busy {rec['after']['device_busy_ms']:.3f} ms); equal to the bit; "
-        f"a decode of the first {PROFILE_FRAMES} frames issues {rec['outside_replays']['ops']} of its {whole.launches} "
-        f"device ops outside its {replays} replays of {one.launches} ops [{card}]")
     del dec
-    return rec, args
+    return {"full": (parents, trace, src_full), "top": (parents, trace, after["beam_src"])}
 
 
 def backtrace_phase(torch, cases: dict, card: str) -> dict:
@@ -1398,24 +1095,19 @@ def chain_entries(torch, parents, src) -> int:
     return int(total)
 
 
-def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict,
-              audio_s: float, card: str) -> dict:
+def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, wrappers: dict) -> dict:
     """``decode_beams_batches`` at depth 1 over the first ``PIPE_UTTS`` utterances and the same reversed.
 
     Checks the launch counts the two batches' serving plans imply, and that
     each batch's results are ``serve_beams``' (the serving call's, in that
-    batch's order). ``audio_s`` is the whole batch's; the two batches' share
-    is taken by frames.
+    batch's order). Returns the launch counts.
     """
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
 
-    audio_s *= sum(m.shape[0] for m in logits[:PIPE_UTTS]) / sum(m.shape[0] for m in logits)
     logits, serve_beams = logits[:PIPE_UTTS], serve_beams[:PIPE_UTTS]
     stream = [logits, logits[::-1]]
     reset_counts(wrappers)
-    t0 = time.perf_counter()
     piped = list(decoder.decode_beams_batches(stream, pipeline_depth=1, prune_history=True, top_n=1, **serve_kw))
-    piped_s = time.perf_counter() - t0
     launches = read_counts(wrappers)
     check(len(piped) == len(stream), f"{tag}: decode_beams_batches gave not one result per batch")
     blank_id = decoder._labels.index("")
@@ -1424,9 +1116,9 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
         members, sum(p["steps"] for p in plans), sum(len(p["groups"]) for p in plans)))
     for i, want in enumerate((serve_beams, serve_beams[::-1])):
         check_same_results(f"{tag} pipelined batch {i}", want, piped[i], RERUN_TOL)
-    log(f"[{tag}] decode_beams_batches, the first {PIPE_UTTS} utterances and the same reversed at pipeline_depth 1: the serving "
-        f"call's results; {piped_s:.3f} s, {2 * audio_s / piped_s:.1f} audio-s/s [{card}]")
-    return {"pipelined_s": piped_s, "pipelined_launches": launches}
+    log(f"[{tag}] decode_beams_batches, the first {PIPE_UTTS} utterances and the same reversed at pipeline_depth 1: "
+        f"the serving call's results")
+    return launches
 
 
 def counters(merge, gather) -> dict:
@@ -1484,11 +1176,10 @@ def serving_plan(decoder, logits, blank_id: int, token_min_logp: float) -> dict:
     longest chunk timeline) and the steps it launches (padded to whole
     segments of the decoder's ``segment_frames``), from the package's host
     functions and the decoder's own grouping rule, to hold the launch
-    counters against; and the seconds this prep takes on the host.
+    counters against.
     """
     from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
 
-    t0 = time.perf_counter()
     mats, _, _ = normalize_collapse_batch(logits, blank_id, token_min_logp)
     lens = [max(m.shape[0], 1) for m in mats]
     groups = decoder._length_groups(mats, target_rows=SERVING["length_bucketing"])
@@ -1496,13 +1187,12 @@ def serving_plan(decoder, logits, blank_id: int, token_min_logp: float) -> dict:
     for idx in groups:
         _, vlens = token_timeline_batch([mats[i] for i in idx], token_min_logp, CHUNK)
         steps.append(max(int(max(vlens)), 1))
-    prep_s = time.perf_counter() - t0
     seg = decoder._segment_frames_effective()
     return {"frames_in": int(sum(m.shape[0] for m in logits)),
             "frames_kept": int(sum(m.shape[0] for m in mats)),
             "longest_kept": max(lens), "groups": [len(g) for g in groups], "group_steps": steps,
             "virtual_steps": int(sum(steps)), "steps": int(sum(launched(n, seg) for n in steps)),
-            "segment_frames": seg, "prep_s": prep_s}
+            "segment_frames": seg}
 
 
 def launched(steps: int, seg: int = SEG) -> int:
@@ -1565,7 +1255,7 @@ def ngram_count(model, n: int) -> int:
     return int(model.native.export_tables()[n - 1]["count"])
 
 
-def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_wer: float):
+def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, dense_wer: float):
     """The ``hot2lm`` path: two parity-scale 3-gram members and hotwords, dense and serving.
 
     Member A is ``lm_a``, the dense path's LM at its settings; member B is the
@@ -1573,13 +1263,13 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     the same 200k-word vocabulary), at ``alpha=0.3, beta=2.0,
     unk_score_offset=-6.0, score_boundary=False``. Checks: the vocabularies
     agree; member B's ``gather_rows`` / ``probe_rows`` on a real step are
-    bit-exact against their plain versions; the launch counters equal the
-    two members' ``expected_counts`` on the dense, serving and pipelined
-    calls; serving texts equal dense texts; the first utterances, and those
-    whose top text the hotwords change, agree with a CPU decode
-    (``MultiLMState`` last states). Logged: WER beside the single-LM path's,
-    the top texts the hotwords change, a dense profile. Returns the record,
-    the two-member decoder and the hotwords.
+    bit-exact against their plain versions (and timed); the launch counters
+    equal the two members' ``expected_counts`` on the dense, serving and
+    pipelined calls; serving texts equal dense texts; the first utterances,
+    and those whose top text the hotwords change, agree with a CPU decode
+    (``MultiLMState`` last states); graphs equal the eager loop. Logged: WER
+    beside the single-LM path's, the top texts the hotwords change. Returns
+    the record, the two-member decoder and the hotwords.
     """
     from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT, DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.csrc.build import BUILD_DIR
@@ -1587,7 +1277,6 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     from pyctcdecode_torch.models.ngram import load_unigram_set_from_arpa, open_ngram_file
     from pyctcdecode_torch.utils.metrics import word_error_rate
 
-    t0 = time.perf_counter()
     arpa_b, vocab_b = parity_lm(str(BUILD_DIR), "parity_3gram_half.arpa",
                                 n_bigrams=LM_BIGRAMS // 2, n_trigrams=LM_TRIGRAMS // 2)
     check(vocab_b == vocab, "member B's vocabulary differs from member A's")
@@ -1605,10 +1294,8 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     hot_kw = dict(hotwords=hot, hotword_weight=DEFAULT_HOTWORD_WEIGHT)
     logits = corpus.logits
     t_max = max(m.shape[0] for m in logits)
-    audio_s = corpus.audio_seconds
-    setup_s = time.perf_counter() - t0
     log(f"[hot2lm] member B {os.path.basename(arpa_b)} (bucket rows per order {sizes[1]} against A's "
-        f"{sizes[0]}), the two-member decoder in {setup_s:.1f} s; {len(hot)} hotwords: {hot}")
+        f"{sizes[0]}); {len(hot)} hotwords: {hot}")
 
     # member B's kernels on a real step's nodes and queries
     head = [m[:61] for m in logits]
@@ -1622,67 +1309,39 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None, **hot_kw)
     beams_kw = dict(prune_history=True, top_n=1)
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     texts = multi.decode_batch(logits, **dense_kw)
-    latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("hot2lm dense", launches, expected_counts(members, launched(t_max), 1))
-    for _ in range(1):  # one repeat: a latency and the rerun check
-        t0 = time.perf_counter()
-        dense_beams = multi.decode_beams_batch(logits, **dense_kw, **beams_kw)
-        latencies.append(time.perf_counter() - t0)
-        check(top_texts(dense_beams) == texts, "hot2lm: repeated dense decode gave other texts")
+    dense_beams = multi.decode_beams_batch(logits, **dense_kw, **beams_kw)
+    check(top_texts(dense_beams) == texts, "hot2lm: repeated dense decode gave other texts")
     check(all(isinstance(b[0].last_lm_state, P.MultiLMState) for b in dense_beams),
           "hot2lm: a last_lm_state is not a MultiLMState")
-    latency = statistics.median(latencies)
     wer = word_error_rate(corpus.references, texts)
     plain_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
     reset_counts(wrappers)
-    t0 = time.perf_counter()
     plain_texts = multi.decode_batch(logits, **plain_kw)
-    plain_latency = time.perf_counter() - t0
-    plain_launches = read_counts(wrappers)
-    check_counts("hot2lm dense, no hotwords", plain_launches, expected_counts(members, launched(t_max), 1))
+    check_counts("hot2lm dense, no hotwords", read_counts(wrappers), expected_counts(members, launched(t_max), 1))
     changed_at = [i for i, (a, b) in enumerate(zip(texts, plain_texts)) if a != b]
-    changed = len(changed_at)
     wer_plain = word_error_rate(corpus.references, plain_texts)
-    log(f"[hot2lm] dense decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, 2 members + hotwords: latency "
-        f"median {latency:.3f} s of {', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} "
-        f"audio-s/s, {t_max} frame steps, {latency / t_max * 1e3:.2f} ms per frame step, peak device memory "
-        f"{peak_gb:.3f} GB; WER {wer:.4f} (single LM {dense_wer:.4f}, the two members without hotwords "
-        f"{wer_plain:.4f}); the hotwords change {changed} of {N_UTTS} top texts (utterances {changed_at}); "
-        f"without hotwords one decode takes {plain_latency:.3f} s [{card}]")
+    log(f"[hot2lm] dense decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, 2 members + hotwords: WER {wer:.4f} "
+        f"(single LM {dense_wer:.4f}, the two members without hotwords {wer_plain:.4f}); the hotwords change "
+        f"{len(changed_at)} of {N_UTTS} top texts (utterances {changed_at})")
 
     blank_id = LIBRI_LABELS.index("")
     plan = serving_plan(multi, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     serve_kw = dict(beam_width=BEAM, **SERVING, **hot_kw)
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     s_texts = multi.decode_batch(logits, **serve_kw)
-    s_latencies = [time.perf_counter() - t0]
     s_launches = read_counts(wrappers)
-    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("hot2lm serving", s_launches, expected_counts(members, plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "hot2lm: the serving decode's texts differ from the dense decode's")
-    t0 = time.perf_counter()  # two latencies here, to leave the bpe path its time
     serve_beams = multi.decode_beams_batch(logits, **serve_kw, **beams_kw)
-    s_latencies.append(time.perf_counter() - t0)
     d_score = check_same_results("hot2lm serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
-    s_latency = statistics.median(s_latencies)
     log(f"[hot2lm] serving decode_batch, chunks of {CHUNK}, collapse, {len(plan['groups'])} groups: texts, "
-        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
-        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, {audio_s / s_latency:.1f} "
-        f"audio-s/s, {plan['virtual_steps']} virtual steps ({plan['steps']} launched in whole segments), {s_latency / plan['steps'] * 1e3:.2f} ms per step, peak "
-        f"device memory {s_peak_gb:.3f} GB [{card}]")
+        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}")
 
-    piped = pipelined("hot2lm", multi, members, logits, serve_kw, serve_beams, wrappers, audio_s, card)
+    piped = pipelined("hot2lm", multi, members, logits, serve_kw, serve_beams, wrappers)
 
-    t0 = time.perf_counter()
     cpu = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members), device="cpu")
     # the first utterances, and the first whose top text the hotwords change
     checked = sorted(set(range(CPU_CHECK)) | set(changed_at[:HOT_CPU_CHANGED]))
@@ -1690,25 +1349,19 @@ def hot2lm_phase(torch, P, gather, merge, lm_a, corpus, vocab, card: str, dense_
     kw = dict(dense_kw, batch_pad=1)
     max_d = check_same_results("hot2lm: GPU vs CPU", cpu.decode_beams_batch(sub, **kw, **beams_kw),
                                multi.decode_beams_batch(sub, **kw, **beams_kw), LM_SCORE_TOL)
-    log(f"[check] hot2lm dense: the first {CPU_FRAMES} frames of utterances {checked} identical on the CPU, texts, text_frames and "
-        f"MultiLMState last states (max lm_score diff {max_d:.3g}), {time.perf_counter() - t0:.1f} s")
+    log(f"[check] hot2lm dense: the first {CPU_FRAMES} frames of utterances {checked} identical on the CPU, texts, "
+        f"text_frames and MultiLMState last states (max lm_score diff {max_d:.3g})")
     del cpu
 
-    seg_rec, _ = segments_case(torch, "hot2lm dense", multi, members, logits, dict(dense_kw, **beams_kw), [t_max],
-                               dense_prep_s(logits), audio_s, wrappers, card)
-    prof = seg_rec[SEG]["profile"]
+    segments_case("hot2lm dense", multi, members, logits, dict(dense_kw, **beams_kw), [t_max], wrappers)
     record = {
         "members": [dict(order=m.order, alpha=m.alpha, beta=m.beta, unk_score_offset=m.unk_score_offset,
                          score_boundary=m.score_boundary) for m in members],
-        "bucket_rows": sizes, "hotwords": hot, "hotword_weight": DEFAULT_HOTWORD_WEIGHT, "setup_s": setup_s,
-        "frame_steps": t_max, "latency_s": latency, "latencies_s": latencies,
-        "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches,
-        "wer": wer, "wer_without_hotwords": wer_plain, "texts_changed_by_hotwords": changed,
-        "serving": dict(plan, latency_s=s_latency, latencies_s=s_latencies, audio_s_per_s=audio_s / s_latency,
-                        peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
-                        **piped),
-        "texts_changed_at": changed_at, "latency_without_hotwords_s": plain_latency,
-        "cpu_checked": checked, "cpu_max_lm_score_diff": max_d, "profile": prof, "segments": seg_rec,
+        "bucket_rows": sizes, "hotwords": hot, "hotword_weight": DEFAULT_HOTWORD_WEIGHT,
+        "frame_steps": t_max, "launches": launches,
+        "wer": wer, "wer_without_hotwords": wer_plain, "texts_changed_at": changed_at,
+        "serving": dict(plan, launches=s_launches, max_lm_score_diff_vs_dense=d_score, pipelined_launches=piped),
+        "cpu_checked": checked, "cpu_max_lm_score_diff": max_d,
         "gather_member_b": b_gather["hot2lm member B dense step: trie rows"],
         "probe_member_b": b_probe["hot2lm member B dense"],
     }
@@ -1825,7 +1478,7 @@ def record_expand_step(torch, decoder, logits, step: int, **decode_kw):
     return calls[step]
 
 
-def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
+def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab):
     """The ``bpe`` path: a 128-piece vocabulary on the dense and serving decode.
 
     The pieces come from :func:`bpe_vocabulary` over the parity LM's words
@@ -1837,13 +1490,13 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     against its plain version; the launch counts of the dense, serving,
     pipelined and two-member calls; serving and pipelined texts equal the
     dense texts; the first ``CPU_CHECK`` utterances decode identically on
-    the CPU, dense, with member A and with the two members and hotwords.
+    the CPU, dense, with member A and with the two members and hotwords;
+    graphs equal the eager loop, the captured end of a decode the eager one.
     Returns the decoder, the logits and the record.
     """
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.utils.metrics import word_error_rate
 
-    t0 = time.perf_counter()
     raw = bpe_vocabulary(vocab)
     alphabet = P.Alphabet.build_alphabet(raw)
     labels = alphabet.labels
@@ -1854,17 +1507,15 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     check(decoder.device.type == "cuda" and labels[0] == "▁⁇▁" and labels[-1] == "", "bpe: bad decoder")
     logits = bpe_corpus(corpus.references, labels)
     steps = max(m.shape[0] for m in logits)
-    audio_s = sum(m.shape[0] for m in logits) * BPE_FRAME_SEC
     index = {lab: i for i, lab in enumerate(labels)}
     pieces = sum(len(split_pieces(w, index)) for ref in corpus.references for w in ref.split())
-    setup_s = time.perf_counter() - t0
     log(f"[bpe] {len(labels)} columns ({sum(lab.startswith('▁') for lab in labels)} ▁-pieces, lmax {lmax}): "
         f"{labels[:8]} ... {labels[-6:]}; {N_UTTS} utterances, {pieces} pieces for "
         f"{sum(len(r.split()) for r in corpus.references)} words, frames {min(m.shape[0] for m in logits)}.."
-        f"{steps}, {audio_s:.2f} audio-s at {BPE_FRAME_SEC} s a frame; decoder and corpus in {setup_s:.1f} s")
+        f"{steps} at {BPE_FRAME_SEC} s a frame")
 
     # expand_merge_prune in its BPE form on a real step of each path (the warm-up
-    # decodes), at every cluster size; its times are the kernel phase's and the profile's
+    # decodes), at every cluster size; its times are the kernel phase's
     blank_id = labels.index("")
     head = [m[:61] for m in logits]
     head_plan = serving_plan(decoder, head, blank_id, DEFAULT_MIN_TOKEN_LOGP)
@@ -1888,70 +1539,44 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
     dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
     beams_kw = dict(prune_history=True, top_n=1)
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     texts = decoder.decode_batch(logits, **dense_kw)
-    latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("bpe dense", launches, expected_counts([lm_a], launched(steps), 1))
-    for _ in range(1):  # one repeat: a latency and the rerun check
-        t0 = time.perf_counter()
-        dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
-        latencies.append(time.perf_counter() - t0)
-        check(top_texts(dense_beams) == texts, "bpe: repeated dense decode gave other texts")
-    latency = statistics.median(latencies)
+    dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
+    check(top_texts(dense_beams) == texts, "bpe: repeated dense decode gave other texts")
     wer = word_error_rate(corpus.references, texts)
     wer_greedy = word_error_rate(corpus.references, greedy_bpe(logits, labels))
     forced = sum("⁇" in t for t in texts)
-    log(f"[bpe] dense decode_batch {N_UTTS} x beam {BEAM}, K {BPE_V}: latency median {latency:.3f} s of "
-        f"{', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} audio-s/s, {steps} frame steps, "
-        f"{latency / steps * 1e3:.2f} ms per frame step, peak device memory {peak_gb:.3f} GB; WER {wer:.4f} "
-        f"(greedy {wer_greedy:.4f}); {forced} top texts hold the unknown piece [{card}]")
+    log(f"[bpe] dense decode_batch {N_UTTS} x beam {BEAM}, K {BPE_V}: WER {wer:.4f} (greedy {wer_greedy:.4f}); "
+        f"{forced} top texts hold the unknown piece")
 
     plan = serving_plan(decoder, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     serve_kw = dict(beam_width=BEAM, **SERVING)
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     s_texts = decoder.decode_batch(logits, **serve_kw)
-    s_latencies = [time.perf_counter() - t0]
     s_launches = read_counts(wrappers)
-    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("bpe serving", s_launches, expected_counts([lm_a], plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "bpe: the serving decode's texts differ from the dense decode's")
-    t0 = time.perf_counter()
     serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
-    s_latencies.append(time.perf_counter() - t0)
     d_score = check_same_results("bpe serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
-    s_latency = statistics.median(s_latencies)
     log(f"[bpe] serving decode_batch, chunks of {CHUNK}, collapse, groups {plan['groups']} with "
         f"{plan['group_steps']} virtual steps ({plan['frames_kept']} of {plan['frames_in']} frames kept): texts, "
-        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
-        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, {audio_s / s_latency:.1f} audio-s/s, "
-        f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
+        f"text_frames and states equal the dense path's, max lm_score diff {d_score:.3g}")
 
-    piped = pipelined("bpe", decoder, [lm_a], logits, serve_kw, serve_beams, wrappers, audio_s, card)
+    piped = pipelined("bpe", decoder, [lm_a], logits, serve_kw, serve_beams, wrappers)
 
     # two members and the hotwords, dense
     multi = P.TorchBeamSearchDecoderCTC(alphabet, P.MultiLanguageModel(members))
     hot_kw = dict(dense_kw, hotwords=hot)
     reset_counts(wrappers)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     h_beams = multi.decode_beams_batch(logits, **hot_kw, **beams_kw)
-    h_latency = time.perf_counter() - t0
     h_launches = read_counts(wrappers)
     check_counts("bpe hot2lm dense", h_launches, expected_counts(members, launched(steps), 1))
     h_wer = word_error_rate(corpus.references, top_texts(h_beams))
-    log(f"[bpe] two members + {len(hot)} hotwords, dense: {h_latency:.3f} s (one decode), "
-        f"{h_latency / steps * 1e3:.2f} ms per frame step, WER {h_wer:.4f} [{card}]")
+    log(f"[bpe] two members + {len(hot)} hotwords, dense: WER {h_wer:.4f}")
 
     # the first utterances on the CPU (dense: the serving texts equal the dense
     # ones on the card), member A alone, then the two members with the hotwords
-    t0 = time.perf_counter()
     sub = [m[:CPU_FRAMES] for m in logits[:CPU_CHECK]]
     cpu_diff = {}
     for tag, kw, gpu_dec, lm, batch_texts in (
@@ -1964,23 +1589,18 @@ def bpe_phase(torch, P, merge, gather, lm_a, members, hot, corpus, vocab, card):
         cpu_beams = P.TorchBeamSearchDecoderCTC(alphabet, lm, device="cpu").decode_beams_batch(sub, **kw, **beams_kw)
         cpu_diff[tag] = check_same_results(f"bpe {tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
         log(f"[check] bpe {tag}: first {CPU_FRAMES} frames of the first {CPU_CHECK} utterances identical on the "
-            f"CPU (max lm_score diff {cpu_diff[tag]:.3g}), {time.perf_counter() - t0:.1f} s so far")
+            f"CPU (max lm_score diff {cpu_diff[tag]:.3g})")
     del multi
 
-    seg_rec, _ = segments_case(torch, "bpe dense", decoder, [lm_a], logits, dict(dense_kw, **beams_kw), [steps],
-                               dense_prep_s(logits), audio_s, wrappers, card)
-    tail_rec, bt_args = tail_case(torch, "bpe dense", decoder, logits, dict(dense_kw, **beams_kw), card)
-    prof = seg_rec[SEG]["profile"]
-    return decoder, logits, {"tail": tail_rec, "backtrace_args": bt_args["full"],
-        "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC, "setup_s": setup_s,
-        "frame_steps": steps, "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
-        "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb, "launches": launches, "wer": wer,
+    segments_case("bpe dense", decoder, [lm_a], logits, dict(dense_kw, **beams_kw), [steps], wrappers)
+    bt_args = tail_case(torch, "bpe dense", decoder, logits, dict(dense_kw, **beams_kw))
+    return decoder, logits, {"backtrace_args": bt_args["full"],
+        "labels": labels, "lmax": lmax, "pieces": pieces, "frame_sec": BPE_FRAME_SEC,
+        "frame_steps": steps, "launches": launches, "wer": wer,
         "wer_greedy": wer_greedy, "texts_with_unknown_piece": forced, "step_kernels": step_rec,
-        "serving": dict(plan, latency_s=s_latency, latencies_s=s_latencies, audio_s_per_s=audio_s / s_latency,
-                        peak_device_gb=s_peak_gb, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
-                        **piped),
-        "hot2lm": {"latency_s": h_latency, "launches": h_launches, "wer": h_wer},
-        "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff, "profile": prof, "segments": seg_rec,
+        "serving": dict(plan, launches=s_launches, max_lm_score_diff_vs_dense=d_score, pipelined_launches=piped),
+        "hot2lm": {"launches": h_launches, "wer": h_wer},
+        "cpu_checked": CPU_CHECK, "cpu_max_lm_score_diff": cpu_diff,
     }
 
 
@@ -2003,40 +1623,32 @@ def chunked(mat) -> list:
     return [mat[i : i + STREAM_CHUNK] for i in range(0, mat.shape[0], STREAM_CHUNK)]
 
 
-def run_stream(decoder, chunks, force_at=None, hot_calls=None, states=None, split=None, **start_kw):
-    """One stream over ``chunks`` (``is_end`` on the last): its views and each call's wall ms.
+def run_stream(decoder, chunks, force_at=None, hot_calls=None, states=None, **start_kw):
+    """One stream over ``chunks`` (``is_end`` on the last): its views.
 
     ``hot_calls``: the hotword list of each call (the state is made with
-    hotwords enabled). ``partial_decode_beams`` waits for the device and
-    copies its outputs back, so a call's wall time is all of its work.
-    ``states`` (a list) gets a copy of the carried state after each call;
-    ``split`` (a :func:`chunk_split` record) gets each call's split.
+    hotwords enabled). ``states`` (a list) gets a copy of the carried state
+    after each call.
     """
     state = decoder.get_starting_state(beam_width=BEAM, hotwords_enabled=hot_calls is not None, **start_kw)
-    views, ms = [], []
+    views = []
     for i, chunk in enumerate(chunks):
         kw = {} if hot_calls is None else dict(hotwords=hot_calls[i])
-        t0 = time.perf_counter()
         views.append(decoder.partial_decode_beams(
             state, chunk, force_next_word=(i == force_at), is_end=(i == len(chunks) - 1), **kw))
-        ms.append((time.perf_counter() - t0) * 1e3)
-        if split is not None:
-            split["chunks"].append(dict(split["acc"], wall=ms[-1] / 1e3))
-            split["acc"].update(dict.fromkeys(split["acc"], 0.0))
         if states is not None:
             states.append({key: val.clone() for key, val in state.beam_state.items()})
-    return views, ms
+    return views
 
 
 def host_stream(host, chunks, force_at=None, hot_calls=None):
-    """The host oracle's stream over ``chunks`` (``is_end`` on the last): its views, and its wall s."""
+    """The host oracle's stream over ``chunks`` (``is_end`` on the last): its views."""
     from pyctcdecode_torch.constants import DEFAULT_HOTWORD_WEIGHT
     from pyctcdecode_torch.decoder import Beam
     from pyctcdecode_torch.models.hotwords import HotwordScorer
 
     beams, lm_cache, p_cache = host.get_starting_state()
     offset, views = 0, []
-    t0 = time.perf_counter()
     for i, chunk in enumerate(chunks):
         scorer = None if hot_calls is None else HotwordScorer.build_scorer(hot_calls[i], DEFAULT_HOTWORD_WEIGHT)
         out = host.partial_decode_beams(chunk, lm_cache, p_cache, beams, offset, beam_width=BEAM,
@@ -2045,7 +1657,7 @@ def host_stream(host, chunks, force_at=None, hot_calls=None):
         beams = [Beam.from_lm_beam(b) for b in out]
         offset += chunk.shape[0]
         views.append(out)
-    return views, time.perf_counter() - t0
+    return views
 
 
 def record_stream_calls(torch, decoder, chunks, step: int) -> dict:
@@ -2134,56 +1746,6 @@ def check_stream_is_full_decode(tag: str, full, view) -> float:
     return worst
 
 
-STREAM_PARTS = ("segments", "finalize", "fetch", "backtrace_replay")
-
-
-@contextlib.contextmanager
-def chunk_split():
-    """Host seconds of each ``partial_decode_beams`` call by part, while the block runs.
-
-    The parts: ``segments`` (the chunk's steps: the eager loop's enqueue, or
-    the segment graphs' loads, input copies and replays), ``finalize`` (the
-    eager finalize, or the finalize graph's replay), ``fetch`` (the wait for
-    the device and the output copy) and ``backtrace_replay`` (the host
-    backtrace over the chunk logs and the token replay into words); the
-    rest of a call's wall time is its host prep and state copies. Yields
-    ``{"acc": running sums, "chunks": []}`` for :func:`run_stream`.
-    """
-    from pyctcdecode_torch import engine
-    from pyctcdecode_torch import torch_decoder as td
-
-    rec = {"acc": dict.fromkeys(STREAM_PARTS, 0.0), "chunks": []}
-
-    def timed(part, fn):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                rec["acc"][part] += time.perf_counter() - t0
-        return call
-
-    make = td.make_stream_fns
-
-    def make_timed(*args, **kwargs):
-        init_fn, chunk_fn, finalize_fn = make(*args, **kwargs)
-        return init_fn, timed("segments", chunk_fn), timed("finalize", finalize_fn)
-
-    patches = [(td, "make_stream_fns", make_timed),
-               (engine.FinalizeGraph, "run", timed("finalize", engine.FinalizeGraph.run)),
-               (td.TorchBeamSearchDecoderCTC, "_fetch", timed("fetch", td.TorchBeamSearchDecoderCTC._fetch)),
-               (td, "_backtrace_chunks", timed("backtrace_replay", td._backtrace_chunks)),
-               (td, "replay_token_path", timed("backtrace_replay", td.replay_token_path))]
-    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
-    for obj, attr, fn in patches:
-        setattr(obj, attr, fn)
-    try:
-        yield rec
-    finally:
-        for obj, attr, fn in saved:
-            setattr(obj, attr, fn)
-
-
 def check_states(tag: str, want, got) -> None:
     """Two streams' carried states after every chunk: every plane equal to the bit."""
     import torch
@@ -2196,226 +1758,29 @@ def check_states(tag: str, want, got) -> None:
                   f"{tag}: chunk {i}: carried state plane {key} differs")
 
 
-def host_step_calls(fn) -> int:
-    """Frame steps ``fn`` runs from the host (calls of ``_make_step``'s step; a graph replay makes none)."""
-    from pyctcdecode_torch import engine
-
-    calls = [0]
-    make = engine._make_step
-
-    def counting(*args, **kwargs):
-        step = make(*args, **kwargs)
-
-        def counted(*a, **k):
-            calls[0] += 1
-            return step(*a, **k)
-        return counted
-
-    engine._make_step = counting
-    try:
-        fn()
-    finally:
-        engine._make_step = make
-    return calls[0]
-
-
-def host_launch_calls(torch, fn) -> dict:
-    """CUDA runtime calls ``fn`` makes from the host (kernel and graph launches, copies), by name.
-
-    Read from a ``torch.profiler`` trace with CPU activity: the rows of the
-    runtime API (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cudaMemcpyAsync``,
-    ...). Empty when the profiler records no runtime rows.
-    """
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {ev.key: int(ev.count) for ev in prof.key_averages()
-            if ev.key.startswith("cu") and any(w in ev.key for w in ("Launch", "Memcpy", "Memset"))}
-
-
-def stream_column(torch, tag: str, dec, members, utts, wrappers: dict, card: str, hotwords=None,
-                  host_calls: bool = True) -> dict:
+def stream_column(tag: str, dec, members, utts, wrappers: dict, hotwords=None) -> dict:
     """The streams of one column: ``dec`` replays graphs (``segment_frames`` 16) or runs eagerly (0).
 
     ``hotwords``: the hotword list every chunk passes (the states made with
-    hotwords enabled), or None. ``host_calls``: count the frame steps and
-    CUDA runtime calls the host makes a chunk (a profile with CPU activity:
-    tens of seconds for an eager column). A warm-up stream of utterance 0 first (for graphs: every capture of the
-    key; its first chunk's wall ms is logged apart), then the streams of
-    ``utts``, each with its launch counts (``expected_counts`` of the
-    launched steps: the chunks padded to whole segments under graphs, one
-    finalize per chunk, no batch backtrace), the wall ms of every call, its
-    split (:func:`chunk_split`), the carried state after every chunk, the
-    peak device memory, each key's capture seconds, the frame steps run
-    from the host, and a profile of utterance 0's first ``PROFILE_FRAMES``
-    frames (device busy, idle share, device ops a frame).
+    hotwords enabled), or None. The streams of ``utts``, each with its launch
+    counts (``expected_counts`` of the launched steps: the chunks padded to
+    whole segments under graphs, one finalize per chunk, no batch
+    backtrace), its views and the carried state after every chunk.
     """
-    from pyctcdecode_torch.utils import profiling
-
     seg = dec._segment_frames_effective()
-    rec = {"segment_frames": seg}
-
-    def run(chunks, **kw):
-        return run_stream(dec, chunks, hot_calls=None if hotwords is None else [hotwords] * len(chunks), **kw)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with profiling.tracing() as tr:
-        t0 = time.perf_counter()
-        _, warm_ms = run(chunked(utts[0]))
-    rec.update(warmup_stream_s=time.perf_counter() - t0, first_chunk_ms=warm_ms[0], warmup_chunk_ms=warm_ms)
-    rec["captures"] = {f"{kind}_s": [s.seconds for s in tr.spans if s.name == "graph.capture" and s.note == kind]
-                       for kind in ("segment", "finalize")}
-    chunk_ms, views, states, launches, splits = [], [], [], None, []
-    frames = 0
-    with chunk_split() as split:
-        for u, mat in enumerate(utts):
-            chunks = chunked(mat)
-            reset_counts(wrappers)
-            st: list = []
-            v, ms = run(chunks, states=st, split=split)
-            got = read_counts(wrappers)
-            steps = sum(launched(c.shape[0], seg) for c in chunks)
-            check_counts(f"stream {tag} utterance {u}", got, expected_counts(members, steps, len(chunks), stream=True))
-            launches = got if launches is None else {k: launches[k] + got[k] for k in got}
-            chunk_ms.append(ms)
-            views.append(v)
-            states.append(st)
-            frames += mat.shape[0]
-        splits = split["chunks"]
-    rec["peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    flat = [x for ms in chunk_ms for x in ms]
-    by_pos = [statistics.median(ms[i] for ms in chunk_ms if i < len(ms)) for i in range(max(map(len, chunk_ms)))]
-    parts = {part: statistics.median(sp[part] for sp in splits) * 1e3 for part in STREAM_PARTS + ("wall",)}
-    parts["other"] = parts["wall"] - sum(parts[p] for p in STREAM_PARTS)
-    streams_s = sum(flat) / 1e3
-    head = chunked(utts[0])[: PROFILE_FRAMES // STREAM_CHUNK]
-    if host_calls:
-        rec["host_steps_per_chunk"] = host_step_calls(lambda: run(head)) / len(head)
-        rec["host_runtime_calls_per_chunk"] = {k: n / len(head) for k, n in
-                                               host_launch_calls(torch, lambda: run(head)).items()}
-        check(seg == 0 or rec["host_steps_per_chunk"] == 0, f"stream {tag}: the host ran frame steps under graphs")
-    rec.update(frames=frames, launches=launches, chunk_ms=chunk_ms, chunk_ms_median=statistics.median(flat),
-               chunk_ms_max=max(flat), chunk_ms_by_position=by_pos, streams_s=streams_s,
-               ms_per_frame=streams_s / frames * 1e3, split_ms_median=parts, views=views, states=states)
-    log(f"[stream {tag}] segment_frames={seg}: {len(utts)} utterances ({frames} frames) in chunks of {STREAM_CHUNK}, "
-        f"beam {BEAM}: partial_decode_beams wall ms per chunk median {rec['chunk_ms_median']:.2f}, max "
-        f"{rec['chunk_ms_max']:.2f}; by chunk position {[round(x, 1) for x in by_pos]}; first chunk of the "
-        f"warm-up stream (its captures) {warm_ms[0]:.1f} ms; wall ms split (medians) "
-        f"{ {k: round(v, 3) for k, v in parts.items()} }; ms per frame {streams_s / frames * 1e3:.2f}; peak device "
-        f"memory {rec['peak_device_gb']:.3f} GB; captures {rec['captures']}; frame steps from the host per chunk "
-        f"{rec.get('host_steps_per_chunk', 'not counted')}; CUDA runtime calls per chunk "
-        f"{rec.get('host_runtime_calls_per_chunk', 'not counted')} [{card}]")
-    latencies = []
-    for _ in range(PROFILE_RUNS):
+    views, states, launches = [], [], None
+    for u, mat in enumerate(utts):
+        chunks = chunked(mat)
         reset_counts(wrappers)
-        t0 = time.perf_counter()
-        run(head)
-        latencies.append(time.perf_counter() - t0)
-    p_launches = read_counts(wrappers)
-    steps = p_launches["expand_merge_prune"]
-    latency = statistics.median(latencies)
-    prof = device_profile(torch, lambda: run(head), steps, latency, p_launches)
-    log(f"[profile stream {tag}] the first {len(head) * STREAM_CHUNK} frames of utterance 0 in {len(head)} chunks "
-        f"({steps} launched steps): unprofiled latency median {latency:.3f} s of "
-        f"{', '.join(f'{x:.3f}' for x in latencies)}")
-    log_profile(f"profile stream {tag}", prof, latency, card)
-    if prof is not None:
-        frames_p = len(head) * STREAM_CHUNK
-        prof.update(steps=steps, frames=frames_p, latency_s=latency, launches=p_launches,
-                    device_ops_per_frame=prof["device_ops_per_step"] * steps / frames_p)
-    rec["profile"] = prof
-    return rec
-
-
-MIX_SIZES = (5, 12, 20, N_UTTS)  # batch sizes of the cache phase: 8, 16, 24 and 32 rows at batch_pad 8
-MIX_HOT = (("remember", "achieve", "doubt", "mind"), ("good", "deal", "shall", "upon"))  # two hotword sets
-
-
-def lru_evictions(held: list, requests: list, limit: int) -> int:
-    """Keys an LRU cache of ``limit`` keys, holding ``held`` (oldest first), drops over ``requests``."""
-    cache, dropped = list(held)[-limit:], 0
-    for key in requests:
-        if key in cache:
-            cache.remove(key)
-        elif len(cache) >= limit:
-            cache.pop(0)
-            dropped += 1
-        cache.append(key)
-    return dropped
-
-
-def graph_cache_phase(torch, decoder, logits, card: str) -> dict:
-    """The keys one decoder that serves batches and streams asks its graph cache for, and what it evicts.
-
-    ``decoder`` has served the earlier phases (dense at 32 rows, serving
-    groups of 16 and 8 rows, one-utterance batches) with its cache never
-    cleared. It goes on here without clearing: the dense and the serving
-    call at each of ``MIX_SIZES`` utterances (every row count of the
-    ``batch_pad`` grid up to 32), the same with the hotword set
-    ``MIX_HOT[0]``, then streams of the first ``PROFILE_FRAMES`` frames with
-    no hotwords and with each of the two sets (two unigram sets: two
-    keys). Logged: the keys held after each call, the distinct keys of the
-    run, the evictions at ``GRAPH_KEYS`` and what an LRU of 8 keys would
-    have dropped on the same requests, the captures' seconds, and the
-    device memory the cache holds.
-    """
-    from pyctcdecode_torch import torch_decoder as td
-    from pyctcdecode_torch.utils import profiling
-
-    requests: list = []
-    original = td.TorchBeamSearchDecoderCTC._segment_graph
-
-    def asked(self, *args, **kwargs):
-        graph = original(self, *args, **kwargs)
-        if self is decoder:
-            requests.append(next(reversed(self._graphs)))
-        return graph
-
-    held0 = list(decoder._graphs)
-    torch.cuda.synchronize()
-    mem0, reserved0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    calls, seen = [], set(held0)
-    dense_kw, serve_kw = dict(beam_width=BEAM, max_tokens_per_frame=None), dict(beam_width=BEAM, **SERVING)
-    head = [m[:PROFILE_FRAMES] for m in logits]
-    td.TorchBeamSearchDecoderCTC._segment_graph = asked
-    t0 = time.perf_counter()
-    try:
-        with profiling.tracing() as tr:
-            for hot in (None, list(MIX_HOT[0])):
-                for n in MIX_SIZES:
-                    for tag, kw in (("dense", dense_kw), ("serving", serve_kw)):
-                        decoder.decode_batch(head[:n], hotwords=hot, **kw)
-                        calls.append((f"{tag} {n}{' hot' if hot else ''}", len(decoder._graphs)))
-                        seen.update(decoder._graphs)
-            chunks = chunked(head[0])
-            for hot in (None,) + MIX_HOT:
-                run_stream(decoder, chunks, hot_calls=None if hot is None else [list(hot)] * len(chunks))
-                calls.append((f"stream{' ' + hot[0] if hot else ''}", len(decoder._graphs)))
-                seen.update(decoder._graphs)
-    finally:
-        td.TorchBeamSearchDecoderCTC._segment_graph = original
-    torch.cuda.synchronize()
-    rec = dict(keys_held_before=len(held0), requests=len(requests), distinct_keys=len(seen),
-               keys_held_after_each=calls, peak_keys_held=max(n for _, n in calls), limit=td.GRAPH_KEYS,
-               evictions=tr.counters().get("graph.evictions", 0),
-               lru8_evictions=lru_evictions(held0, requests, 8),
-               capture_s=sum(s.seconds for s in tr.spans if s.name == "graph.capture"),
-               graphs_held=sum(1 + len(g.finals) for g in decoder._graphs.values()),
-               memory_added_gb=(torch.cuda.memory_allocated() - mem0) / 1e9,
-               reserved_added_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9,
-               seconds=time.perf_counter() - t0)
-    log(f"[graph cache] one decoder's batches and streams, never cleared: {rec['keys_held_before']} keys held from "
-        f"the earlier phases, then {len(calls)} calls ({len(requests)} key requests): keys held after each "
-        f"{[n for _, n in calls]}, {rec['distinct_keys']} distinct keys, peak held {rec['peak_keys_held']} of the "
-        f"limit GRAPH_KEYS = {rec['limit']}, evictions {rec['evictions']} (an LRU of 8 would drop "
-        f"{rec['lru8_evictions']}); {rec['graphs_held']} graphs held (segments and finalizes), the phase's "
-        f"captures {rec['capture_s']:.3f} s; device memory added {rec['memory_added_gb']:.3f} GB allocated, "
-        f"{rec['reserved_added_gb']:.3f} GB reserved; {rec['seconds']:.1f} s [{card}]")
-    return rec
+        st: list = []
+        views.append(run_stream(dec, chunks, hot_calls=None if hotwords is None else [hotwords] * len(chunks),
+                                states=st))
+        got = read_counts(wrappers)
+        steps = sum(launched(c.shape[0], seg) for c in chunks)
+        check_counts(f"stream {tag} utterance {u}", got, expected_counts(members, steps, len(chunks), stream=True))
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        states.append(st)
+    return {"segment_frames": seg, "launches": launches, "views": views, "states": states}
 
 
 def interleaved(dec, mats) -> list:
@@ -2430,7 +1795,7 @@ def interleaved(dec, mats) -> list:
     return views
 
 
-def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logits, card: str) -> dict:
+def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logits) -> dict:
     """The ``stream`` path: ``get_starting_state`` / ``partial_decode_beams`` in 25-frame chunks.
 
     ``decoders``: the char decoder with member A (``"char"``), the hot2lm
@@ -2443,7 +1808,8 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     each of the first ``STREAM_UTTS`` utterances' streams equals its full
     decode, with the launch counts of its (padded) steps and one finalize
     per chunk; two streams interleaved chunk by chunk on one decoder give
-    each stream's views alone; the first utterance's stream with
+    each stream's views alone; the kernels on a stream's inputs against
+    their plain versions (timed); the first utterance's stream with
     ``force_next_word`` at the middle chunk equals the host oracle's top
     view at every chunk (within 2e-3), and the eager stream's to the bit;
     the first ``STREAM_CPU_CHUNKS`` chunks of it on a ``device="cpu"``
@@ -2451,8 +1817,7 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     equals the full decode, and with the hotword list written anew from the
     middle chunk on (the same unigram set: the carried partial words walk
     the new trie) the host oracle's views; the bpe stream equals the full
-    decode. Logged per column: chunk ms (:func:`stream_column`), the
-    profile, the host oracle's wall time.
+    decode.
     """
     wrappers = counters(merge, gather)
     char = decoders["char"]
@@ -2462,9 +1827,8 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     utts = corpus.logits[:STREAM_UTTS]
     rec: dict = {"chunk_frames": STREAM_CHUNK, "utterances": STREAM_UTTS}
 
-    cols = {"graphs": stream_column(torch, "graphs", char, [lm_a], utts, wrappers, card),
-            "eager": stream_column(torch, "eager", eager, [lm_a], utts, wrappers, card)}
-    g, e = cols["graphs"], cols["eager"]
+    g = stream_column("graphs", char, [lm_a], utts, wrappers)
+    e = stream_column("eager", eager, [lm_a], utts, wrappers)
     worst = 0.0
     for u, mat in enumerate(utts):
         check_views(f"stream utterance {u}: graphs vs eager", e["views"][u], g["views"][u], 0.0)
@@ -2477,16 +1841,9 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
         check_views(f"stream utterance {u}: interleaved vs alone", g["views"][u], inter[u], 0.0)
     log(f"[stream] graphs vs eager: every view and carried state plane equal to the bit at every chunk "
         f"(lm_score difference 0); every stream equals its full decode (max lm_score diff {worst:.3g}); "
-        f"{len(utts)} streams interleaved chunk by chunk on one decoder give each stream's views alone; chunk ms "
-        f"median graphs {g['chunk_ms_median']:.2f} against eager {e['chunk_ms_median']:.2f} (x"
-        f"{e['chunk_ms_median'] / g['chunk_ms_median']:.2f}), max {g['chunk_ms_max']:.2f} against "
-        f"{e['chunk_ms_max']:.2f} [{card}]")
-    for col in cols.values():
-        col.pop("views"), col.pop("states")
-    g_prof = g["profile"] or {}
-    rec.update(columns=cols, launches=g["launches"], chunk_ms_median=g["chunk_ms_median"],
-               chunk_ms_max=g["chunk_ms_max"], max_lm_score_diff_vs_full=worst, profile=g["profile"],
-               device_busy_s=g_prof.get("device_busy_s"))
+        f"{len(utts)} streams interleaved chunk by chunk on one decoder give each stream's views alone")
+    rec.update(launches=g["launches"], launches_eager=e["launches"], max_lm_score_diff_vs_full=worst)
+    del g, e, inter
 
     # each kernel on the inputs the stream gives it (recorded on the eager loop, whose
     # wrappers are called per step): frame 60's step, and the finalize of its chunk
@@ -2509,27 +1866,24 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     # the host oracle, with a forced commit at the middle chunk; the eager stream beside it
     mid = len(chunks) // 2
     host = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_a)
-    h_views, host_s = host_stream(host, chunks, force_at=mid)
+    h_views = host_stream(host, chunks, force_at=mid)
     st_g, st_e = [], []
-    d_views, _ = run_stream(char, chunks, force_at=mid, states=st_g)
-    e_views, _ = run_stream(eager, chunks, force_at=mid, states=st_e)
+    d_views = run_stream(char, chunks, force_at=mid, states=st_g)
+    e_views = run_stream(eager, chunks, force_at=mid, states=st_e)
     check_views("stream forced: graphs vs eager", e_views, d_views, 0.0)
     check_states("stream forced: graphs vs eager", st_e, st_g)
     d_host = check_views("stream vs host oracle", h_views, d_views, HOST_TOL, top_only=True)
     log(f"[stream] utterance 0 with force_next_word at chunk {mid} of {len(chunks)}: graphs equal eager to the bit; "
-        f"every chunk's top view equals the host oracle's (max score diff {d_host:.3g}); the host oracle (one core) "
-        f"took {host_s:.3f} s for {utts[0].shape[0]} frames, {host_s / utts[0].shape[0] * 1e3:.2f} ms a frame")
-    rec.update(host_oracle_s=host_s, host_oracle_frames=int(utts[0].shape[0]), max_score_diff_vs_host=d_host,
-               forced_chunk=mid)
+        f"every chunk's top view equals the host oracle's (max score diff {d_host:.3g})")
+    rec.update(max_score_diff_vs_host=d_host, forced_chunk=mid)
     del st_g, st_e
 
     # the first chunks of utterance 0 on the CPU (the plain versions)
-    t0 = time.perf_counter()
     head = chunks[:STREAM_CPU_CHUNKS]
     cpu = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_a, device="cpu")
-    d_cpu = check_views("stream GPU vs CPU", run_stream(cpu, head)[0], run_stream(char, head)[0], LM_SCORE_TOL)
+    d_cpu = check_views("stream GPU vs CPU", run_stream(cpu, head), run_stream(char, head), LM_SCORE_TOL)
     log(f"[check] stream: the first {len(head)} chunks of utterance 0 give identical views on the CPU (max score "
-        f"diff {d_cpu:.3g}), {time.perf_counter() - t0:.1f} s")
+        f"diff {d_cpu:.3g})")
     rec["cpu_chunks"], rec["cpu_max_score_diff"] = len(head), d_cpu
     del cpu, eager
     park(char)
@@ -2543,10 +1897,9 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     hot_calls = [hot] * mid + [rewritten] * (len(chunks) - mid)
     h_rec = {}
     for tag, dec in (("graphs", multi), ("eager", m_eager)):
-        col = stream_column(torch, f"hot2lm {tag}", dec, members, utts[:1], wrappers, card, hotwords=hot,
-                            host_calls=False)
+        col = stream_column(f"hot2lm {tag}", dec, members, utts[:1], wrappers, hotwords=hot)
         st: list = []
-        col["r_views"], col["rewritten_chunk_ms"] = run_stream(dec, chunks, hot_calls=hot_calls, states=st)
+        col["r_views"] = run_stream(dec, chunks, hot_calls=hot_calls, states=st)
         col["r_states"] = st
         h_rec[tag] = col
     check_views("stream hot2lm: graphs vs eager", h_rec["eager"]["views"][0], h_rec["graphs"]["views"][0], 0.0)
@@ -2555,23 +1908,16 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     check_states("stream hot2lm rewritten: graphs vs eager", h_rec["eager"]["r_states"], h_rec["graphs"]["r_states"])
     d_full = check_stream_is_full_decode("stream hot2lm", multi.decode_beams(utts[0], beam_width=BEAM, hotwords=hot),
                                          h_rec["graphs"]["views"][0][-1])
-    h_views, h_host_s = host_stream(P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS),
-                                                           P.MultiLanguageModel(members)), chunks, hot_calls=hot_calls)
+    h_views = host_stream(P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS),
+                                                 P.MultiLanguageModel(members)), chunks, hot_calls=hot_calls)
     d_hhost = check_views("stream hot2lm vs host oracle", h_views, h_rec["graphs"]["r_views"], HOST_TOL, top_only=True)
-    for col in h_rec.values():
-        for key in ("views", "r_views", "states", "r_states"):
-            col.pop(key)
-    hg, he = h_rec["graphs"], h_rec["eager"]
     log(f"[stream] hot2lm, utterance 0, {len(hot)} hotwords: graphs equal eager to the bit (and with the list "
-        f"rewritten); equals the full decode (max lm_score diff {d_full:.3g}); chunk ms: graphs "
-        f"median {hg['chunk_ms_median']:.2f}, max {hg['chunk_ms_max']:.2f}; eager {he['chunk_ms_median']:.2f}, "
-        f"{he['chunk_ms_max']:.2f}; first chunk of the warm-up stream (the hotword set's captures: "
-        f"{hg['captures']} s) {hg['first_chunk_ms']:.1f} ms; with the hotword list written anew from chunk {mid} on "
-        f"({len(rewritten)} words, the same unigram set: the same key) every chunk's top view equals the host "
-        f"oracle's (max score diff {d_hhost:.3g}, host oracle {h_host_s:.3f} s) [{card}]")
-    rec["hot2lm"] = dict(columns=h_rec, launches=hg["launches"], chunk_ms=hg["chunk_ms"][0],
-                         max_lm_score_diff_vs_full=d_full, max_score_diff_vs_host=d_hhost, host_oracle_s=h_host_s)
-    del m_eager
+        f"rewritten); equals the full decode (max lm_score diff {d_full:.3g}); with the hotword list written anew "
+        f"from chunk {mid} on ({len(rewritten)} words, the same unigram set: the same key) every chunk's top view "
+        f"equals the host oracle's (max score diff {d_hhost:.3g})")
+    rec["hot2lm"] = dict(launches=h_rec["graphs"]["launches"], max_lm_score_diff_vs_full=d_full,
+                         max_score_diff_vs_host=d_hhost)
+    del m_eager, h_rec
     park(multi)
 
     # bpe: the 128-piece vocabulary, 25 frames of 0.04 s a chunk
@@ -2579,25 +1925,16 @@ def stream_phase(torch, P, merge, gather, decoders: dict, corpus, hot, bpe_logit
     unpark(bpe)
     b_eager = bpe.with_options(segment_frames=0)
     mat = bpe_logits[0]
-    chunks = chunked(mat)
-    b_rec = {tag: stream_column(torch, f"bpe {tag}", dec, [bpe.language_model], [mat], wrappers, card,
-                                host_calls=False)
+    b_rec = {tag: stream_column(f"bpe {tag}", dec, [bpe.language_model], [mat], wrappers)
              for tag, dec in (("graphs", bpe), ("eager", b_eager))}
     check_views("stream bpe: graphs vs eager", b_rec["eager"]["views"][0], b_rec["graphs"]["views"][0], 0.0)
     check_states("stream bpe: graphs vs eager", b_rec["eager"]["states"][0], b_rec["graphs"]["states"][0])
     d_bpe = check_stream_is_full_decode("stream bpe", bpe.decode_beams(mat, beam_width=BEAM),
                                         b_rec["graphs"]["views"][0][-1])
-    for col in b_rec.values():
-        col.pop("views"), col.pop("states")
-    bg, be = b_rec["graphs"], b_rec["eager"]
-    log(f"[stream] bpe, utterance 0 ({mat.shape[0]} frames of {BPE_FRAME_SEC} s, {len(chunks)} chunks, V {BPE_V}): "
-        f"graphs equal eager to the bit; equals the full decode (max lm_score diff {d_bpe:.3g}); chunk ms graphs "
-        f"median {bg['chunk_ms_median']:.2f}, max {bg['chunk_ms_max']:.2f}; eager {be['chunk_ms_median']:.2f}, "
-        f"{be['chunk_ms_max']:.2f}; ms per frame graphs {bg['ms_per_frame']:.2f}, eager {be['ms_per_frame']:.2f} "
-        f"[{card}]")
-    rec["bpe"] = dict(columns=b_rec, launches=bg["launches"], chunk_ms=bg["chunk_ms"][0], frames=int(mat.shape[0]),
-                      max_lm_score_diff_vs_full=d_bpe)
-    del b_eager
+    log(f"[stream] bpe, utterance 0 ({mat.shape[0]} frames of {BPE_FRAME_SEC} s, {len(chunked(mat))} chunks, "
+        f"V {BPE_V}): graphs equal eager to the bit; equals the full decode (max lm_score diff {d_bpe:.3g})")
+    rec["bpe"] = dict(launches=b_rec["graphs"]["launches"], frames=int(mat.shape[0]), max_lm_score_diff_vs_full=d_bpe)
+    del b_eager, b_rec
     park(bpe)
     return rec
 
@@ -2612,19 +1949,18 @@ def bucket_residents(bucket: np.ndarray) -> np.ndarray:
     return np.take_along_axis(slots, np.argsort(key, axis=1, kind="stable")[..., None], axis=1)
 
 
-def native_phase(torch, P, arpa: str, logits, card: str):
+def native_phase(torch, P, arpa: str, logits):
     """The ``native`` path: ``build_ctcdecoder`` over member A's ARPA read by the C++ engine.
 
-    Builds the engine (``g++``, timed), then ``build_ctcdecoder`` (``"auto"``
-    reads plain ARPA natively; timed from call to decoder ready) and the
-    same decoder over the same file read in Python (timed): the start-up a
-    user sees either way. The device tables must equal the Python build's:
-    unigrams, trie plane and seeds exactly; each order's bucket sizes and
-    fingerprint seeds exactly, and every bucket row's residents (the engine
-    hands entries over in another order, so slots within a row may differ:
-    counted and logged). The first ``NATIVE_UTTS`` utterances decode equal on
-    both (texts, frames, LM states, lm_score difference 0). Returns the
-    record, the native decoder (the main paths' decoder) and the Python-read
+    Builds the engine (``g++``), then ``build_ctcdecoder`` (``"auto"`` reads
+    plain ARPA natively) and the same decoder over the same file read in
+    Python. The device tables must equal the Python build's: unigrams, trie
+    plane and seeds exactly; each order's bucket sizes and fingerprint seeds
+    exactly, and every bucket row's residents (the engine hands entries over
+    in another order, so slots within a row may differ: counted and logged).
+    The first ``NATIVE_UTTS`` utterances decode equal on both (texts,
+    frames, LM states, lm_score difference 0). Returns the record, the
+    native decoder (the main paths' decoder) and the Python-read
     LanguageModel (its host tables serve the probe's seeded queries and the
     KenLM writers).
     """
@@ -2632,20 +1968,12 @@ def native_phase(torch, P, arpa: str, logits, card: str):
     from pyctcdecode_torch.models.native import NativeNGramModel
     from pyctcdecode_torch.models.ngram import load_unigram_set_from_arpa, open_ngram_file
 
-    t0 = time.perf_counter()
     check(load_native() is not None, "the native n-gram engine did not build")
-    lib_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     decoder = P.build_ctcdecoder(LIBRI_LABELS, arpa)
-    torch.cuda.synchronize()
-    native_s = time.perf_counter() - t0
     check(isinstance(decoder.language_model.ngram_model, NativeNGramModel),
           "build_ctcdecoder did not read the ARPA with the native engine")
-    t0 = time.perf_counter()
     lm_py = P.LanguageModel(open_ngram_file(arpa, backend="python"), load_unigram_set_from_arpa(arpa))
     py_dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm_py)
-    torch.cuda.synchronize()
-    python_s = time.perf_counter() - t0
     check(lm_py.unigram_set == decoder.language_model.unigram_set, "the two readers' unigram sets differ")
     nat, py = decoder._device_lm[0], py_dec._device_lm[0]
     for attr in ("uni", "start_ctx", "start_ctx_backoffs", "seed_node"):
@@ -2664,19 +1992,16 @@ def native_phase(torch, P, arpa: str, logits, card: str):
     d = check_same_results("native vs python reader", want, got, 0.0)
     del py_dec
     torch.cuda.empty_cache()
-    log(f"[native] g++ build of the engine {lib_s:.2f} s; build_ctcdecoder over the ARPA read natively "
-        f"{native_s:.2f} s, over the same file read in Python {python_s:.2f} s; device tables equal but for "
-        f"the slot order within {rows_moved} bucket rows of {[t.size for t in nat.fp_tables]} (the same residents "
-        f"in every row); the first {NATIVE_UTTS} utterances decode equal (texts, frames, LM states, lm_score "
-        f"diff {d:.3g}) [{card}]")
-    rec = {"engine_build_s": lib_s, "build_ctcdecoder_native_s": native_s, "build_python_s": python_s,
-           "bucket_rows_slot_order_differs": rows_moved, "bucket_rows": [t.size for t in nat.fp_tables],
+    log(f"[native] build_ctcdecoder over the ARPA read natively and over the same file read in Python: device "
+        f"tables equal but for the slot order within {rows_moved} bucket rows of {[t.size for t in nat.fp_tables]} "
+        f"(the same residents in every row); the first {NATIVE_UTTS} utterances decode equal (texts, frames, LM "
+        f"states, lm_score diff {d:.3g})")
+    rec = {"bucket_rows_slot_order_differs": rows_moved, "bucket_rows": [t.size for t in nat.fp_tables],
            "utterances_checked": NATIVE_UTTS, "max_lm_score_diff": d}
     return rec, decoder, lm_py
 
 
-def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_beams, windows: dict,
-                  card: str) -> dict:
+def sharded_phase(torch, merge, gather, decoder, corpus, dense_beams, serve_beams) -> dict:
     """The ``sharded`` path: ``ShardedCTCDecoder(shard_lm=True)`` over a world-size-1 NCCL group.
 
     The group comes up through ``parallel.launch`` (127.0.0.1, a free port);
@@ -2693,18 +2018,9 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
     the dense and serving results from earlier in the run (lm_score
     difference 0), the counters equal the unsharded decoder's for the same
     call, the launches ``expected_counts`` (graphs: padded to whole
-    segments). Logged for each: latency, audio-s/s and peak device memory;
-    for graphs the first call (with its captures, and each capture's
-    seconds) and a warm call (replays only: no capture). Profiled
-    (``device_profile``), under graphs: the dense decode's first
-    ``PROFILE_FRAMES`` frames, unsharded with the counters off and on, and
-    sharded (device ops a step, busy s, idle share against the unprofiled
-    latency); what the counters and the collective round trip add is the
-    difference to the unsharded decode with the counters off. The keys the
-    phase adds to the main decoder's cache, and its evictions, are logged;
-    the sharded keys are dropped before the group goes (their graphs hold
-    its communicator's collectives). ``windows`` is :func:`window_phase`'s
-    record, kept with this phase's.
+    segments); under graphs the first call captures one new key and a warm
+    call captures nothing. The sharded keys are dropped before the group
+    goes (their graphs hold its communicator's collectives).
     """
     import socket
 
@@ -2713,51 +2029,29 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
     from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.parallel import ShardedCTCDecoder, make_data_mesh
     from pyctcdecode_torch.parallel.launch import initialize_from_env
-    from pyctcdecode_torch.torch_decoder import GRAPH_KEYS
-    from pyctcdecode_torch.utils import profiling
     from pyctcdecode_torch.utils.logits import normalize_collapse_batch, token_timeline_batch
 
-    t_phase = time.perf_counter()
     wrappers = counters(merge, gather)
     lm = decoder.language_model
     logits = corpus.logits
     t_max = max(m.shape[0] for m in logits)
-    audio_s = corpus.audio_seconds
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     check(initialize_from_env(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0),
           "the process group did not come up")
-    keys0 = len(decoder._graphs)
     rec: dict = {}
     sharded = None
-    phase = contextlib.ExitStack()
-    tr = phase.enter_context(profiling.tracing())  # the phase's graph captures and evictions
     try:
         mesh = make_data_mesh()
         check(dist.get_backend() == "nccl" and mesh.size() == 1, "not a world-size-1 NCCL mesh")
-        torch.cuda.synchronize()
-        resident0 = torch.cuda.memory_allocated()  # what the run holds on the card before the sharded tables
-        t0 = time.perf_counter()
         sharded = ShardedCTCDecoder(decoder, mesh=mesh, shard_lm=True)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-        resident1 = torch.cuda.memory_allocated()
         eager = ShardedCTCDecoder(decoder.with_options(segment_frames=0), mesh=mesh, shard_lm=True)
-        torch.cuda.synchronize()
-        rec["resident_before_gb"] = resident0 / 1e9
-        rec["sharded_tables_gb"] = [(resident1 - resident0) / 1e9, (torch.cuda.memory_allocated() - resident1) / 1e9]
-        log(f"[sharded] device memory held before the phase {rec['resident_before_gb']:.3f} GB; each column's "
-            f"sharded tables (member A's bucket planes, one window at world size 1) add "
-            f"{rec['sharded_tables_gb'][0]:.3f} and {rec['sharded_tables_gb'][1]:.3f} GB (the graphs column's "
-            f"in {setup_s:.2f} s)")
         tabs = sharded._tabs
         fp = tabs["lms"][0]["fp"]
         check(all(t["row0"] == 0 and t["bucket"].shape[0] == t["size"] for t in fp)
               and "shard" in tabs["lms"][0], "the sharded tables are not one whole window")
-        t0 = time.perf_counter()  # NCCL makes its communicator at the first collective: not in a latency
-        eager.decode_beams_batch([logits[0][:8]], beam_width=BEAM)
-        first_s = time.perf_counter() - t0
+        eager.decode_beams_batch([logits[0][:8]], beam_width=BEAM)  # NCCL's communicator, outside any capture
         beams_kw = dict(beam_width=BEAM, prune_history=True, top_n=1, collect_stats=True)
         serve_kw = dict(token_chunking=True, blank_collapse=True)
         mats, _, _ = normalize_collapse_batch(logits, LIBRI_LABELS.index(""), DEFAULT_MIN_TOKEN_LOGP)
@@ -2766,106 +2060,34 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
         def sharded_keys() -> list:
             return [key for key in decoder._graphs if key[3] == id(tabs)]
 
-        def run(tag: str, column: str, dec, kw: dict, steps: int, want_beams, want_stats) -> tuple:
-            """One sharded decode of the corpus: its record, results and counters, each checked."""
+        def run(tag: str, column: str, dec, kw: dict, steps: int, want_beams, want_stats) -> dict:
+            """One sharded decode of the corpus, checked: its launch counts."""
             reset_counts(wrappers)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
             got, stats = dec.decode_beams_batch(logits, **beams_kw, **kw)
-            latency = time.perf_counter() - t0
             launches = read_counts(wrappers)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
             check_counts(f"sharded {tag} {column}", launches, expected_counts([lm], steps, 1, sharded=True))
-            d = check_same_results(f"sharded {tag} {column} vs {tag}", want_beams, got, 0.0)
+            check_same_results(f"sharded {tag} {column} vs {tag}", want_beams, got, 0.0)
             check(stats == want_stats, f"sharded {tag} {column}: the counters differ from the unsharded decoder's")
-            return dict(latency_s=latency, audio_s_per_s=audio_s / latency, launches=launches, steps=steps,
-                        peak_device_gb=peak_gb, max_lm_score_diff=d), got, stats
+            return launches
 
         for tag, kw, steps, want_beams in (("dense", {}, t_max, dense_beams), ("serving", serve_kw, v_steps, serve_beams)):
-            t0 = time.perf_counter()
             _, want_stats = decoder.decode_beams_batch(logits, **beams_kw, **kw)
-            stats_latency = time.perf_counter() - t0
-            held, n_spans = set(sharded_keys()), len(tr.spans)
-            graphs, got, stats = run(tag, "graphs", sharded, kw, launched(steps), want_beams, want_stats)
-            captured = [s for s in tr.spans[n_spans:] if s.name == "graph.capture"]
+            held = set(sharded_keys())
+            launches = run(tag, "graphs", sharded, kw, launched(steps), want_beams, want_stats)
             new = [key for key in sharded_keys() if key not in held]
             check(len(new) == 1, f"sharded {tag}: {len(new)} new graph keys, expected 1")
             seg_graph = decoder._graphs[new[0]]
             check(seg_graph.graph is not None and all(f.graph is not None for f in seg_graph.finals.values()),
                   f"sharded {tag}: the decode did not run through captured graphs")
-            graphs["first_call_s"] = graphs["latency_s"]
-            graphs["capture_s"] = {"segment": sum(s.seconds for s in captured if s.note == "segment"),
-                                   "finalize": [s.seconds for s in captured if s.note == "finalize"]}
             held_graphs = (seg_graph.graph, [f.graph for f in seg_graph.finals.values()])
-            warm, _, _ = run(tag, "graphs warm", sharded, kw, launched(steps), want_beams, want_stats)
+            run(tag, "graphs warm", sharded, kw, launched(steps), want_beams, want_stats)
             check((seg_graph.graph, [f.graph for f in seg_graph.finals.values()]) == held_graphs
                   and len(sharded_keys()) == len(held) + 1, f"sharded {tag}: the warm call captured again")
-            graphs.update(latency_s=warm["latency_s"], audio_s_per_s=warm["audio_s_per_s"],
-                          peak_device_gb=max(graphs["peak_device_gb"], warm["peak_device_gb"]))
-            eager_r, _, _ = run(tag, "eager", eager, kw, steps, want_beams, want_stats)
-            totals = {key: sum(st[key] for st in stats) for key in stats[0]}
-            log(f"[sharded] {tag} decode_beams_batch {N_UTTS} x beam {BEAM}, shard_lm on, collect_stats, graphs and "
-                f"eager: both equal to the {tag} results (lm_score diff {graphs['max_lm_score_diff']:.3g}, "
-                f"{eager_r['max_lm_score_diff']:.3g}), counters equal the unsharded decoder's; graphs "
-                f"{graphs['latency_s']:.3f} s warm ({graphs['audio_s_per_s']:.1f} audio-s/s; first call "
-                f"{graphs['first_call_s']:.3f} s with captures of {graphs['capture_s']['segment']:.3f} s segment, "
-                f"{', '.join(f'{c:.3f}' for c in graphs['capture_s']['finalize'])} s finalize), {launched(steps)} "
-                f"steps, peak {graphs['peak_device_gb']:.3f} GB; eager {eager_r['latency_s']:.3f} s "
-                f"({eager_r['audio_s_per_s']:.1f} audio-s/s), {steps} steps, peak {eager_r['peak_device_gb']:.3f} GB; "
-                f"x{eager_r['latency_s'] / graphs['latency_s']:.2f}; unsharded with the counters {stats_latency:.3f} s; "
-                f"counter totals {totals} [{card}]")
-            rec[tag] = dict(graphs=graphs, eager=eager_r, launches=graphs["launches"],
-                            unsharded_stats_latency_s=stats_latency, counters_total=totals)
-        rec["setup_s"], rec["first_collective_call_s"] = setup_s, first_s
-
-        # device ops a step under graphs: unsharded with the counters off and on, and sharded
-        head = [m[:PROFILE_FRAMES] for m in logits]
-        plain_kw = dict(beam_width=BEAM, prune_history=True, top_n=1)
-        reports = {}
-        for tag, run_head in (("unsharded", lambda: decoder.decode_beams_batch(head, **plain_kw)),
-                              ("unsharded, counters on",
-                               lambda: decoder.decode_beams_batch(head, collect_stats=True, **plain_kw)),
-                              ("sharded", lambda: sharded.decode_beams_batch(head, **plain_kw))):
-            run_head()  # a new key captures here, outside the timed and profiled calls
-            reset_counts(wrappers)
-            t0 = time.perf_counter()
-            run_head()
-            lat = time.perf_counter() - t0
-            launches = read_counts(wrappers)
-            steps = launches["expand_merge_prune"]
-            prof = device_profile(torch, run_head, steps, lat, launches)
-            log(f"[sharded] profile under graphs, {tag}, the first {PROFILE_FRAMES} frames: {steps} steps, "
-                f"unprofiled latency {lat:.3f} s")
-            log_profile(f"sharded profile {tag}", prof, lat, card)
-            if prof is not None:
-                prof.update(frames=PROFILE_FRAMES, steps=steps, latency_s=lat, launches=launches)
-            reports[tag] = prof
-        off, on, shd = reports["unsharded"], reports["unsharded, counters on"], reports["sharded"]
-        added = counters_added = None
-        if off and shd:
-            added = dict(ops_per_step=shd["device_ops_per_step"] - off["device_ops_per_step"],
-                         device_ms_per_step=(shd["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
-                         latency_ratio=shd["latency_s"] / off["latency_s"])
-            log(f"[sharded] under graphs the collective round trip adds {added['ops_per_step']:.1f} device ops and "
-                f"{added['device_ms_per_step']:.5f} device ms a step (sharded minus unsharded), latency x"
-                f"{added['latency_ratio']:.3f} [{card}]")
-        if off and on:
-            counters_added = dict(ops_per_step=on["device_ops_per_step"] - off["device_ops_per_step"],
-                                  device_ms_per_step=(on["device_busy_s"] - off["device_busy_s"]) * 1e3 / steps,
-                                  latency_ratio=on["latency_s"] / off["latency_s"])
-            log(f"[sharded] under graphs the counters add {counters_added['ops_per_step']:.1f} device ops and "
-                f"{counters_added['device_ms_per_step']:.5f} device ms a step, latency x"
-                f"{counters_added['latency_ratio']:.3f} [{card}]")
-        rec["profile"] = reports
-        rec["collectives_added"], rec["counters_added"] = added, counters_added
-        keys = sharded_keys()
-        rec["graph_keys"] = dict(held_before=keys0, held_after=len(decoder._graphs), sharded=len(keys),
-                                 evictions=tr.counters().get("graph.evictions", 0), limit=GRAPH_KEYS)
-        log(f"[sharded] the main decoder's graph cache: {keys0} keys before the phase, {len(decoder._graphs)} after "
-            f"({len(keys)} sharded keys, {len(decoder._graphs) - keys0 - len(keys)} unsharded), evictions "
-            f"{rec['graph_keys']['evictions']} at the limit {rec['graph_keys']['limit']}; the sharded keys are "
-            f"dropped before the group goes")
+            eager_launches = run(tag, "eager", eager, kw, steps, want_beams, want_stats)
+            log(f"[sharded] {tag} decode_beams_batch {N_UTTS} x beam {BEAM}, shard_lm on, collect_stats, graphs "
+                f"(first and warm) and eager: equal to the {tag} results (lm_score difference 0), counters equal "
+                f"the unsharded decoder's")
+            rec[tag] = dict(launches=launches, eager_launches=eager_launches)
     finally:
         if sharded is not None:  # the sharded keys' graphs replay the group's collectives: they go first
             for key in [key for key in decoder._graphs if key[3] == id(sharded._tabs)]:
@@ -2873,11 +2095,6 @@ def sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_b
             torch.cuda.synchronize()
         del sharded
         dist.destroy_process_group()
-        phase.close()
-
-    rec["probe_windows"] = windows
-    rec["seconds"] = time.perf_counter() - t_phase
-    log(f"[sharded] phase in {rec['seconds']:.1f} s")
     return rec
 
 
@@ -2885,25 +2102,24 @@ def add_counts(*counts: dict) -> dict:
     return {name: sum(c[name] for c in counts) for name in counts[0]}
 
 
-def evaluation_phase(torch, P, merge, gather, decoder, corpus, texts: list, wer_greedy: float, card: str) -> dict:
+def evaluation_phase(torch, P, merge, gather, decoder, corpus, texts: list, wer_greedy: float) -> dict:
     """The corpus evaluation harness on the card: ``evaluate_corpus``, ``compare_engines``, ``normalize_to_logp_torch``.
 
     ``evaluate_corpus`` decodes the dense configuration (the corpus, beam
     100, member A) on the main decoder after its warm-up batch (utterance
-    0): WER beside the greedy WER, audio-s/s; its hypotheses must be the
-    dense phase's ``texts``, its launches those of the warm-up and the
-    corpus decode. ``compare_engines`` holds the host oracle over the same
-    LM against the card on the first ``EVAL_HOST_UTTS`` utterances: both
-    WERs, top-1 agreement (every utterance must agree, the JAX package's
-    0.99 bound at this count), ``wer_delta`` and the speedup; the card's
-    hypotheses must be the dense phase's. ``normalize_to_logp_torch`` of
-    utterance 0's logits and of its probabilities on the card must be
-    within ``NORM_TOL`` of the same call on the CPU.
+    0): WER beside the greedy WER; its hypotheses must be the dense phase's
+    ``texts``, its launches those of the warm-up and the corpus decode.
+    ``compare_engines`` holds the host oracle over the same LM against the
+    card on the first ``EVAL_HOST_UTTS`` utterances: both WERs, top-1
+    agreement (every utterance must agree, the JAX package's 0.99 bound at
+    this count); the card's hypotheses must be the dense phase's.
+    ``normalize_to_logp_torch`` of utterance 0's logits and of its
+    probabilities on the card must be within ``NORM_TOL`` of the same call
+    on the CPU.
     """
     from pyctcdecode_torch.evaluation import Corpus, compare_engines, evaluate_corpus
     from pyctcdecode_torch.utils import normalize_to_logp_torch
 
-    t_phase = time.perf_counter()
     wrappers = counters(merge, gather)
     lm = decoder.language_model
     logits = corpus.logits
@@ -2917,25 +2133,20 @@ def evaluation_phase(torch, P, merge, gather, decoder, corpus, texts: list, wer_
     check(report["hypotheses"] == texts, "evaluate_corpus: the hypotheses differ from the dense decode's")
     check(report["n_utterances"] == N_UTTS and report["beam_width"] == BEAM, "evaluate_corpus: a bad report")
     log(f"[evaluation] evaluate_corpus on the card, {N_UTTS} utterances x beam {BEAM}, member A: WER "
-        f"{report['wer']:.4f} (greedy {wer_greedy:.4f}), {report['audio_sec_per_sec']:.1f} audio-s/s "
-        f"({report['wall_seconds']:.4f} s for {report['audio_seconds']:.2f} audio-s, after the warm-up batch); "
-        f"hypotheses equal the dense decode's [{card}]")
+        f"{report['wer']:.4f} (greedy {wer_greedy:.4f}); hypotheses equal the dense decode's")
 
     first = Corpus(corpus.references[:EVAL_HOST_UTTS], logits[:EVAL_HOST_UTTS], corpus.labels)
     host = P.BeamSearchDecoderCTC(P.Alphabet.build_alphabet(LIBRI_LABELS), lm)
     reset_counts(wrappers)
     cmp = compare_engines(host, decoder, first, beam_width=BEAM, max_tokens_per_frame=None)
-    c_launches = read_counts(wrappers)
-    check_counts("evaluation compare_engines", c_launches,
+    check_counts("evaluation compare_engines", read_counts(wrappers),
                  add_counts(expected_counts([lm], warm_steps, 1),
                             expected_counts([lm], launched(max(m.shape[0] for m in first.logits)), 1)))
     check(cmp["device_hypotheses"] == texts[:EVAL_HOST_UTTS],
           "compare_engines: the card's hypotheses differ from the dense decode's")
     check(cmp["top1_agreement"] == 1.0, f"compare_engines: top-1 agreement {cmp['top1_agreement']}")
     log(f"[evaluation] compare_engines, the first {EVAL_HOST_UTTS} utterances x beam {BEAM}: host oracle WER "
-        f"{cmp['host']['wer']:.4f} ({cmp['host']['audio_sec_per_sec']:.1f} audio-s/s, one core), card WER "
-        f"{cmp['device']['wer']:.4f} ({cmp['device']['audio_sec_per_sec']:.1f} audio-s/s), top-1 agreement "
-        f"{cmp['top1_agreement']}, wer_delta {cmp['wer_delta']}, speedup x{cmp['speedup']} [{card}]")
+        f"{cmp['host']['wer']:.4f}, card WER {cmp['device']['wer']:.4f}, top-1 agreement {cmp['top1_agreement']}")
 
     norm = {}
     x = logits[0]
@@ -2950,12 +2161,7 @@ def evaluation_phase(torch, P, merge, gather, decoder, corpus, texts: list, wer_
         norm[kind] = err
     log(f"[evaluation] normalize_to_logp_torch on utterance 0's logits and probabilities {list(x.shape)}: the card "
         f"within {NORM_TOL} of the CPU (max abs diff {norm['logits']:.3g}, {norm['probs']:.3g})")
-    rec = dict(evaluate_corpus={k: v for k, v in report.items() if k != "hypotheses"}, wer_greedy=wer_greedy,
-               launches=launches, compare_engines={k: v for k, v in cmp.items() if not k.endswith("_hypotheses")},
-               compare_launches=c_launches, normalize_max_abs_diff=norm,
-               seconds=time.perf_counter() - t_phase)
-    log(f"[evaluation] phase in {rec['seconds']:.1f} s")
-    return rec
+    return dict(wer=report["wer"], wer_greedy=wer_greedy, launches=launches, normalize_max_abs_diff=norm)
 
 
 def window_phase(torch, gather, decoder, probe_call, card: str) -> dict:
@@ -3024,50 +2230,42 @@ def kenlm_build_phase(torch, P, gather, lm_a, dense_call, head) -> dict:
     """Member A as a KenLM PROBING binary, a decoder over it, and ``probe_rows`` in its KenLM mode.
 
     Runs right after the FNV probe's timing, on the same recorded dense step:
-    the binary is written with the port's writer (timed) and
-    ``build_ctcdecoder`` reads it (timed); the new decoder's own step 60 must
-    issue the ARPA decoder's queries (the same word ids, the same beams), and
-    ``probe_rows`` on them with the KenLM-keyed tables is held bit-exact
-    against its plain version and timed beside the FNV probe of that step,
-    also on seeded queries that hit every order. The decoder's device tables
-    are parked for the ``kenlm`` phase.
+    the binary is written with the port's writer and ``build_ctcdecoder``
+    reads it; the new decoder's own step 60 must issue the ARPA decoder's
+    queries (the same word ids, the same beams), and ``probe_rows`` on them
+    with the KenLM-keyed tables is held bit-exact against its plain version
+    and timed beside the FNV probe of that step, also on seeded queries that
+    hit every order. The decoder's device tables are parked for the
+    ``kenlm`` phase.
     """
     from pyctcdecode_torch.csrc.build import BUILD_DIR
     from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel, write_kenlm_binary
 
     bin_path = os.path.join(str(BUILD_DIR), "parity_3gram.bin")
-    t0 = time.perf_counter()
     write_kenlm_binary(lm_a.ngram_model.tables, bin_path)
-    write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     built = P.build_ctcdecoder(LIBRI_LABELS, bin_path)
-    torch.cuda.synchronize()
-    built_s = time.perf_counter() - t0
     lm_k = built.language_model
     modes = [t["hash_mode"] for t in built._tabs["lms"][0]["fp"]]
     check(isinstance(lm_k.ngram_model, KenLMBinaryModel) and modes == ["kenlm64", "kenlm64"],
           f"build_ctcdecoder did not read the binary into KenLM-keyed tables ({modes})")
     check(lm_k.ngram_model.tables.vocab == lm_a.ngram_model.tables.vocab, "the binary's word ids differ from the ARPA's")
-    log(f"[kenlm] member A as a KenLM PROBING binary ({os.path.getsize(bin_path) / 1e6:.1f} MB) in {write_s:.2f} s; "
-        f"build_ctcdecoder over it (read + device tables) {built_s:.2f} s")
+    log(f"[kenlm] member A as a KenLM PROBING binary ({os.path.getsize(bin_path) / 1e6:.1f} MB), "
+        f"build_ctcdecoder over it")
     call = record_step_reads(torch, built, head, step=60)["probe"]
     check(torch.equal(call[0], dense_call[0]) and torch.equal(call[1], dense_call[1]),
           "the KenLM decoder's step 60 queries differ from the ARPA decoder's")
     probe = probe_phases(torch, gather, {"kenlm dense": (N_UTTS, {"probe": call})}, lm_a.ngram_model.tables.ngrams)
     park(built)
-    return {"decoder": built, "bin_path": bin_path, "write_s": write_s, "build_ctcdecoder_s": built_s,
-            "binary_mb": os.path.getsize(bin_path) / 1e6, "probe": probe, "arpa_vocab": lm_a.ngram_model.tables.vocab}
+    return {"decoder": built, "probe": probe, "arpa_vocab": lm_a.ngram_model.tables.vocab}
 
 
-def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, dense_beams, serve_beams,
-                arpa_build_s: float, card: str) -> dict:
+def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, dense_beams, serve_beams) -> dict:
     """The ``kenlm`` path: decoders saved and loaded as directories, over KenLM binaries.
 
     ``early``: :func:`kenlm_build_phase`'s record, with the decoder built
     over member A's PROBING binary. That decoder is saved with
-    ``save_to_dir`` and loaded back with ``TorchBeamSearchDecoderCTC.load_from_dir``
-    (the load timed from call to decoder ready, beside the ARPA decoder's
-    build). The 32 utterances decode dense and serving: texts, frames and LM
+    ``save_to_dir`` and loaded back with ``TorchBeamSearchDecoderCTC.load_from_dir``.
+    The 32 utterances decode dense and serving: texts, frames and LM
     states (as words) equal the ARPA decoder's, scores within 1e-4, launch
     counts as the code implies (the binary keeps the ARPA's word ids, so
     the LM states compare as they are); the loaded decoder's ``probe_rows`` on a
@@ -3076,7 +2274,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     loaded the same way, and its first 2 utterances decode on the card as
     the port's host oracle loaded from the same directory does (top texts
     equal, scores within 2e-3; quantized scores differ from the ARPA's by
-    design). The dense decode is profiled.
+    design).
     """
     import shutil
 
@@ -3085,13 +2283,11 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     from pyctcdecode_torch.models.kenlm_bin import KenLMBinaryModel
     from pyctcdecode_torch.models.kenlm_trie import write_kenlm_trie
 
-    t_phase = time.perf_counter()
     wrappers = counters(merge, gather)
     lm_a = arpa_dec.language_model
     arpa_vocab = early["arpa_vocab"]
     logits = corpus.logits
     t_max = max(m.shape[0] for m in logits)
-    audio_s = corpus.audio_seconds
     build = str(BUILD_DIR)
     rec: dict = {"probe": early["probe"]}
 
@@ -3100,10 +2296,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     shutil.rmtree(save_dir, ignore_errors=True)
     os.makedirs(save_dir)
     early["decoder"].save_to_dir(save_dir)
-    t0 = time.perf_counter()
     kdec = P.TorchBeamSearchDecoderCTC.load_from_dir(save_dir)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     lm_k = kdec.language_model
     k_vocab = lm_k.ngram_model.tables.vocab
     modes = [t["hash_mode"] for t in kdec._tabs["lms"][0]["fp"]]
@@ -3114,11 +2307,9 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     check(k_vocab == arpa_vocab, "the binary's word ids differ from the ARPA's")
     sizes = [t["size"] for t in kdec._tabs["lms"][0]["fp"]]
     log(f"[kenlm] save_to_dir {sorted(os.listdir(save_dir))} + "
-        f"{sorted(os.listdir(os.path.join(save_dir, 'language_model')))}; load_from_dir to a decoder on the card "
-        f"{load_s:.2f} s (the ARPA build_ctcdecoder: {arpa_build_s:.2f} s; build_ctcdecoder over the binary: "
-        f"{early['build_ctcdecoder_s']:.2f} s); bucket rows per order {sizes}")
-    rec.update(write_s=early["write_s"], build_ctcdecoder_s=early["build_ctcdecoder_s"], load_from_dir_s=load_s,
-               arpa_build_s=arpa_build_s, binary_mb=early["binary_mb"], bucket_rows=sizes)
+        f"{sorted(os.listdir(os.path.join(save_dir, 'language_model')))}; load_from_dir to a decoder on the card; "
+        f"bucket rows per order {sizes}")
+    rec["bucket_rows"] = sizes
 
     # the loaded decoder's probe on a real dense step, bit-exact (timed in kenlm_build_phase)
     full, ctx_len, k_tabs, slots, sub_width = record_step_reads(torch, kdec, [m[:61] for m in logits], step=60)["probe"]
@@ -3131,51 +2322,31 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     # the 32 utterances dense and serving, against the ARPA decoder's
     dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
     beams_kw = dict(prune_history=True, top_n=1)
-    latencies = []
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        reset_counts(wrappers)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        k_dense = kdec.decode_beams_batch(logits, **dense_kw, **beams_kw)
-        latencies.append(time.perf_counter() - t0)
-        launches = read_counts(wrappers)
-        check_counts("kenlm dense", launches, expected_counts([lm_k], launched(t_max), 1))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts(wrappers)
+    k_dense = kdec.decode_beams_batch(logits, **dense_kw, **beams_kw)
+    launches = read_counts(wrappers)
+    check_counts("kenlm dense", launches, expected_counts([lm_k], launched(t_max), 1))
     # the binary keeps the ARPA's word ids (checked above), so the LM states compare as they are
     d_dense = check_same_results("kenlm dense vs ARPA dense", dense_beams, k_dense, KENLM_TOL)
-    latency = statistics.median(latencies)
     log(f"[kenlm] dense decode_beams_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, from the loaded directory: texts, "
-        f"text_frames and LM states equal the ARPA decoder's, max lm_score diff {d_dense:.3g}; latency "
-        f"{', '.join(f'{x:.3f}' for x in latencies)} s, {audio_s / latency:.1f} audio-s/s, {latency / t_max * 1e3:.2f} "
-        f"ms per frame step, peak device memory {peak_gb:.3f} GB [{card}]")
+        f"text_frames and LM states equal the ARPA decoder's, max lm_score diff {d_dense:.3g}")
     blank_id = LIBRI_LABELS.index("")
     plan = serving_plan(kdec, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     serve_kw = dict(beam_width=BEAM, **SERVING)
     reset_counts(wrappers)
-    t0 = time.perf_counter()
     k_serve = kdec.decode_beams_batch(logits, **serve_kw, **beams_kw)
-    s_latency = time.perf_counter() - t0
     s_launches = read_counts(wrappers)
     check_counts("kenlm serving", s_launches, expected_counts([lm_k], plan["steps"], len(plan["groups"])))
     d_serve = check_same_results("kenlm serving vs ARPA serving", serve_beams, k_serve, KENLM_TOL)
     log(f"[kenlm] serving decode_beams_batch (chunks of {CHUNK}, collapse, {len(plan['groups'])} groups): equal to "
-        f"the ARPA decoder's serving results, max lm_score diff {d_serve:.3g}; {s_latency:.3f} s, "
-        f"{audio_s / s_latency:.1f} audio-s/s [{card}]")
-    rec.update(latency_s=latency, latencies_s=latencies, audio_s_per_s=audio_s / latency, peak_device_gb=peak_gb,
-               launches=launches, max_lm_score_diff_vs_arpa=d_dense,
-               serving=dict(latency_s=s_latency, launches=s_launches, steps=plan["steps"],
-                            max_lm_score_diff_vs_arpa=d_serve))
-
-    rec["profile"] = profile_head(torch, "profile kenlm dense", wrappers,
-                                  lambda b: kdec.decode_batch(b, **dense_kw), logits, card)
+        f"the ARPA decoder's serving results, max lm_score diff {d_serve:.3g}")
+    rec.update(launches=launches, max_lm_score_diff_vs_arpa=d_dense,
+               serving=dict(launches=s_launches, steps=plan["steps"], max_lm_score_diff_vs_arpa=d_serve))
     park(kdec)
 
     # member B as QUANT_TRIE, through a saved directory, on the card and on the host oracle
     q_path = os.path.join(build, "parity_3gram_half.binary")
-    t0 = time.perf_counter()
     write_kenlm_trie(lm_b.ngram_model.tables, q_path, quant_bits=QUANT_BITS)
-    q_write_s = time.perf_counter() - t0
     host_built = P.build_ctcdecoder(LIBRI_LABELS, q_path, engine="host", alpha=lm_b.alpha, beta=lm_b.beta,
                                     unk_score_offset=lm_b.unk_score_offset, lm_score_boundary=lm_b.score_boundary)
     q_dir = os.path.join(build, "kenlm_decoder_quant")
@@ -3183,10 +2354,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     os.makedirs(q_dir)
     host_built.save_to_dir(q_dir)
     host_built.cleanup()
-    t0 = time.perf_counter()
     qdec = P.TorchBeamSearchDecoderCTC.load_from_dir(q_dir)
-    torch.cuda.synchronize()
-    q_load_s = time.perf_counter() - t0
     qhost = P.BeamSearchDecoderCTC.load_from_dir(q_dir)
     lm_q = qdec.language_model
     check(lm_q.serializable_attrs == lm_b.serializable_attrs, "member B's fusion settings did not survive the directory")
@@ -3195,9 +2363,7 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
     q_beams = qdec.decode_beams_batch(sub, beam_width=BEAM, prune_history=False)
     q_launches = read_counts(wrappers)
     check_counts("kenlm quant_trie", q_launches, expected_counts([lm_q], launched(max(m.shape[0] for m in sub)), 1))
-    t0 = time.perf_counter()
     h_beams = [qhost.decode_beams(m, beam_width=BEAM, prune_history=False) for m in sub]
-    host_s = time.perf_counter() - t0
     qhost.cleanup()
     d_host = 0.0
     for i, (h, q) in enumerate(zip(h_beams, q_beams)):
@@ -3206,15 +2372,10 @@ def kenlm_phase(torch, P, merge, gather, early: dict, arpa_dec, lm_b, corpus, de
         check(d <= HOST_TOL, f"kenlm quant_trie: utterance {i}: scores differ from the host oracle's by {d}")
         d_host = max(d_host, d)
     log(f"[kenlm] member B as QUANT_TRIE ({QUANT_BITS[0]} prob + {QUANT_BITS[1]} backoff bits, "
-        f"{os.path.getsize(q_path) / 1e6:.1f} MB) written in {q_write_s:.2f} s; load_from_dir to the card "
-        f"{q_load_s:.2f} s; {QUANT_UTTS} utterances: top texts equal the host oracle's from the same directory "
-        f"(max score diff {d_host:.3g}; the host oracle {host_s:.3f} s) [{card}]")
-    rec["quant_trie"] = dict(write_s=q_write_s, load_from_dir_s=q_load_s, mb=os.path.getsize(q_path) / 1e6,
-                             launches=q_launches, max_score_diff_vs_host=d_host, host_oracle_s=host_s,
-                             bits=list(QUANT_BITS))
+        f"{os.path.getsize(q_path) / 1e6:.1f} MB) through load_from_dir to the card; {QUANT_UTTS} utterances: top "
+        f"texts equal the host oracle's from the same directory (max score diff {d_host:.3g})")
+    rec["quant_trie"] = dict(launches=q_launches, max_score_diff_vs_host=d_host, bits=list(QUANT_BITS))
     park(qdec)
-    rec["seconds"] = time.perf_counter() - t_phase
-    log(f"[kenlm] phase in {rec['seconds']:.1f} s")
     return rec
 
 
@@ -3230,13 +2391,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     import pyctcdecode_torch as P
-    from pyctcdecode_torch.constants import (
-        DEFAULT_HOTWORD_WEIGHT,
-        DEFAULT_MIN_TOKEN_LOGP,
-        DEFAULT_PRUNE_LOGP,
-    )
+    from pyctcdecode_torch.constants import DEFAULT_MIN_TOKEN_LOGP
     from pyctcdecode_torch.csrc.build import BUILD_DIR, build
-    from pyctcdecode_torch.evaluation import DEV_OTHER_DIFFICULTY, FRAME_SEC, TRANSCRIPT, synthesize_corpus
+    from pyctcdecode_torch.evaluation import DEV_OTHER_DIFFICULTY, TRANSCRIPT, synthesize_corpus
     from pyctcdecode_torch.ops import gather, merge
     from pyctcdecode_torch.utils.metrics import word_error_rate
 
@@ -3248,35 +2405,29 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
     libs = build(verbose=True)
-    log(f"[build] {', '.join(str(p.name) for p in libs.values())} in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] {', '.join(str(p.name) for p in libs.values())}")
 
     rec = kernel_phases(torch, merge)
 
     # ---- the decoder and the utterances of both paths
-    t0 = time.perf_counter()
     arpa, vocab = parity_lm(str(BUILD_DIR))
-    log(f"[main] parity ARPA ready in {time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(11)
     corpus_vocab = [vocab[i] for i in rng.randint(0, len(vocab), 6000)] + TRANSCRIPT.split()
     corpus = synthesize_corpus(LIBRI_LABELS, corpus_vocab, n_utterances=N_UTTS, seed=3,
                                **DEV_OTHER_DIFFICULTY)
     logits = corpus.logits
     # ---- the native path: build_ctcdecoder reads the ARPA with the C++ engine; the Python read beside it
-    native_rec, decoder, lm_py = native_phase(torch, P, arpa, logits, card)
-    arpa_build_s = native_rec["build_python_s"]
+    native_rec, decoder, lm_py = native_phase(torch, P, arpa, logits)
     lm = decoder.language_model
     check(decoder.device.type == "cuda", "decoder is not on CUDA")
     check(lm.order == 3, "the parity LM is not a 3-gram")
     t_max = max(m.shape[0] for m in logits)
-    audio_s = corpus.audio_seconds
-    log(f"[main] corpus: {N_UTTS} utterances, {audio_s:.2f} audio-s, frames "
+    log(f"[main] corpus: {N_UTTS} utterances, {corpus.audio_seconds:.2f} audio-s, frames "
         f"{min(m.shape[0] for m in logits)}..{t_max}")
 
     # ---- gather kernel, also on the tables and indices of a real step of
     # each path (these short decodes are the first use of the libraries as well)
-    t0 = time.perf_counter()
     blank_id = LIBRI_LABELS.index("")
     head = [m[:61] for m in logits]
     step_calls = {"dense": (N_UTTS, record_step_reads(torch, decoder, head, step=60))}
@@ -3285,7 +2436,7 @@ def main() -> int:
     step_calls["serving"] = (GROUP_ROWS, record_step_reads(
         torch, decoder, head, step=head_plan["group_steps"][0] // 2, **SERVING))
     log(f"[main] warm-up decodes of 61 frames (dense, and serving: groups with {head_plan['group_steps']} "
-        f"virtual steps), recording one step's row reads of each, in {time.perf_counter() - t0:.2f} s")
+        f"virtual steps), recording one step's row reads of each")
     replay_cases = {"dense": record_replay(torch, decoder, head, 60, prune_history=False),
                     "n=1": record_replay(torch, decoder, head[:1], 60, prune_history=False, batch_pad=1)}
     commit_cases = {"dense": record_commit(torch, decoder, head, 60),
@@ -3304,20 +2455,12 @@ def main() -> int:
     dense_kw = dict(beam_width=BEAM, max_tokens_per_frame=None)
     beams_kw = dict(prune_history=True, top_n=1)  # what decode_batch asks of decode_beams_batch
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     texts = decoder.decode_batch(logits, **dense_kw)
-    latencies = [time.perf_counter() - t0]
     launches = read_counts(wrappers)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("dense", launches, expected_counts([lm], launched(t_max), 1))
-    for _ in range(1):  # one repeat: a latency and the rerun check
-        t0 = time.perf_counter()
-        dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
-        latencies.append(time.perf_counter() - t0)
-        check(top_texts(dense_beams) == texts, "repeated dense decode gave other texts")
-    latency = statistics.median(latencies)
+    check(all(isinstance(t, str) for t in texts) and len(texts) == N_UTTS, "bad decode_batch output")
+    dense_beams = decoder.decode_beams_batch(logits, **dense_kw, **beams_kw)
+    check(top_texts(dense_beams) == texts, "repeated dense decode gave other texts")
     wer = word_error_rate(corpus.references, texts)
     greedy = []
     for m in logits:
@@ -3325,106 +2468,45 @@ def main() -> int:
         keep = np.concatenate([[True], ids[1:] != ids[:-1]])
         greedy.append(" ".join("".join(LIBRI_LABELS[i] for i in ids[keep]).split()))
     wer_greedy = word_error_rate(corpus.references, greedy)
-    log(f"[dense] decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}: latency median {latency:.3f} s "
-        f"of {', '.join(f'{x:.3f}' for x in latencies)}, {audio_s / latency:.1f} audio-s/s, "
-        f"{t_max} frame steps, {latency / t_max * 1e3:.2f} ms per frame step, peak device memory "
-        f"{peak_gb:.3f} GB, WER {wer:.4f} (greedy {wer_greedy:.4f}) [{card}]")
-    check(all(isinstance(t, str) for t in texts) and len(texts) == N_UTTS, "bad decode_batch output")
+    log(f"[dense] decode_batch {N_UTTS} x beam {BEAM}, K {K_TOKENS}, {t_max} frame steps: WER {wer:.4f} "
+        f"(greedy {wer_greedy:.4f})")
 
     # ---- serving path: chunk timeline + blank collapse + two length groups
     plan = serving_plan(decoder, logits, blank_id, DEFAULT_MIN_TOKEN_LOGP)
     log(f"[serving] host prep: {plan['frames_in']} frames in, {plan['frames_kept']} after the blank "
         f"collapse (longest {plan['longest_kept']}); groups of {plan['groups']} utterances with "
         f"{plan['group_steps']} virtual steps of {CHUNK}-token chunks: {plan['steps']} steps in whole segments of "
-        f"{plan['segment_frames']} "
-        f"(dense: {t_max} frame steps)")
+        f"{plan['segment_frames']} (dense: {t_max} frame steps)")
     check(len(plan["groups"]) == 2, "the serving batch did not split into two length groups")
     serve_kw = dict(beam_width=BEAM, **SERVING)
     reset_counts(wrappers)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     s_texts = decoder.decode_batch(logits, **serve_kw)
-    s_latencies = [time.perf_counter() - t0]
     s_launches = read_counts(wrappers)
-    s_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_counts("serving", s_launches, expected_counts([lm], plan["steps"], len(plan["groups"])))
     check(s_texts == texts, "the serving decode's texts differ from the dense decode's")
-    t0 = time.perf_counter()
     serve_beams = decoder.decode_beams_batch(logits, **serve_kw, **beams_kw)
-    s_latencies.append(time.perf_counter() - t0)
     d_score = check_same_results("serving vs dense", dense_beams, serve_beams, LM_SCORE_TOL)
-    s_latency = statistics.median(s_latencies)
     log(f"[serving] decode_batch {N_UTTS} x beam {BEAM}, chunks of {CHUNK}, collapse, 2 groups: texts "
-        f"and text_frames equal the dense path's, max lm_score diff {d_score:.3g}; latency median "
-        f"{s_latency:.3f} s of {', '.join(f'{x:.3f}' for x in s_latencies)}, "
-        f"{audio_s / s_latency:.1f} audio-s/s, {plan['virtual_steps']} virtual steps ({plan['steps']} launched in whole "
-        f"segments), "
-        f"{s_latency / plan['steps'] * 1e3:.2f} ms per step, peak device memory {s_peak_gb:.3f} GB [{card}]")
+        f"and text_frames equal the dense path's, max lm_score diff {d_score:.3g}")
 
     # the pipelined entry point, held against decode_beams_batch
-    piped = pipelined("serving", decoder, [lm], logits, serve_kw, serve_beams, wrappers, audio_s, card)
-
-    # one more batch in separately timed stages, and the output copy both ways
-    dispatch_kw = dict(
-        beam_width=BEAM, beam_prune_logp=DEFAULT_PRUNE_LOGP, token_min_logp=DEFAULT_MIN_TOKEN_LOGP,
-        prune_history=True, hotwords=None, hotword_weight=DEFAULT_HOTWORD_WEIGHT,
-        max_tokens_per_frame=None, batch_pad=8, top_n=1, collect_stats=False,
-        blank_collapse=True, token_chunking=True,
-    )
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    handles = decoder._launch_batch(logits, dispatch_kw, SERVING["length_bucketing"])
-    launch_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    wait_s = time.perf_counter() - t0 - launch_s
-    fetch_ms = {"pinned": [], "plain": []}
-    for _ in range(20):
-        for _, handle in handles:
-            t1 = time.perf_counter()
-            decoder._fetch(handle["out"], handle["n"])
-            fetch_ms["pinned"].append((time.perf_counter() - t1) * 1e3)
-            t1 = time.perf_counter()
-            plain_host = {key: val[: handle["n"]].cpu().numpy() for key, val in handle["out"].items()}
-            fetch_ms["plain"].append((time.perf_counter() - t1) * 1e3)
-    out_bytes = sum(v.nbytes for v in plain_host.values())
-    t0 = time.perf_counter()
-    staged = decoder._collect_bucketed(handles, N_UTTS)
-    collect_s = time.perf_counter() - t0
-    check_same_results("staged serving batch", serve_beams, staged, RERUN_TOL)
-    stages = {"prep_s": plan["prep_s"], "launch_s": launch_s, "wait_s": wait_s, "collect_s": collect_s,
-              "fetch_pinned_ms": statistics.median(fetch_ms["pinned"]),
-              "fetch_plain_ms": statistics.median(fetch_ms["plain"]), "fetch_bytes": out_bytes}
-    log(f"[serving] stages of one batch: launch {launch_s:.3f} s (host prep {plan['prep_s']:.3f} s of it, the "
-        f"rest uploads and the step loop's enqueues), wait for the device {wait_s:.4f} s, collect (copy + "
-        f"replay + OutputBeams) {collect_s:.4f} s; output copy of one group ({out_bytes} bytes): pinned "
-        f"buffer {stages['fetch_pinned_ms']:.4f} ms, plain .cpu() {stages['fetch_plain_ms']:.4f} ms "
-        f"(medians of {len(fetch_ms['plain'])}) [{card}]")
+    piped = pipelined("serving", decoder, [lm], logits, serve_kw, serve_beams, wrappers)
 
     # ---- the segments phase: the eager loop against captured graphs (dense, serving), segment sizes
-    t_seg = time.perf_counter()
-    seg_rec = {}
     dense_call, serve_call = dict(dense_kw, **beams_kw), dict(serve_kw, **beams_kw)
-    seg_rec["dense"], dense_by_seg = segments_case(torch, "dense", decoder, [lm], logits, dense_call, [t_max],
-                                                   dense_prep_s(logits), audio_s, wrappers, card)
-    seg_rec["serving"], _ = segments_case(torch, "serving", decoder, [lm], logits, serve_call,
-                                          plan["group_steps"], plan["prep_s"], audio_s, wrappers, card)
-    seg_rec["dense_sizes"], sized = segments_case(torch, "dense", decoder, [lm], logits, dense_call, [t_max],
-                                                  dense_prep_s(logits), audio_s, wrappers, card,
-                                                  seg_values=SEG_SIZES, profile=False)
+    dense_by_seg = segments_case("dense", decoder, [lm], logits, dense_call, [t_max], wrappers)
+    segments_case("serving", decoder, [lm], logits, serve_call, plan["group_steps"], wrappers)
+    sized = segments_case("dense", decoder, [lm], logits, dense_call, [t_max], wrappers, seg_values=SEG_SIZES)
     check_same_results("dense: the other segment sizes vs the eager loop", dense_by_seg[0], sized[SEG_SIZES[0]], 0.0)
     del dense_by_seg, sized
     # the decode's end: the eager finalize and plain backtrace against the captured finalize and the kernel
-    seg_rec["tail_dense"], dense_bt = tail_case(torch, "dense", decoder, logits, dense_call, card)
-    seg_rec["tail_serving"], serve_bt = tail_case(torch, "serving", decoder, logits, serve_call, card)
+    dense_bt = tail_case(torch, "dense", decoder, logits, dense_call)
+    serve_bt = tail_case(torch, "serving", decoder, logits, serve_call)
     bt_cases = {"dense": dense_bt["full"], f"dense top_n={beams_kw['top_n']}": dense_bt["top"],
                 "serving group": serve_bt["full"]}
     del dense_bt, serve_bt
-    seg_rec["seconds"] = time.perf_counter() - t_seg
-    log(f"[segments] dense and serving in {seg_rec['seconds']:.1f} s")
 
     # ---- CPU cross-check of the first utterances (plain versions), both paths
-    t0 = time.perf_counter()
     cpu_dec = P.TorchBeamSearchDecoderCTC(
         P.Alphabet.build_alphabet(LIBRI_LABELS), lm, device="cpu"
     )
@@ -3436,38 +2518,28 @@ def main() -> int:
     for tag, kw in (("dense", dict(dense_kw, batch_pad=1)), ("serving", dict(serve_kw, batch_pad=1))):
         gpu_beams = decoder.decode_beams_batch(sub, **kw, **beams_kw)
         check(top_texts(gpu_beams) == [texts[short]], f"{tag}: batch-of-{N_UTTS} texts differ")
-        t1 = time.perf_counter()
         cpu_beams = cpu_dec.decode_beams_batch(sub, **kw, **beams_kw)
-        cpu_check[f"{tag}_cpu_s"] = time.perf_counter() - t1
         max_d = check_same_results(f"{tag}: GPU vs CPU", cpu_beams, gpu_beams, LM_SCORE_TOL)
         cpu_check[f"{tag}_max_lm_score_diff"] = max_d
         log(f"[check] {tag}: utterance {short} ({sub[0].shape[0]} frames, the shortest) whole, identical on CPU "
-            f"(max lm_score diff {max_d:.3g}; the CPU decode {cpu_check[f'{tag}_cpu_s']:.1f} s), "
-            f"{time.perf_counter() - t0:.1f} s so far")
-
-    # ---- where the device time goes: the segments phase's profiles of the graphs (the default)
-    prof, s_prof = seg_rec["dense"][SEG]["profile"], seg_rec["serving"][SEG]["profile"]
+            f"(max lm_score diff {max_d:.3g})")
+    del cpu_dec
 
     # ---- the sharded path: ShardedCTCDecoder(shard_lm=True) over a world-size-1 NCCL group
-    del cpu_dec, handles, staged
-    sharded_rec = sharded_phase(torch, P, merge, gather, decoder, corpus, dense_beams, serve_beams, windows, card)
-
-    # ---- the graph cache of one decoder that serves batches and streams, never cleared
-    cache_rec = graph_cache_phase(torch, decoder, logits, card)
+    sharded_rec = sharded_phase(torch, merge, gather, decoder, corpus, dense_beams, serve_beams)
 
     # ---- the evaluation harness: evaluate_corpus and compare_engines on the dense configuration
-    eval_rec = evaluation_phase(torch, P, merge, gather, decoder, corpus, texts, wer_greedy, card)
+    eval_rec = evaluation_phase(torch, P, merge, gather, decoder, corpus, texts, wer_greedy)
 
-    # ---- the hot2lm path: two LM members and hotwords (the single-LM
-    # decoders' tables go first, so that the peak memory is the new decoder's own)
+    # ---- the hot2lm path: two LM members and hotwords (the single-LM decoder's tables go first)
     park(decoder)
-    hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, card, wer)
+    hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, wer)
     commit_cases["hot2lm"] = record_commit(torch, multi, head, 60, hotwords=hot)
     park(multi)
 
     # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
     members = list(multi.language_model._language_models)
-    bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab, card)
+    bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab)
     replay_cases["bpe"] = record_replay(torch, bpe_dec, [m[:61] for m in bpe_logits], 60, prune_history=False)
     commit_cases["bpe"] = record_commit(torch, bpe_dec, [m[:61] for m in bpe_logits], 60)
     park(bpe_dec)
@@ -3481,11 +2553,11 @@ def main() -> int:
 
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
-                              corpus, hot, bpe_logits, card)
+                              corpus, hot, bpe_logits)
 
     # ---- the kenlm path: decoder directories over KenLM binaries (load_from_dir), probe_rows' KenLM mode
     kenlm_rec = kenlm_phase(torch, P, merge, gather, kenlm_early, decoder, members[1], corpus, dense_beams,
-                            serve_beams, arpa_build_s, card)
+                            serve_beams)
     del kenlm_early
     del decoder, multi, bpe_dec, members
 
@@ -3522,7 +2594,7 @@ def main() -> int:
             "launches_bpe_serving": bpe_rec["serving"]["launches"][kname],
             "launches_bpe_hot2lm": bpe_rec["hot2lm"]["launches"][kname],
             "launches_stream": stream_rec["launches"][kname],
-            "launches_stream_eager": stream_rec["columns"]["eager"]["launches"][kname],
+            "launches_stream_eager": stream_rec["launches_eager"][kname],
             "launches_stream_hot2lm": stream_rec["hot2lm"]["launches"][kname],
             "launches_stream_bpe": stream_rec["bpe"]["launches"][kname],
             "stream": {key: stream_rec["kernels"][kname].get(key) for key in keys},
@@ -3530,7 +2602,7 @@ def main() -> int:
             "launches_kenlm_serving": kenlm_rec["serving"]["launches"][kname],
             "launches_sharded": sharded_rec["dense"]["launches"][kname],
             "launches_sharded_serving": sharded_rec["serving"]["launches"][kname],
-            "launches_sharded_eager": sharded_rec["dense"]["eager"]["launches"][kname],
+            "launches_sharded_eager": sharded_rec["dense"]["eager_launches"][kname],
             "launches_evaluation": eval_rec["launches"][kname],
         })
         if kname == "expand_merge_prune":
@@ -3540,8 +2612,6 @@ def main() -> int:
                                ("bpe_dense_step", bpe_rec["step_kernels"]["dense"]),
                                ("bpe_serving_step", bpe_rec["step_kernels"]["serving"])):
                 kernels[-1][tag] = {key: r_bpe.get(key) for key in keys}
-            own = (bpe_rec["profile"] or {}).get("own", {}).get("expand_merge_prune_kernel")
-            kernels[-1]["bpe"]["path_ms"] = own[0] / own[1] if own and own[1] else None
         if kname in ("gather_rows", "probe_rows"):
             r_b = hot_rec["gather_member_b" if kname == "gather_rows" else "probe_member_b"]
             kernels[-1]["hot2lm_member_b"] = {key: r_b.get(key) for key in keys}
@@ -3549,7 +2619,7 @@ def main() -> int:
             for tag, r_k in (("kenlm", kenlm_rec["probe"]["kenlm dense"]),
                              ("kenlm_seeded", kenlm_rec["probe"]["kenlm dense seeded"])):
                 kernels[-1][tag] = {key: r_k.get(key) for key in keys + ("cold_ms", "hits")}
-            kernels[-1]["row_windows"] = sharded_rec["probe_windows"]
+            kernels[-1]["row_windows"] = windows
     bt = bt_rec["dense"]
     kernels.append({
         "name": "backtrace_paths", "route": "cuda", "source": "pyctcdecode_torch/csrc/backtrace.cu",
@@ -3560,7 +2630,7 @@ def main() -> int:
         "launches_serving": s_launches["backtrace_paths"], "launches_hot2lm": hot_rec["launches"]["backtrace_paths"],
         "launches_bpe": bpe_rec["launches"]["backtrace_paths"],
         "launches_stream": stream_rec["launches"]["backtrace_paths"],
-        "launches_stream_eager": stream_rec["columns"]["eager"]["launches"]["backtrace_paths"],
+        "launches_stream_eager": stream_rec["launches_eager"]["backtrace_paths"],
         "launches_kenlm": kenlm_rec["launches"]["backtrace_paths"],
         "launches_sharded": sharded_rec["dense"]["launches"]["backtrace_paths"],
         "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3577,7 +2647,7 @@ def main() -> int:
         "launches_serving": s_launches["replay_winners"], "launches_hot2lm": hot_rec["launches"]["replay_winners"],
         "launches_bpe": bpe_rec["launches"]["replay_winners"],
         "launches_stream": stream_rec["launches"]["replay_winners"],
-        "launches_stream_eager": stream_rec["columns"]["eager"]["launches"]["replay_winners"],
+        "launches_stream_eager": stream_rec["launches_eager"]["replay_winners"],
         "launches_kenlm": kenlm_rec["launches"]["replay_winners"],
         "launches_sharded": sharded_rec["dense"]["launches"]["replay_winners"],
         "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3586,17 +2656,13 @@ def main() -> int:
     record = {
         "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec, "commit": commit_rec,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
-        "gather_phases": gather_rec, "probe_phases": probe_rec,
+        "gather_phases": gather_rec, "probe_phases": probe_rec, "probe_windows": windows,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,
-                 "audio_s": audio_s, "latency_s": latency, "latencies_s": latencies,
-                 "audio_s_per_s": audio_s / latency, "peak_device_gb": peak_gb,
-                 "wer": wer, "wer_greedy": wer_greedy, "frame_sec": FRAME_SEC, "launches": launches},
-        "serving": dict(plan, options=SERVING, chunk=CHUNK, latency_s=s_latency, latencies_s=s_latencies,
-                        audio_s_per_s=audio_s / s_latency, peak_device_gb=s_peak_gb,
-                        launches=s_launches, max_lm_score_diff_vs_dense=d_score, stages=stages, **piped),
-        "cpu_check": cpu_check, "profile": prof, "profile_serving": s_prof, "segments": seg_rec, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
-        "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec, "graph_cache": cache_rec,
-        "evaluation": eval_rec,
+                 "wer": wer, "wer_greedy": wer_greedy, "launches": launches},
+        "serving": dict(plan, options=SERVING, chunk=CHUNK, launches=s_launches, max_lm_score_diff_vs_dense=d_score,
+                        pipelined_launches=piped),
+        "cpu_check": cpu_check, "hot2lm": hot_rec, "bpe": bpe_rec, "stream": stream_rec,
+        "kenlm": kenlm_rec, "native": native_rec, "sharded": sharded_rec, "evaluation": eval_rec,
         "card": smi,
         "seconds": time.perf_counter() - t_start,
     }

@@ -88,7 +88,7 @@ logger = logging.getLogger(__name__)
 
 # captured segment keys a decoder keeps (batch and stream keys alike), see _segment_graph: room for a
 # decoder that serves dense and serving batches of every row count up to 32, with and without a
-# hotword set, and streams with and without hotwords (chip_smoke.py's graph cache phase counts them)
+# hotword set, and streams with and without hotwords
 GRAPH_KEYS = 32
 
 

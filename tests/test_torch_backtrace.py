@@ -43,6 +43,7 @@ from .torch_cases import (
     piece_vocabulary,
     word_logits,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CHAR_LABELS = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["'", ""]  # V = 29
 WIDE = conformer_width(piece_vocabulary(LM_WORDS))  # V = 129

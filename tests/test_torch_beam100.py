@@ -20,6 +20,7 @@ from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 
 from .helpers import SAMPLE_LABELS, TEST_UNIGRAMS
 from .torch_cases import ARPA, ARPA_2GRAM, LM_WORDS, UNIGRAMS, assert_same_beams, piece_logits, piece_vocabulary
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CHAR_KW = dict(beam_prune_logp=-60.0, token_min_logp=-12.0, prune_history=True)
 PIECE_KW = dict(beam_prune_logp=-40.0, prune_history=True)

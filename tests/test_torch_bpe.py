@@ -39,6 +39,7 @@ from .torch_cases import (
     piece_logits,
     piece_vocabulary,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 PIECES = piece_vocabulary(LM_WORDS)
 WIDE = conformer_width(PIECES)

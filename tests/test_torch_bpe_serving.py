@@ -34,6 +34,7 @@ from .torch_cases import (
     piece_logits,
     piece_vocabulary,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 PIECES = piece_vocabulary(LM_WORDS)
 BEAM = 12

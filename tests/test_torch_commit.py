@@ -35,6 +35,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import ARPA, ARPA_2GRAM, UNIGRAMS, kenlm64_fp_tables
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # The test 3-gram grown to a 4-gram: two 4-grams whose prefixes and suffixes are all present.
 ARPA_4GRAM = (
@@ -48,15 +49,6 @@ ARPA_4GRAM = (
 ARPAS = {2: ARPA_2GRAM, 3: ARPA, 4: ARPA_4GRAM}
 N, B, ROW_W = 2, 24, 6  # utterances, beams, words of a hand-made trie row
 HOT_WEIGHT = 7.5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """Small tensors: one torch thread beside the suite's other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import BPE_LABELS, LM_WORDS, piece_vocabulary
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LABELS = [" "] + list("abcdefghijklmnopqrstuvwxyz") + ["'", ""]
 W2V2_LABELS = ["<pad>", "<s>", "</s>", "<unk>", "|", "e", "t", "a", "o", "n", "i", "h", "s", "r", "d", "l",

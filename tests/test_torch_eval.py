@@ -25,6 +25,7 @@ import pyctcdecode_torch as P
 from pyctcdecode_torch import evaluation as ev
 
 from .test_eval import LIBRI_LABELS, VOCAB, _write_arpa
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 N_UTTS = 12
 BEAM = 24

@@ -23,6 +23,7 @@ from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_tpu.models import device_tables as jdt
 
 from .test_torch_device_tables import tables  # noqa: F401  (module-scoped LM fixture)
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _table(rng, rows, width):

@@ -10,6 +10,8 @@ import torch
 from pyctcdecode_torch.ops import hashing as th
 from pyctcdecode_tpu.ops import hashing as jh
 
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+
 _EDGES = np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.uint32)
 
 

@@ -29,6 +29,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as jbuild_token_arrays
 
 from .helpers import LIBRI_LABELS, SAMPLE_LABELS, TEST_LOGITS
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 HOTWORD_SETS = [
     ["bugs"],

@@ -6,6 +6,8 @@ import sys
 import pytest
 import torch
 
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = """
@@ -20,6 +22,7 @@ import pyctcdecode_torch.parallel.batch, pyctcdecode_torch.parallel.launch
 import pyctcdecode_torch.utils.profiling, pyctcdecode_torch.utils.tuning
 from pyctcdecode_torch.evaluation import FIXTURE_DIFFICULTY, compare_engines, evaluate_corpus, _decode_all
 from pyctcdecode_torch.utils import CharTrie, character_error_rate, normalize_to_logp_torch
+
 bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'pyctcdecode_tpu'))
 assert not bad, bad
 print('clean')
@@ -104,7 +107,7 @@ def test_every_new_module_is_in_the_source_scan():
     scanned = {os.path.relpath(path, REPO) for path in _port_sources()}
     for rel in ("pyctcdecode_torch/ops/gather.py", "pyctcdecode_torch/csrc/gather.cu",
                 "pyctcdecode_torch/csrc/build.py", "pyctcdecode_torch/utils/logits.py",
-                "pyctcdecode_torch/models/hotwords.py", "scripts/torch_decode_latency.py",
+                "pyctcdecode_torch/models/hotwords.py",
                 "pyctcdecode_torch/models/kenlm_bin.py", "pyctcdecode_torch/models/kenlm_trie.py",
                 "pyctcdecode_torch/models/binfmt.py", "chip_smoke.py",
                 "pyctcdecode_torch/csrc/ctclm.cpp", "pyctcdecode_torch/csrc/native.py",

@@ -53,6 +53,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
 from .torch_cases import ARPA, ARPA_2GRAM, UNIGRAMS, assert_same_beams, assert_same_views, word_logits
+from .torch_cases import jax_native, one_torch_thread  # noqa: F401  (autouse fixtures)
 
 FORMATS = ("probing", "trie", "quant_trie")
 MEMBER_B = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, score_boundary=False)

@@ -12,6 +12,8 @@ import pytest
 from pyctcdecode_torch.utils import logits as tl
 from pyctcdecode_tpu.utils import logits as jl
 
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+
 V = 9
 BLANK = V - 1
 

@@ -26,6 +26,7 @@ from .torch_cases import (
     torch_merge_args,
     torch_planes,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.mark.parametrize("n,k,b,seed", [(1, 6, 16, 3), (1, 1, 24, 4), (3, 5, 12, 5)])

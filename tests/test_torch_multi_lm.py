@@ -24,6 +24,7 @@ from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
 from .torch_cases import ARPA, ARPA_2GRAM, UNIGRAMS, assert_same_beams, state_contexts, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # the mixed members of the JAX package's own multi-LM test
 MEMBER_A = dict(alpha=0.8, beta=0.5, unk_score_offset=-2.0)

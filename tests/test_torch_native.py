@@ -37,6 +37,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
 from .test_native import _random_arpa
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
+from .torch_cases import jax_native, one_torch_thread  # noqa: F401  (autouse fixtures)
 
 
 @pytest.fixture(scope="module")

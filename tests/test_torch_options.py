@@ -24,6 +24,7 @@ from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import ARPA, ARPA_2GRAM, UNIGRAMS, assert_same_beams, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 BEAM = 8
 BATCH = [word_logits(31, 29), word_logits(32, 14), word_logits(33, 36)]

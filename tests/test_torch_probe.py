@@ -27,6 +27,7 @@ from pyctcdecode_tpu.ops.tokens import build_token_arrays as j_tokens
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import ARPA, UNIGRAMS
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GEOMETRY = (tdt._BUCKET_SLOTS, tdt._SUB_WIDTH)
 EMPTY = 0xFFFFFFFF

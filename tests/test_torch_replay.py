@@ -15,6 +15,7 @@ from pyctcdecode_torch import torch_decoder as tdec
 from pyctcdecode_tpu import tpu_decoder as jdec
 
 from .torch_cases import BPE_LABELS, LM_WORDS, piece_vocabulary
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 LABELS = [" ", "a", "b", "c", "'", ""]
 BLANK = LABELS.index("")

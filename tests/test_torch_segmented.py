@@ -38,6 +38,7 @@ from .torch_cases import (
     piece_vocabulary,
     word_logits,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 BEAM = 8
 BATCH = [word_logits(7, 31), word_logits(8, 13), word_logits(9, 39), word_logits(10, 22)]

@@ -40,6 +40,7 @@ from pyctcdecode_tpu.models.ngram import read_arpa
 
 from .helpers import SAMPLE_LABELS, TEST_LOGITS
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
+from .torch_cases import jax_native, one_torch_thread  # noqa: F401  (autouse fixtures)
 
 ATTRS = dict(alpha=0.7, beta=2.5, unk_score_offset=-8.0, score_boundary=False)
 BATCH = [word_logits(30, 28), word_logits(31, 35)]

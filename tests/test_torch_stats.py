@@ -33,6 +33,7 @@ from .torch_cases import (
     piece_vocabulary,
     word_logits,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 BEAM = 8
 BATCH = [word_logits(7, 31), word_logits(8, 12), word_logits(9, 40), word_logits(10, 25)]

@@ -48,6 +48,7 @@ from .torch_cases import (
     piece_vocabulary,
     word_logits,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 PIECES = piece_vocabulary(LM_WORDS)
 MEMBER_B = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, score_boundary=False)

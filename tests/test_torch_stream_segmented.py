@@ -45,6 +45,7 @@ from .torch_cases import (
     piece_vocabulary,
     word_logits,
 )
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 SEGMENTS = [1, 4, 16]
 WIDE = conformer_width(piece_vocabulary(LM_WORDS))  # V = 129

@@ -22,6 +22,7 @@ from pyctcdecode_tpu.models.ngram import NGramModel as JNGramModel
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 BEAM = 8
 

@@ -25,6 +25,7 @@ from pyctcdecode_torch.utils import profiling
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import ARPA, UNIGRAMS, assert_same_beams, assert_same_views, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 BEAM = 8
 BATCH = [word_logits(31, 45), word_logits(32, 17), word_logits(33, 38)]

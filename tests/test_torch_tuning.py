@@ -23,6 +23,7 @@ from pyctcdecode_tpu.utils.tuning import grid_search_alpha_beta as j_grid_search
 
 from .helpers import SAMPLE_LABELS, TEST_LOGITS, TEST_PROBS
 from .torch_cases import ARPA, UNIGRAMS, word_logits
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GRID = dict(alphas=(0.0, 1.0), betas=(0.0, 1.5), beam_width=16)
 LOGITS = [np.asarray(TEST_PROBS), np.asarray(TEST_LOGITS), word_logits(3, 20)]

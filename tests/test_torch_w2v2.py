@@ -21,7 +21,6 @@ The same decodes on the card are in ``test_torch_w2v2_cuda``, which imports
 no JAX.
 """
 import pytest
-import torch
 
 import pyctcdecode_torch as P
 import pyctcdecode_tpu as J
@@ -32,6 +31,7 @@ from pyctcdecode_torch.utils import profiling
 from pyctcdecode_tpu.decoder import Beam as JBeam
 
 from .torch_cases import SCORE_TOL, assert_same_beams, assert_same_views
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
 from .w2v2_cases import (
     ARPA,
     BEAM,
@@ -48,16 +48,6 @@ from .w2v2_cases import (
     path_logits,
     random_logits,
 )
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The torch engine at beam 16 is hundreds of tiny ops a step: beside the suite's other workers, a
-    thread pool a process makes each op wait on idle cores (about 20x slower), so these decodes run on one."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,8 @@ from pyctcdecode_torch.ops import replay as tr
 from pyctcdecode_torch.ops.merge import DEAD
 from pyctcdecode_torch.ops.tokens import KIND_BLANK, KIND_BOUNDARY, KIND_REGULAR
 
+from .torch_cases import one_torch_thread  # noqa: F401  (autouse fixture)
+
 N, B, K, RING = 2, 4, 3, 2
 BLANK, SPACE, LETTER = 0, 1, 2  # token ids of the table below
 OUT = (torch.int8, torch.int8)

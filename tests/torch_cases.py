@@ -1,9 +1,19 @@
-"""Shared cases for the port's tests: merge-kernel inputs, a tiny 3-gram, beam checks.
+"""Shared cases for the port's tests: merge-kernel inputs, a tiny 3-gram, beam checks, two fixtures.
 
 Imports numpy, torch and the port only (no JAX), so the card tests (``test_torch_kernels_cuda``)
-can use it on a machine without JAX.
+can use it on a machine without JAX. A test module that imports a fixture by name
+(``from .torch_cases import one_torch_thread``) runs all its tests under it.
 """
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
 import numpy as np
+import pytest
 import torch
 
 ATOL = 1e-5
@@ -316,3 +326,67 @@ def kenlm64_fp_tables(ngrams, order):
         tables.append(build_fp_table_from_hashes(kenlm_chain_host(keys), probs, backoffs, n))
     return tables
 
+
+
+# ---- fixtures a test module imports by name
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The torch engine on the CPU is hundreds of tiny ops a step: beside the suite's other workers, a
+    thread pool a process makes each op wait on busy cores (about 20x slower), so a module's tests run
+    on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+JAX_NATIVE_SOURCE = Path(__file__).resolve().parents[1] / "pyctcdecode_tpu" / "csrc" / "ctclm.cpp"
+
+
+@functools.lru_cache(maxsize=None)
+def jax_native_library():
+    """The JAX package's ``ctclm.cpp`` built with its package's flags into a library of its own, loaded once a process.
+
+    The JAX package's build writes its library in place, so a test worker
+    may load it half-written while another writes it, and its loader then
+    gives up for the rest of the process. This copy compiles to a temporary
+    file that is renamed to ``build/libctclm-jax-<hash>.so`` (the hash of
+    the source): a worker loads a whole file or builds its own. ``None``
+    where ``g++`` is missing or fails.
+    """
+    from pyctcdecode_torch.csrc.build import BUILD_DIR
+
+    digest = hashlib.sha256(JAX_NATIVE_SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libctclm-jax-{digest}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-o", tmp,
+                            str(JAX_NATIVE_SOURCE)], check=True, capture_output=True)
+        except (OSError, subprocess.CalledProcessError):
+            os.unlink(tmp)
+            return None
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native():
+    """The JAX package's native ARPA reader on :func:`jax_native_library` for the module's tests.
+
+    Handed to the package through its own ``_bind``; its state is put back
+    after the module. Where the library does not build, the package's own
+    loader runs as it would without this fixture.
+    """
+    lib = jax_native_library()
+    if lib is None:
+        yield None
+        return
+    from pyctcdecode_tpu import csrc
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(csrc, "_LIB", csrc._bind(lib))
+        patch.setattr(csrc, "_LIB_FAILED", False)
+        yield lib
