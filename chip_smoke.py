@@ -52,8 +52,9 @@ check exits non-zero and prints no result line):
 6. dense path: ``decode_batch`` of 32 synthetic dev-other utterances at beam
    100 with every token expanded (K = 29). The launch counters must show one
    ``expand_merge_prune``, one ``replay_winners``, one ``gather_rows`` (trie
-   rows) and one ``commit_words`` launch (the word commit, its probes
-   in-kernel) per launched step, and per finalization one ``merge_prune``,
+   rows), one ``commit_words`` launch (the word commit, its probes
+   in-kernel) and one ``walk_partial`` launch (the trie walk and partial
+   score) per launched step, and per finalization one ``merge_prune``,
    two ``probe_rows`` (the last word and ``</s>``) and one
    ``backtrace_paths`` launch; the same decode again gives the same texts;
 7. serving path: the same utterances through ``decode_batch(...,
@@ -139,7 +140,15 @@ check exits non-zero and prints no result line):
    char step [32, 100], the same with ``collect_stats`` and at N = 1, the
    hot2lm step (two members, the hotwords) and the bpe dense step; each
    timed beside the plain version, with its bound;
-16. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
+16. trie walk: ``walk_partial`` (``csrc/walk.cu``) against its plain version
+   (the step's PyTorch composition), bit-exact, on the arguments one real
+   step gave it (frame 60): the dense char step [32, 100] (K 29, one level),
+   the dense step over wav2vec2-base-960h's 32 labels with the same LM (K 32,
+   ``</s>``: four levels), the bpe dense step (K 129, five levels), the
+   hot2lm step (two members, the hotwords) and an N = 1 stream step; each
+   timed back to back, warm and with the L2 cache flushed before each call,
+   beside the plain version and its bound;
+17. stream: ``get_starting_state`` / ``partial_decode_beams`` in chunks of 25
    frames, beam 100, each decoder's tables put back on the card for it,
    every path in two columns: through captured graphs (the default) and on a
    ``with_options(segment_frames=0)`` clone (the eager loop). The graph
@@ -158,7 +167,7 @@ check exits non-zero and prints no result line):
    CPU. hot2lm's stream equals the full decode, and with the hotword list
    written anew from the middle chunk on, the host oracle's top views; the
    bpe stream equals the full decode;
-17. kenlm: the decoder over member A's PROBING binary (phase 5) saved with
+18. kenlm: the decoder over member A's PROBING binary (phase 5) saved with
    ``save_to_dir`` and loaded back with
    ``TorchBeamSearchDecoderCTC.load_from_dir``; its ``probe_rows`` on a real
    dense step bit-exact; the 32 utterances dense and serving: texts, frames
@@ -235,6 +244,10 @@ BPE_QUOTA = {2: 13, 3: 12, 4: 12}  # multi-letter pieces by length, word-initial
 BPE_V, BPE_LMAX = 129, 5  # logit columns; the longest label, ▁ + 4 letters
 BPE_FRAME_SEC = 0.04
 BPE_SEED = 3
+# the w2v2 walk case: wav2vec2-base-960h's tokenizer's 32 outputs in order (<pad> the blank, | the
+# word delimiter), the char corpus's logits moved to their columns, the markers at each frame's floor
+W2V2_LABELS = ["<pad>", "<s>", "</s>", "<unk>", "|", "e", "t", "a", "o", "n", "i", "h", "s", "r", "d", "l",
+               "u", "m", "w", "c", "f", "g", "y", "p", "b", "v", "k", "'", "x", "j", "q", "z"]
 # the stream path: chunks of 0.5 s of audio at 0.02 s a frame
 STREAM_UTTS, STREAM_CHUNK = 2, 25
 STREAM_CPU_CHUNKS = 2  # chunks of one stream held against the CPU (the plain versions take ~0.1 s a frame there)
@@ -1084,6 +1097,115 @@ def commit_phase(torch, cases: dict, card: str) -> dict:
     return out
 
 
+def record_walk(torch, run, step: int):
+    """The arguments ``walk_partial`` gets at its ``step``-th call while ``run()`` decodes on the eager loop, cloned."""
+    from pyctcdecode_torch import engine
+
+    walk, seen, kept = engine.walk_partial, [0], []
+
+    def recorder(lms, hot, prm, state, toks, tok, trie_rows, is_bpe):
+        if seen[0] == step:
+            kept.append((lms, hot, prm, {key: val.clone() for key, val in state.items()}, toks.clone(), tok,
+                         [rows.clone() for rows in trie_rows], is_bpe))
+        seen[0] += 1
+        return walk(lms, hot, prm, state, toks, tok, trie_rows, is_bpe)
+
+    engine.walk_partial = recorder
+    try:  # on the eager loop: a captured segment's replay calls no wrapper
+        run()
+    finally:
+        engine.walk_partial = walk
+    torch.cuda.synchronize()
+    check(len(kept) == 1, f"a decode of {seen[0]} steps did not reach step {step}")
+    return kept[0]
+
+
+def record_walk_batch(torch, decoder, logits, step: int, **decode_kw):
+    """``record_walk`` over a batch decode of ``logits``."""
+    eager = decoder.with_options(segment_frames=0)
+    return record_walk(torch, lambda: eager.decode_beams_batch(logits, beam_width=BEAM, **decode_kw), step)
+
+
+def record_walk_stream(torch, decoder, mat, step: int):
+    """``record_walk`` over one stream of ``mat`` in ``STREAM_CHUNK``-frame chunks (N = 1 steps)."""
+    eager = decoder.with_options(segment_frames=0)
+
+    def run():
+        state = eager.get_starting_state(beam_width=BEAM)
+        for a in range(0, step + 1, STREAM_CHUNK):
+            eager.partial_decode_beams(state, mat[a : a + STREAM_CHUNK])
+
+    return record_walk(torch, run, step)
+
+
+def w2v2_logits(logits) -> list:
+    """The char corpus's logits in wav2vec2-base-960h's 32 columns; the markers at each frame's floor."""
+    src = {"<pad>": "", "|": " "}
+    out = []
+    for m in logits:
+        cols = [m[:, LIBRI_LABELS.index(src.get(lab, lab))] if src.get(lab, lab) in LIBRI_LABELS else m.min(axis=1)
+                for lab in W2V2_LABELS]
+        out.append(np.stack(cols, axis=1).astype(np.float32))
+    return out
+
+
+def walk_phase(torch, cases: dict, card: str) -> dict:
+    """``walk_partial`` against its plain version on real steps' arguments, bit-exact, and timed.
+
+    ``cases``: name -> the arguments ``record_walk`` kept. Device ms over
+    ``REPS`` calls (``time_call``), back to back (warm) and with the L2
+    cache flushed before each call; the plain version's (the composition the
+    step ran before) over 5. Bound: the bytes the walk needs over the card's
+    memory rate: the state planes, tokens, token tables, seeds and fetched
+    trie rows read once, a 4-byte trie cell for every letter a walking
+    candidate reads in each trie (members and the hot trie), and the outputs
+    written once.
+    """
+    from pyctcdecode_torch.ops.walk import walk_partial, walk_partial_ref
+
+    flush = make_flush(torch, torch.device("cuda"))
+    out = {}
+    for name, args in cases.items():
+        lms, hot, prm, state, toks, tok, trie_rows, is_bpe = args
+        before = walk_partial.launches
+        got = walk_partial(*args)
+        want = walk_partial_ref(*args)
+        torch.cuda.synchronize()
+        check(walk_partial.launches == before + 1, f"walk_partial {name}: not one launch")
+        check(len(got[0]) == len(want[0]) == len(lms), f"walk_partial {name}: not one entry plane a member")
+        for i, (g, w) in enumerate(zip(got[0], want[0])):
+            check(g.dtype == w.dtype and torch.equal(g, w), f"walk_partial {name}: member {i}'s entries differ")
+        check((got[1] is None and want[1] is None) or torch.equal(got[1], want[1]),
+              f"walk_partial {name}: the hot entries differ from its plain version")
+        check(got[2].dtype == want[2].dtype and torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)),
+              f"walk_partial {name}: the partial scores differ from its plain version (bits)")
+        ms, call_ms = time_call(torch, lambda: walk_partial(*args))
+        cold_ms, _ = time_call(torch, lambda: walk_partial(*args), flush=flush)
+        plain_ms, _ = time_call(torch, lambda: walk_partial_ref(*args), reps=5)
+        n, b = state["p_len"].shape
+        k = toks.shape[1]
+        kind = tok["kind"][toks][:, None, :]
+        stay = (kind == 0) | (state["last_tok"][:, :, None] == toks[:, None, :])
+        bnd = ~stay & ((kind == 1) | (state["force"][:, :, None] if is_bpe else False))
+        letters = int(((~stay & ~bnd) * tok["raw_len"][toks][:, None, :]).sum())
+        keys = ["last_tok", "p_len", "force"] + [f"{key}{i}" for i in range(len(lms)) for key in ("p_node", "p_flags")]
+        keys += ["h_node", "h_bits"] if hot is not None else []
+        tables = [tok[key] for key in ("kind", "piece_len", "raw_len", "raw_chars")] + [lm["seed_node"] for lm in lms]
+        tables += [hot["seed"]] if hot is not None else []
+        written = got[0] + ([got[1]] if got[1] is not None else []) + [got[2]]
+        moved = (nbytes([state[key] for key in keys] + [toks] + tables + list(trie_rows) + written)
+                 + 4 * letters * (len(lms) + (hot is not None)))
+        bound, by = bound_ms(moved, 0.0)
+        lmax = int(tok["raw_chars"].shape[1])
+        out[name] = {"shape": [n, b, k, lmax, len(lms), hot is not None], "ms": ms, "cold_ms": cold_ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "max_abs_err": 0.0, "bytes": moved, "letters_walked": letters}
+        log(f"[walk_partial] {name}: [{n}, {b}, {k}], lmax {lmax}, {len(lms)} member(s), hotwords {hot is not None}, "
+            f"{letters} letters walked: equal to the plain version; {ms:.4f} ms (L2 flushed {cold_ms:.4f}, call "
+            f"{call_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound:.6f} ms ({by}, {moved} bytes) [{card}]")
+    return out
+
+
 def chain_entries(torch, parents, src) -> int:
     """Log entries the chains of ``src`` stand on: per utterance and frame, the distinct beams among them."""
     cur = src
@@ -1122,12 +1244,12 @@ def pipelined(tag: str, decoder, members, logits, serve_kw: dict, serve_beams, w
 
 
 def counters(merge, gather) -> dict:
-    from pyctcdecode_torch.ops import backtrace, commit, replay
+    from pyctcdecode_torch.ops import backtrace, commit, replay, walk
 
     return {"merge_prune": merge.merge_prune, "expand_merge_prune": merge.expand_merge_prune,
             "gather_rows": gather.gather_rows, "probe_rows": gather.probe_rows,
             "backtrace_paths": backtrace.backtrace_paths, "replay_winners": replay.replay_winners,
-            "commit_words": commit.commit_words}
+            "commit_words": commit.commit_words, "walk_partial": walk.walk_partial}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -1143,7 +1265,8 @@ def expected_counts(members, steps: int, finalizes: int, stream: bool = False, s
     """Launches that ``steps`` decode steps and ``finalizes`` finalizations imply.
 
     ``members``: the LM members (one for a plain LM, none without an LM).
-    Every step launches ``expand_merge_prune`` and ``replay_winners`` once,
+    Every step launches ``expand_merge_prune``, ``walk_partial`` and
+    ``replay_winners`` once,
     per member ``gather_rows`` once (the beams' trie rows), and the word
     commit: one ``commit_words`` launch for every member, or, over
     row-sharded tables (``sharded``), an order-1 member or more than 8 probe
@@ -1167,6 +1290,7 @@ def expected_counts(members, steps: int, finalizes: int, stream: bool = False, s
         "backtrace_paths": 0 if stream else finalizes,
         "replay_winners": steps,
         "commit_words": steps if kernel else 0,
+        "walk_partial": steps,
     }
 
 
@@ -2442,6 +2566,13 @@ def main() -> int:
     commit_cases = {"dense": record_commit(torch, decoder, head, 60),
                     "dense, stats": record_commit(torch, decoder, head, 60, collect_stats=True),
                     "n=1": record_commit(torch, decoder, head[:1], 60, batch_pad=1)}
+    walk_cases = {"char dense": record_walk_batch(torch, decoder, head, 60),
+                  "stream n=1": record_walk_stream(torch, decoder, logits[0], 60)}
+    # the w2v2 labels over the same LM: the walk's four levels (</s>) on the char path
+    w2v2_dec = P.TorchBeamSearchDecoderCTC(P.Alphabet.build_alphabet(W2V2_LABELS), decoder.language_model)
+    walk_cases["w2v2 dense"] = record_walk_batch(torch, w2v2_dec, w2v2_logits(head), 60)
+    check(int(w2v2_dec._tabs["tok"]["raw_chars"].shape[1]) == 4, "the w2v2 labels do not walk four levels")
+    del w2v2_dec
     gather_rec = gather_phases(torch, gather, step_calls)
     probe_rec = probe_phases(torch, gather, step_calls, lm_py.ngram_model.tables.ngrams)
     # probe_rows on row windows of the same tables (the sharded path's), on the same step's queries
@@ -2535,6 +2666,7 @@ def main() -> int:
     park(decoder)
     hot_rec, multi, hot = hot2lm_phase(torch, P, gather, merge, lm, corpus, vocab, wer)
     commit_cases["hot2lm"] = record_commit(torch, multi, head, 60, hotwords=hot)
+    walk_cases["hot2lm"] = record_walk_batch(torch, multi, head, 60, hotwords=hot)
     park(multi)
 
     # ---- the bpe path: a Conformer-CTC-width piece vocabulary, dense and serving
@@ -2542,6 +2674,7 @@ def main() -> int:
     bpe_dec, bpe_logits, bpe_rec = bpe_phase(torch, P, merge, gather, lm, members, hot, corpus, vocab)
     replay_cases["bpe"] = record_replay(torch, bpe_dec, [m[:61] for m in bpe_logits], 60, prune_history=False)
     commit_cases["bpe"] = record_commit(torch, bpe_dec, [m[:61] for m in bpe_logits], 60)
+    walk_cases["bpe dense"] = record_walk_batch(torch, bpe_dec, [m[:61] for m in bpe_logits], 60)
     park(bpe_dec)
     bt_cases["bpe"] = bpe_rec.pop("backtrace_args")
     bt_rec = backtrace_phase(torch, bt_cases, card)
@@ -2550,6 +2683,8 @@ def main() -> int:
     del replay_cases
     commit_rec = commit_phase(torch, commit_cases, card)
     del commit_cases
+    walk_rec = walk_phase(torch, walk_cases, card)
+    del walk_cases
 
     # ---- the stream path: get_starting_state / partial_decode_beams in 0.5 s chunks
     stream_rec = stream_phase(torch, P, merge, gather, {"char": decoder, "hot2lm": multi, "bpe": bpe_dec},
@@ -2653,8 +2788,25 @@ def main() -> int:
         "cases": {name: {key: v.get(key) for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                   for name, v in replay_rec.items()},
     })
+    wk = walk_rec["char dense"]
+    kernels.append({
+        "name": "walk_partial", "route": "cuda", "source": "pyctcdecode_torch/csrc/walk.cu",
+        "replaces": f"{reference_site('engine.py', 946)} (XLA's lowering of the partial-word extension walk, "
+                    f"_decode_trie_cells and _partial_score; no Pallas kernel)",
+        "launches": launches["walk_partial"], "max_abs_err": 0.0,
+        "ms": wk["ms"], "plain_ms": wk["plain_ms"], "bound_ms": wk["bound_ms"], "bound_by": wk["bound_by"],
+        "library_ms": None, "shape": wk["shape"],
+        "launches_serving": s_launches["walk_partial"], "launches_hot2lm": hot_rec["launches"]["walk_partial"],
+        "launches_bpe": bpe_rec["launches"]["walk_partial"],
+        "launches_stream": stream_rec["launches"]["walk_partial"],
+        "launches_stream_eager": stream_rec["launches_eager"]["walk_partial"],
+        "launches_kenlm": kenlm_rec["launches"]["walk_partial"],
+        "launches_sharded": sharded_rec["dense"]["launches"]["walk_partial"],
+        "cases": {name: {key: v.get(key) for key in ("shape", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by")}
+                  for name, v in walk_rec.items()},
+    })
     record = {
-        "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec, "commit": commit_rec,
+        "kernels": kernels, "backtrace": bt_rec, "replay": replay_rec, "commit": commit_rec, "walk": walk_rec,
         "phases": {f"{a}[{b}]": v for (a, b), v in rec.items()},
         "gather_phases": gather_rec, "probe_phases": probe_rec, "probe_windows": windows,
         "main": {"utterances": N_UTTS, "beam": BEAM, "k": K_TOKENS, "frame_steps": t_max,

@@ -30,7 +30,7 @@ from typing import Dict, Iterable, List
 
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR.parents[1] / "build"
-SOURCES = ("merge.cu", "gather.cu", "backtrace.cu", "replay.cu")  # the CUDA kernels
+SOURCES = ("merge.cu", "gather.cu", "backtrace.cu", "replay.cu", "walk.cu")  # the CUDA kernels
 NATIVE_SOURCE = "ctclm.cpp"  # the host n-gram engine
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 

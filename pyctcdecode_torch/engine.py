@@ -8,10 +8,12 @@ out: every state plane is ``[N, B, ...]`` (``decode_beams`` is the case
 
     1. LM commit scoring: fetch each beam's trie row, probe the n-gram
        fingerprint tables for the word it would commit (``_commit_quantities``);
-    2-3. expand B beams x K tokens (4-way CTC transition), merge colliding
-       candidates within each token column and window-prune — the
-       hand-written CUDA kernel :func:`~pyctcdecode_torch.ops.merge.expand_merge_prune`;
-       the trie walk and the partial-word score it needs run here in torch;
+    2-3. walk every candidate's partial word through the tries and score
+       it — the hand-written CUDA kernel
+       :func:`~pyctcdecode_torch.ops.walk.walk_partial`; expand B beams x K
+       tokens (4-way CTC transition), merge colliding candidates within each
+       token column and window-prune — the hand-written CUDA kernel
+       :func:`~pyctcdecode_torch.ops.merge.expand_merge_prune`;
     4. rank the top B (stable sort: lowest position wins ties, as
        ``lax.top_k``);
     5. select the winners, replay their transitions, optionally prune
@@ -53,11 +55,12 @@ hotword prefix takes the hotword completion score as its partial score.
 
 Labels may be longer than one character: a BPE alphabet's pieces, or a char
 alphabet's multi-character labels. A token that extends the partial word
-walks each trie (and the hot trie) one character at a time: the first
-character from the beam's fetched trie row, each later one by an element
-gather at the node reached so far. With a BPE alphabet a right-bounded piece
-(``▁⁇▁``) sets the beam's ``force`` flag, and the next token that does not
-stay starts a new word even when it is a regular piece.
+walks each trie (and the hot trie) one character at a time
+(:mod:`~pyctcdecode_torch.ops.walk`): the first character from the beam's
+fetched trie row, each later one from the trie plane at the node reached so
+far. With a BPE alphabet a right-bounded piece (``▁⁇▁``) sets the beam's
+``force`` flag, and the next token that does not stay starts a new word even
+when it is a regular piece.
 """
 from __future__ import annotations
 
@@ -68,11 +71,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .constants import AVG_TOKEN_LEN, LOG_BASE_CHANGE_FACTOR
+from .constants import LOG_BASE_CHANGE_FACTOR
 from .models.device_tables import (
-    HOT_MINCOMP_MAX,
-    HOT_MINCOMP_SHIFT,
-    HOT_NODE_MASK,
     DeviceLM,
     LMShard,
     lm_score_words,
@@ -85,12 +85,11 @@ from .ops.hashing import M32, as_lane, hash_text_commit_t, mix4_t
 from .ops.merge import DEAD, DEAD_THRESH, expand_merge_prune, merge_prune
 from .ops.replay import FLAG_ALIVE, FLAG_BND, FLAG_COMMIT, FLAG_DUP, beam_rows, replay_keys, replay_winners
 from .ops.tokens import KIND_BLANK, KIND_BOUNDARY, TokenArrays
+from .ops.walk import partial_score, walk_kernel_fits, walk_partial, walk_partial_ref
 from .utils import profiling
 
-_NODE_MASK = DeviceLM.NODE_MASK
 _BIT_IN_VOCAB = DeviceLM.BIT_IN_VOCAB
 _BIT_UNI_WORD = DeviceLM.BIT_UNI_WORD
-_BIT_UNI_PREFIX = DeviceLM.BIT_UNI_PREFIX
 _LOG10 = float(np.float32(LOG_BASE_CHANGE_FACTOR))
 
 
@@ -307,36 +306,16 @@ def _commit_quantities(cfg: EngineConfig, lms: List[Dict], prm: Dict, state: Dic
     return commit(lms, prm, state, trie_rows, cfg.use_hotwords, cfg.collect_stats)
 
 
-def _decode_trie_cells(tp: Dict[str, int], fc, word, cid):
-    """Packed trie cell -> packed child entry (node id | ``BIT_*`` flags).
+def _walk_quantities(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict, state: Dict,
+                     toks: torch.Tensor, tok: Dict, trie_rows: List[torch.Tensor]):
+    """Every candidate's packed trie entries and partial score: ``(ent, h_ent, pscore)``.
 
-    Children are stored as ``rank`` among the node's BFS-contiguous children
-    plus the child's 3 flag bits, ``cpw`` cells per i32 word (see
-    ``device_tables.trie_pack_params``): ``child = first_child + rank``; an
-    all-ones rank means no child and resolves to the dead node.
+    One :func:`~pyctcdecode_torch.ops.walk.walk_partial` launch where the
+    kernel takes the members (up to 8), else the PyTorch composition,
+    :func:`~pyctcdecode_torch.ops.walk.walk_partial_ref`.
     """
-    rb, cpw = tp["rb"], tp["cpw"]
-    bpc = rb + 3
-    shift = (cid % cpw) * bpc
-    cell = ((word.to(torch.int64) & M32) >> shift) & ((1 << bpc) - 1)
-    rank = cell & ((1 << rb) - 1)
-    flags3 = (cell >> rb) & 7
-    entry = (fc.to(torch.int64) + rank) | (flags3 << 28)
-    return torch.where(rank == (1 << rb) - 1, tp["dead"], entry)
-
-
-def _trie_cells_at(lm: Dict, node: torch.Tensor, cid: torch.Tensor):
-    """``(word, first_child)`` of ``node``'s packed trie slot for char ``cid`` (element gathers).
-
-    The walk's later characters: after the first one, the node differs per
-    (beam, token), so each reads its two words of the plane on its own. The
-    slot geometry comes from ``trie_pack``.
-    """
-    tp = lm["trie_pack"]
-    rows = lm["trie_rows"]
-    base = (node // tp["pack"]) * rows.shape[1] + (node % tp["pack"]) * tp["stride"]
-    flat = rows.reshape(-1)
-    return flat[base + 1 + cid // tp["cpw"]], flat[base]
+    walk = walk_partial if walk_kernel_fits(lms) else walk_partial_ref
+    return walk(lms, hot if cfg.use_hotwords else None, prm, state, toks, tok, trie_rows, cfg.is_bpe)
 
 
 def _path_dtype(vocab_size: int) -> torch.dtype:
@@ -363,46 +342,12 @@ def _top_b(scores: torch.Tensor, b: int):
     return srt.values[:, :b], srt.indices[:, :b]
 
 
-def _partial_score(cfg: EngineConfig, hot: Optional[Dict], prm: Dict,
-                   flag_list: List[torch.Tensor], h_entry: Optional[torch.Tensor], plen):
-    """score_partial_token for in-progress words, from the packed entry bits.
-
-    Hotword-prefix partials take the hotword completion score, weight x
-    length / shortest completion (ref decoder.py:410-418,
-    language_model.py:141-150); every other partial the member-averaged LM
-    score: 0 on the prefix of a known unigram, else the unknown-prefix
-    penalty, scaled up past ``AVG_TOKEN_LEN`` chars (ref
-    language_model.py:326-336, 478-481). ``h_entry`` is the packed hot
-    entry (node | bits), or None without hotwords.
-    """
-    plen_f = plen.to(torch.float32)
-    acc = None
-    for i in range(cfg.n_lms):
-        is_pref = (flag_list[i] & _BIT_UNI_PREFIX) != 0
-        punk = prm["lm"][i]["unk_offset"] * (~is_pref).to(torch.float32)
-        punk = torch.where(plen > AVG_TOKEN_LEN, punk * plen_f / AVG_TOKEN_LEN, punk)
-        acc = punk if acc is None else acc + punk
-    if acc is None:
-        lm_part = torch.zeros(plen.shape, dtype=torch.float32, device=plen.device)
-    else:
-        if cfg.n_lms > 1:
-            acc = acc / cfg.n_lms
-        lm_part = torch.where(plen > 0, acc, 0.0)
-    if not cfg.use_hotwords:
-        return lm_part
-    hot_pref = ((h_entry & HOT_NODE_MASK) != hot["dead"]) & (plen > 0)
-    min_comp = (h_entry >> HOT_MINCOMP_SHIFT) & HOT_MINCOMP_MAX
-    hot_part = prm["hot_weight"] * plen_f / min_comp.clamp(min=1).to(torch.float32)
-    return torch.where(hot_pref, hot_part, lm_part)
-
-
 def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
                n_frames: torch.Tensor):
     """Build the per-frame (timeline: per-chunk) step over ``[N, B]`` state planes."""
     b, k, v = cfg.beam_width, cfg.k_tokens, cfg.vocab_size
     tl = cfg.token_timeline
     tok_dev, lms = tables["tok"], tables["lms"]
-    lmax = int(tok_dev["raw_chars"].shape[1])  # longest label, in chars
     n_lms, use_hot = cfg.n_lms, cfg.use_hotwords
     device = n_frames.device
     n = n_frames.shape[0]
@@ -417,7 +362,7 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
     out_dtypes = (_parent_dtype(b), _path_dtype(v))  # the backpointers as the logs keep them
 
     def step(state: Dict, xs, t):
-        """One frame: commit scores -> expand+merge+prune (kernel) -> top-B -> replay (kernel).
+        """One frame: commit (kernel) -> walk (kernel) -> expand+merge+prune (kernel) -> top-B -> replay (kernel).
 
         ``xs`` is the frame's log-prob row ``[N, V]``, or with
         ``cfg.token_timeline`` one chunk ``(toks [N, K] (-1: empty slot),
@@ -448,8 +393,6 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
 
         tok_kind = tok_dev["kind"][toks]  # [N, K]
         tok_right = tok_dev["right_bound"][toks]
-        tok_plen = tok_dev["piece_len"][toks]
-        tok_rlen = tok_dev["raw_len"][toks]
         cids = tok_dev["raw_chars"][toks]  # [N, K, lmax], -1 past the label's end
         seed_lo_k = tok_dev["seed_lo"][toks]
         seed_hi_k = tok_dev["seed_hi"][toks]
@@ -463,61 +406,9 @@ def _make_step(cfg: EngineConfig, tables: Dict, hot: Optional[Dict], prm: Dict,
         ]
         cm = _commit_quantities(cfg, lms, prm, state, trie_rows_b)
 
-        # ---- transition classes [N, B, K]: the trie walks and the partial
-        # score need them here; the kernel re-derives the rest in registers
-        stay = blank[:, None, :] | (state["last_tok"][:, :, None] == toks[:, None, :])
-        if cfg.is_bpe:
-            # after a right-bounded piece every token that does not stay starts a word
-            as_boundary = ~stay & (boundary_kind[:, None, :] | state["force"][:, :, None])
-        else:
-            as_boundary = ~stay & boundary_kind[:, None, :]
-        p_entry_n: List[torch.Tensor] = []  # per member: packed trie entry [N, B, K]
-        h_entry_n = None  # packed hot entry [N, B, K]
-        if n_lms or use_hot:
-            # extension walk over the label's chars; an entry stays put past the label's end
-            cur_n = [(state[f"p_node{i}"] | state[f"p_flags{i}"])[..., None] for i in range(n_lms)]
-            ext_n = [c.expand(n, b, k) for c in cur_n]
-            h_cur = (state["h_node"] | state["h_bits"])[..., None] if use_hot else None
-            h_ext = h_cur.expand(n, b, k) if use_hot else None
-            for l in range(lmax):
-                cid = cids[..., l]
-                has = (cid >= 0)[:, None, :]
-                cid_safe = cid.clamp(min=0)[:, None, :]
-                for i, lm in enumerate(lms):
-                    tp = lm["trie_pack"]
-                    if l == 0:
-                        # the first char from the beam's own row [N, B, W]
-                        rows = trie_rows_b[i]
-                        col = (1 + cid_safe // tp["cpw"]).expand(n, b, k)
-                        word, fc = rows.gather(2, col), rows[..., 0:1]
-                    else:
-                        word, fc = _trie_cells_at(lm, ext_n[i] & _NODE_MASK, cid_safe)
-                    ext_n[i] = torch.where(has, _decode_trie_cells(tp, fc, word, cid_safe), ext_n[i])
-                if use_hot:
-                    if l == 0:  # the beam's hot-trie row, then the token's char column
-                        h_ent = hot["next"][state["h_node"]].gather(2, cid_safe.expand(n, b, k))
-                    else:
-                        h_ent = hot["next"][h_ext & HOT_NODE_MASK, cid_safe]
-                    h_ext = torch.where(has, h_ent, h_ext)
-
-            def walked(cur, seed_entry, ent):
-                return torch.where(stay, cur, torch.where(as_boundary, seed_entry, ent))
-
-            for i, lm in enumerate(lms):
-                p_entry_n.append(walked(cur_n[i], lm["seed_node"][toks][:, None, :], ext_n[i]))
-            if use_hot:
-                h_entry_n = walked(h_cur, hot["seed"][toks][:, None, :], h_ext)
-            p_len = state["p_len"][..., None]
-            p_len_n = torch.where(
-                stay, p_len,
-                torch.where(as_boundary, tok_plen[:, None, :], p_len + tok_rlen[:, None, :]),
-            )
-            pscore = _partial_score(
-                cfg, hot, prm, [e & ~_NODE_MASK for e in p_entry_n], h_entry_n, p_len_n
-            )
-            pscore = pscore.transpose(1, 2).contiguous()  # [N, K, B]
-        else:
-            pscore = torch.zeros((n, k, b), dtype=torch.float32, device=device)
+        # ---- the trie walk and the partial score, [N, B, K] / [N, K, B]; the
+        # merge kernel below re-derives the transition classes in registers
+        p_entry_n, h_entry_n, pscore = _walk_quantities(cfg, lms, hot, prm, state, toks, tok_dev, trie_rows_b)
 
         # ---- stages 2-3 on the kernel: [N, K, B] token-major candidates
         beam = {
@@ -733,7 +624,8 @@ def _finalize(cfg: EngineConfig, lms: List[Dict], hot: Optional[Dict], prm: Dict
         # the partials survive with their partial score; the key is the whole beam's
         h_entry = state["h_node"] | state["h_bits"] if cfg.use_hotwords else None
         flag_list = [state[f"p_flags{i}"] for i in range(cfg.n_lms)]
-        extra = fused_scored + _partial_score(cfg, hot, prm, flag_list, h_entry, state["p_len"])
+        extra = fused_scored + partial_score(cfg.n_lms, hot if cfg.use_hotwords else None, prm, flag_list,
+                                                 h_entry, state["p_len"])
         last_u = (state["last_tok"] + 2) & M32
         force_u = state["force"].to(torch.int64)
         kl = mix4_t(text_lo, state["p_lo"], last_u, force_u)

@@ -8,6 +8,7 @@ def kernel_wrappers():
     from .gather import gather_rows, probe_rows
     from .merge import expand_merge_prune, merge_prune
     from .replay import replay_winners
+    from .walk import walk_partial
 
     return (expand_merge_prune, merge_prune, gather_rows, probe_rows, backtrace_paths, replay_winners,
-            commit_words)
+            commit_words, walk_partial)

@@ -115,13 +115,14 @@ def test_every_new_module_is_in_the_source_scan():
                 "pyctcdecode_torch/parallel/batch.py", "pyctcdecode_torch/parallel/launch.py",
                 "pyctcdecode_torch/utils/profiling.py", "pyctcdecode_torch/utils/tuning.py",
                 "pyctcdecode_torch/ops/backtrace.py", "pyctcdecode_torch/csrc/backtrace.cu",
+                "pyctcdecode_torch/ops/walk.py", "pyctcdecode_torch/csrc/walk.cu",
                 "pyctcdecode_torch/evaluation.py", "pyctcdecode_torch/utils/__init__.py",
                 "pyctcdecode_torch/utils/metrics.py", "scripts/torch_eval_corpus.py",
                 "scripts/torch_sharded_ranks.py"):
         assert rel in scanned, rel
 
 
-@pytest.mark.parametrize("wrapper", ["gather_rows", "merge_prune", "backtrace_paths"])
+@pytest.mark.parametrize("wrapper", ["gather_rows", "merge_prune", "backtrace_paths", "walk_partial"])
 def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkeypatch):
     """A tensor that is not on the CPU launches the kernel or raises.
 
@@ -129,7 +130,7 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkey
     wrapper must refuse it, not answer with the plain version. Where the
     request is for CUDA and there is no CUDA, the tensor cannot even be made.
     """
-    from pyctcdecode_torch.ops import backtrace, gather, merge
+    from pyctcdecode_torch.ops import backtrace, gather, merge, walk
 
     def plain_version_ran(*args, **kwargs):
         raise AssertionError("the plain version ran for a tensor that is not on the CPU")
@@ -137,11 +138,19 @@ def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(wrapper, monkey
     monkeypatch.setattr(gather, "gather_rows_ref", plain_version_ran)
     monkeypatch.setattr(merge, "merge_prune_ref", plain_version_ran)
     monkeypatch.setattr(backtrace, "backtrace_paths_ref", plain_version_ran)
+    monkeypatch.setattr(walk, "walk_partial_ref", plain_version_ran)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         if wrapper == "backtrace_paths":
             log = torch.zeros((1, 3, 4), dtype=torch.int8, device=meta)
             backtrace.backtrace_paths(log, log, torch.zeros((1, 2), dtype=torch.int64, device=meta))
+        elif wrapper == "walk_partial":
+            i64 = torch.zeros((1, 4), dtype=torch.int64, device=meta)
+            state = {"last_tok": i64, "p_len": i64, "force": i64.to(torch.bool)}
+            tok = {key: torch.zeros((5,), dtype=torch.int64, device=meta) for key in ("kind", "piece_len", "raw_len")}
+            tok["raw_chars"] = torch.zeros((5, 2), dtype=torch.int64, device=meta)
+            walk.walk_partial([], None, {"lm": []}, state, torch.zeros((1, 5), dtype=torch.int64, device=meta), tok,
+                              [], False)
         elif wrapper == "gather_rows":
             gather.gather_rows(
                 torch.zeros((8, 64), dtype=torch.int32, device=meta),

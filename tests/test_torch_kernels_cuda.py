@@ -19,6 +19,7 @@ from pyctcdecode_torch.ops import commit as tc
 from pyctcdecode_torch.ops import gather as tg
 from pyctcdecode_torch.ops import merge as tm
 from pyctcdecode_torch.ops import replay as tr
+from pyctcdecode_torch.ops import walk as tw
 
 from .helpers import SAMPLE_LABELS
 from .torch_cases import (
@@ -40,6 +41,9 @@ from .torch_cases import (
     torch_planes,
     word_logits,
 )
+from .w2v2_cases import random_logits as w2v2_logits
+from .walk_cases import CASES as WALK_CASES
+from .walk_cases import HOT_WEIGHT, HOTWORDS, walk_decoder, walk_inputs
 
 
 def assert_same_batch(want, got):
@@ -435,8 +439,10 @@ def test_gpu_decode_matches_cpu_decode(tmp_path):
     gather_before = tg.gather_rows.launches
     probe_before = tg.probe_rows.launches
     commit_before = tc.commit_words.launches
+    walk_before = tw.walk_partial.launches
     got = gpu.decode_beams_batch(batch, **kw)
     steps = tm.expand_merge_prune.launches - expand_before
+    assert tw.walk_partial.launches - walk_before == steps
     assert tm.merge_prune.launches - merge_before == 2  # one finalize per group
     assert tg.gather_rows.launches - gather_before == steps
     assert tc.commit_words.launches - commit_before == steps
@@ -797,3 +803,78 @@ def test_commit_words_matches_plain_version_on_real_steps(tmp_path, monkeypatch,
     seen = _commit_checked(monkeypatch)
     dec.decode_beams_batch(batch, **kw)
     assert seen["calls"] >= 17 and seen["commits"] > 0 and seen["idle"] > 0 and seen["ngram_hits"] > 0
+
+
+def _same_walk(got, want):
+    """Two ``walk_partial`` answers equal to the bit: the entry planes, the hot entries, the scores' bits."""
+    (g_ent, g_h, g_score), (w_ent, w_h, w_score) = got, want
+    assert len(g_ent) == len(w_ent)
+    for g, w in zip(g_ent, w_ent):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (g_h is None) == (w_h is None)
+    if w_h is not None:
+        assert g_h.dtype == w_h.dtype and torch.equal(g_h, w_h)
+    assert g_score.dtype == w_score.dtype and g_score.shape == w_score.shape
+    assert torch.equal(g_score.view(torch.int32), w_score.view(torch.int32))  # a -0.0 is not a 0.0
+
+
+def _walk_checked(monkeypatch):
+    """Put a checker in place of the engine's ``walk_partial``: each step's kernel against its twin."""
+    seen = {"calls": 0}
+    kernel = engine.walk_partial
+
+    def checked(*args):
+        before = tw.walk_partial.launches
+        got = kernel(*args)
+        want = tw.walk_partial_ref(*args)
+        torch.cuda.synchronize()
+        assert tw.walk_partial.launches == before + 1
+        _same_walk(got, want)
+        seen["calls"] += 1
+        return got
+
+    monkeypatch.setattr(engine, "walk_partial", checked)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES)
+def test_walk_partial_matches_plain_version(tmp_path, monkeypatch, case):
+    """``walk_partial`` against ``walk_partial_ref`` to the bit, and one launch a step.
+
+    The CPU tests' seeded steps (``tests/walk_cases.py``: one-letter labels,
+    wav2vec2's 32, 129 BPE pieces, two members with hotwords on timeline
+    chunks, beams in the corners), with the parameters as host numbers and
+    as the segment programs' device views; then every step of a real decode
+    of the case's decoder at beam 100 (the eager loop); then the same decode
+    through the captured graphs, one ``walk_partial`` launch a step.
+    """
+    _cuda()
+    dec = walk_decoder(case, tmp_path, "cuda")
+    for seed, on_device in ((1, False), (2, True)):
+        args = walk_inputs(case, dec, seed, params_on_device=on_device)
+        before = tw.walk_partial.launches
+        got = tw.walk_partial(*args)
+        want = tw.walk_partial_ref(*args)
+        torch.cuda.synchronize()
+        assert tw.walk_partial.launches == before + 1
+        _same_walk(got, want)
+    kw = dict(beam_width=100, prune_history=True)
+    if case in ("two members, hotwords", "edges"):
+        kw.update(hotwords=HOTWORDS, hotword_weight=HOT_WEIGHT)
+    if case == "two members, hotwords":
+        kw.update(token_chunking=3, blank_collapse=True, length_bucketing=2)
+    if case == "w2v2":
+        batch = [w2v2_logits(seed, t) for seed, t in ((1, 33), (2, 17), (3, 40))]
+    elif case in ("bpe", "edges"):
+        batch = [piece_logits(seed, dec._labels, 6) for seed in range(3)]
+    else:
+        batch = [word_logits(11, 33), word_logits(12, 17), word_logits(13, 40)]
+    seen = _walk_checked(monkeypatch)
+    dec.with_options(segment_frames=0).decode_beams_batch(batch, **kw)  # the eager loop: a call a step
+    assert seen["calls"] >= 17
+    monkeypatch.undo()
+    before = {fn: fn.launches for fn in (tm.expand_merge_prune, tw.walk_partial)}
+    dec.decode_beams_batch(batch, **kw)  # the captured segment graphs
+    used = {fn: fn.launches - n for fn, n in before.items()}
+    assert used[tw.walk_partial] == used[tm.expand_merge_prune] > 0
