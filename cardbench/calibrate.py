@@ -69,25 +69,23 @@ def _top(beams) -> str:
 
 def mismatches(cell: Cell, answers, inputs, ref) -> list:
     """The answers whose top beam differs from the reference's: both top texts, and the host engine's."""
-    import pyctcdecode_torch as P
-
-    s, dec = cell.search, cell.cfg["decoder"]
+    s = cell.search
     host = None
     out = []
     for key, ans in answers:
         want = cell.reference_answer(ref, inputs, key)
-        got = cell.pairs([(key, judge.program_output(ans, ref.lm.words) if cell.kind == "batch"
+        got = cell.pairs([(key, judge.program_output(ans, cell.words()) if cell.kind == "batch"
                            else [judge.program_view(v) if v else None for v in ans])], {key: want})
         bad = [(g, w) for g, w in got if g and judge.compare([(g, w)])["top_gap"] > 0]
         if not bad or len(out) >= MAX_WITNESSED:
             continue
         if host is None:
-            host = P.build_ctcdecoder(cell.labels, str(cell.files["load"]), engine="host", **dec)
+            host = cell.build(engine="host")
         a, b = key
         utt = inputs[a][b] if cell.kind == "batch" else inputs[a][b % len(inputs[a])]
         kw = dict(beam_width=s["beam_width"], beam_prune_logp=s["beam_prune_logp"],
-                  token_min_logp=s["token_min_logp"])
-        h = judge.program_output(host.decode_beams(utt, **kw), ref.lm.words)
+                  token_min_logp=s["token_min_logp"], **cell.hot)
+        h = judge.program_output(host.decode_beams(utt, **kw), cell.words())
         r = ref.decode(utt, beam_width=s["beam_width"], prune_logp=s["beam_prune_logp"],
                        token_min_logp=s["token_min_logp"])
         out.append(dict(key=list(key), views=len(got), bad_views=len(bad), program_top=_top(bad[0][0]),

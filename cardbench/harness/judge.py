@@ -31,12 +31,24 @@ def _ints(frames) -> Tuple[int, int]:
     return (int(frames[0]), int(frames[1]))
 
 
-def program_output(beams, words: Sequence[str]) -> List[dict]:
-    """A batch decode's beams of one utterance as plain data, the LM state's word ids read as words."""
+def lm_state(state, words: Sequence) -> Optional[Tuple]:
+    """An LM state's word ids read as words; an ensemble's state as the tuple of its members' contexts.
+
+    ``words``: the LM's word list, or for an ensemble (a state with
+    ``states``, pyctcdecode's ``MultiLMState``) one word list a member.
+    """
+    members = getattr(state, "states", None)
+    if members is not None:
+        return tuple(lm_state(s, w) for s, w in zip(members, words))
+    ctx = getattr(state, "context", None)
+    return None if ctx is None else tuple(words[i] if 0 <= i < len(words) else f"#{i}" for i in ctx)
+
+
+def program_output(beams, words: Sequence) -> List[dict]:
+    """A batch decode's beams of one utterance as plain data, the LM state read as words (:func:`lm_state`)."""
     out = []
     for b in beams:
-        ctx = getattr(b.last_lm_state, "context", None)
-        state = None if ctx is None else tuple(words[i] if 0 <= i < len(words) else f"#{i}" for i in ctx)
+        state = lm_state(b.last_lm_state, words)
         out.append(dict(text=b.text, frames=[(w, _ints(f)) for w, f in b.text_frames], state=state,
                         logit=float(b.logit_score), lm=float(b.lm_score)))
     return out

@@ -5,7 +5,8 @@ limits or one per-layer metric sits in a file of its own, named after it:
 
 * ``cardbench/configs/<config>.json`` (the file its entry names), whose
   ``lm.kind`` names ``cardbench/lms/<kind>.py`` (a ``files`` function that
-  writes the LM's files once);
+  writes the LM's files once); an ensemble's file gives ``members`` in
+  place of ``lm`` and ``decoder`` (:func:`lm_members`);
 * ``cardbench/traffic/<traffic>.json``, whose ``generator`` names
   ``cardbench/generators/<generator>.py`` (a ``make`` function: the
   utterances and the arrival law);
@@ -21,12 +22,15 @@ import importlib.util
 import json
 import re
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+
+
+FUSION_KEYS = ("alpha", "beta", "unk_score_offset", "lm_score_boundary")  # an ensemble member's ``decoder``
 
 
 def load_json(path: Path) -> Dict:
@@ -51,6 +55,44 @@ def config(bench: Dict, name: str) -> Dict:
         if c["name"] == name:
             return load_json(ROOT / c["file"])
     raise KeyError(f"no configuration named {name!r} in BENCHMARK.json")
+
+
+def lm_members(cfg: Dict) -> List[Tuple[Dict, Dict]]:
+    """A configuration's LMs as ``(recipe, fusion settings)`` pairs: one, or an ensemble's members in order.
+
+    A single LM is the configuration's ``lm`` recipe with its ``decoder``
+    settings (``build_ctcdecoder``'s keyword arguments). An ensemble is a
+    ``members`` list of two or more ``{"lm": <recipe>, "decoder": {...}}``,
+    each ``decoder`` holding exactly :data:`FUSION_KEYS`.
+    """
+    if "members" in cfg:
+        return [(m["lm"], m["decoder"]) for m in cfg["members"]]
+    return [(cfg["lm"], cfg["decoder"])]
+
+
+def config_problems(name: str, cfg: Dict) -> List[str]:
+    """What in the configuration ``cfg`` breaks the single-LM or the ensemble layout."""
+    if ("members" in cfg) == ("lm" in cfg):
+        return [f"config {name}: give either lm (with decoder) or members"]
+    out = []
+    if "members" in cfg:
+        if "decoder" in cfg:
+            out.append(f"config {name}: an ensemble's settings are its members' decoder, not its own")
+        if not isinstance(cfg["members"], list) or len(cfg["members"]) < 2:
+            return out + [f"config {name}: members must list two or more LMs"]
+        for i, m in enumerate(cfg["members"]):
+            if set(m) != {"lm", "decoder"}:
+                out.append(f"config {name}: member {i} must hold exactly lm and decoder")
+            elif sorted(m["decoder"]) != sorted(FUSION_KEYS):
+                out.append(f"config {name}: member {i}'s decoder must hold exactly {', '.join(FUSION_KEYS)}")
+    elif "decoder" not in cfg:
+        out.append(f"config {name}: no decoder settings")
+    if out:
+        return out
+    for recipe, _ in lm_members(cfg):
+        if not (BENCH_DIR / "lms" / f"{recipe.get('kind')}.py").is_file():
+            out.append(f"config {name}: no LM kind file for {recipe.get('kind')!r}")
+    return out
 
 
 def mix(name: str) -> Dict:
@@ -95,8 +137,8 @@ def problems(bench: Dict) -> List[str]:
     for c in bench["configs"]:
         if not (ROOT / c["file"]).is_file():
             out.append(f"config file {c['file']} is missing")
-        elif not (BENCH_DIR / "lms" / f"{load_json(ROOT / c['file'])['lm']['kind']}.py").is_file():
-            out.append(f"config {c['name']}: no LM kind file")
+        else:
+            out.extend(config_problems(c["name"], load_json(ROOT / c["file"])))
         for key in c["reduced"]:
             if not NAME_RE.match(key):
                 out.append(f"config {c['name']}: bad reduced key {key!r}")

@@ -97,6 +97,13 @@ def fill(rec: Dict, kind: str) -> Optional[float]:
 
 
 def setup_seconds(rec: Dict, stages: Sequence[str]) -> Optional[float]:
-    """Seconds of the set-up's ``stages`` under its ``build`` roots; None without a build root."""
+    """Seconds of the set-up's ``stages`` under its ``build`` roots; None without a build root or a stage.
+
+    An ensemble's members are read and built outside ``build_ctcdecoder``,
+    under no program span: its build root holds the device tables alone.
+    """
+    p = _phase(rec, "setup")
+    if p is None or not set(stages) <= {s["name"] for s in p["spans"]}:
+        return None
     per_build = call_stages(rec, "setup", "build", stages)
     return None if per_build is None else sum(per_build)

@@ -9,16 +9,19 @@ every order for each beam's word commit. That is what is counted here,
 from shapes, per active utterance and frame:
 
 * the logit frame, ``V`` float32;
-* the beam state, read and written: ``B`` beams of :data:`STATE_BYTES`
-  (acoustic and fused score, trie node, the LM's ``order - 1`` context
-  words, last label, the partial word's first frame);
+* the beam state, read and written: ``B`` beams of
+  :data:`STATE_BYTES_FIXED` (acoustic and fused score, trie node, last
+  label, the partial word's first frame) and, for each LM member ``m``,
+  its ``order_m - 1`` context words;
 * the backpointers written: ``B`` parents and labels, 4 bytes a beam;
 * the trie rows: for each beam, one child slot of 4 bytes for every letter
   a label adds to the word in progress, summed over the labels
   (:func:`trie_letters`: a label of three letters walks three trie levels;
-  the blank, a char alphabet's space and the word marker walk none);
-* the LM probes: ``B * order`` n-gram entries of :data:`ENTRY_BYTES` (a
-  key, a probability and a backoff).
+  the blank, a char alphabet's space and the word marker walk none), once
+  in each member's trie and once more in the hotword trie when the call
+  has hotwords;
+* the LM probes: for each member, ``B * order_m`` n-gram entries of
+  :data:`ENTRY_BYTES` (a key, a probability and a backoff).
 
 Operations: a few a candidate (the score sum, the admission test, the
 merge's log-add, the window and top-B comparisons), :data:`OPS_PER_CANDIDATE`
@@ -53,20 +56,26 @@ def trie_letters(labels: Sequence[str], is_bpe: bool) -> int:
     return sum(len(lab) for lab in labels if lab != " ")
 
 
-def row_step(vocab: int, beam: int, letters: int, order: int) -> Dict[str, float]:
-    """Bytes and operations of one active utterance's step (``letters``: :func:`trie_letters`)."""
-    state = STATE_BYTES_FIXED + WORD_BYTES * (order - 1)
+def row_step(vocab: int, beam: int, letters: int, orders: Sequence[int], hotwords: bool = False) -> Dict[str, float]:
+    """Bytes and operations of one active utterance's step.
+
+    ``letters``: :func:`trie_letters`; ``orders``: each LM member's order;
+    ``hotwords``: whether the call boosts hotwords (one more trie walked).
+    """
+    state = STATE_BYTES_FIXED + WORD_BYTES * sum(order - 1 for order in orders)
+    tries = len(orders) + int(hotwords)
     nbytes = (
         4 * vocab
         + 2 * beam * state
         + beam * BACKPOINTER_BYTES
-        + beam * letters * 4
-        + beam * order * ENTRY_BYTES
+        + beam * letters * 4 * tries
+        + beam * sum(orders) * ENTRY_BYTES
     )
     return dict(bytes=float(nbytes), ops=float(beam * vocab * OPS_PER_CANDIDATE))
 
 
-def least_seconds(row_steps: int, vocab: int, beam: int, letters: int, order: int) -> float:
+def least_seconds(row_steps: int, vocab: int, beam: int, letters: int, orders: Sequence[int],
+                  hotwords: bool = False) -> float:
     """The least time ``row_steps`` active utterance-steps take at the chip's peaks."""
-    w = row_step(vocab, beam, letters, order)
+    w = row_step(vocab, beam, letters, orders, hotwords)
     return max(row_steps * w["bytes"] / PEAK_BYTES_S, row_steps * w["ops"] / PEAK_F32_FLOPS)

@@ -19,6 +19,16 @@ The LM's fused score of a word is ``alpha * ln(10) * (log10 p + unk_offset
 * [oov] + [end] log10 p(</s>)) + beta``; a partial word that no known word
 starts with costs ``unk_offset``, scaled by its length over 6 letters.
 
+An ensemble (pyctcdecode's ``MultiLanguageModel``) is two or more
+:class:`Member` s, each an n-gram model with its own weights, OOV offset and
+``<s>`` / ``</s>`` boundary: a word's fused score is the members' mean, a
+partial word's penalty too, and the LM state is the tuple of the members'
+states. Hotwords (pyctcdecode's ``HotwordScorer``; phrases split into
+unigrams) add ``weight`` for every word of a text that is a hotword, counted
+over the whole text each time, and score a partial word that starts a
+hotword as ``weight * len(partial) / len(the shortest hotword it starts)``
+in place of the LM's penalty.
+
 ``precision="f64"`` computes in float64. ``precision="bf16"`` rounds every
 score this decoder forms (each frame's log-probabilities, each beam's
 running sums, each LM score) to bfloat16: the lower-precision control that
@@ -29,7 +39,7 @@ This module imports nothing of the program under test.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -38,6 +48,7 @@ from .arpa import EOS, ArpaModel
 BPE_TOKEN = "▁"
 NULL_FRAMES = (-1, -1)
 AVG_TOKEN_LEN = 6
+HOTWORD_WEIGHT = 10.0  # pyctcdecode's default hotword_weight
 MIN_TOKEN_CLIP_P = 1e-15
 LN10 = 1.0 / math.log10(math.e)
 
@@ -114,23 +125,64 @@ def _join(left: str, right: str) -> str:
     return left + " " + right
 
 
-class ReferenceDecoder:
-    """The reference decoder over ``labels`` (raw model labels) and an ARPA model."""
+class Member:
+    """One LM of the fusion: an n-gram model, its weights, its known words and their prefixes."""
 
-    def __init__(self, raw_labels: Sequence[str], lm: ArpaModel, alpha: float = 0.5, beta: float = 1.5,
-                 unk_score_offset: float = -10.0, score_boundary: bool = True,
-                 precision: str = "f64") -> None:
-        if precision not in ("f64", "bf16"):
-            raise ValueError(f"precision must be 'f64' or 'bf16'; got {precision!r}")
-        self.labels, self.is_bpe = normalize_labels(raw_labels)
-        self.lm = lm
+    def __init__(self, model: ArpaModel, alpha: float = 0.5, beta: float = 1.5, unk_score_offset: float = -10.0,
+                 score_boundary: bool = True) -> None:
+        self.model = model
         self.alpha, self.beta = alpha, beta
         self.unk = unk_score_offset
         self.score_boundary = score_boundary
+        self.unigrams = {w for w in model.unigram_lines if w in model}
+        self.prefixes = {w[:i] for w in self.unigrams for i in range(len(w) + 1)}
+
+    def start_state(self) -> Tuple[str, ...]:
+        return self.model.start_state(self.score_boundary)
+
+    def word_score(self, state, word: str, end: bool):
+        """The fused score of ``word`` after ``state`` (unrounded), and the state after it."""
+        raw, out = self.model.score(state, word)
+        if (self.unigrams and word not in self.unigrams) or word not in self.model:
+            raw += self.unk
+        if end and self.score_boundary:
+            raw += self.model.score(out, EOS)[0]
+        return self.alpha * raw * LN10 + self.beta, out
+
+    def partial_score(self, partial: str) -> float:
+        score = self.unk * float(partial not in self.prefixes)
+        if len(partial) > AVG_TOKEN_LEN:
+            score = score * len(partial) / AVG_TOKEN_LEN
+        return score
+
+
+class ReferenceDecoder:
+    """The reference decoder over ``labels`` (raw model labels) and an ARPA model or an ensemble.
+
+    ``lm``: an :class:`ArpaModel`, fused with the weights given here, or a
+    sequence of two or more :class:`Member` s (the weights here are then
+    unused). ``hotwords``: words or phrases, boosted by ``hotword_weight``.
+    """
+
+    def __init__(self, raw_labels: Sequence[str], lm: Union[ArpaModel, Sequence[Member]], alpha: float = 0.5,
+                 beta: float = 1.5, unk_score_offset: float = -10.0, score_boundary: bool = True,
+                 precision: str = "f64", hotwords: Iterable[str] = (),
+                 hotword_weight: float = HOTWORD_WEIGHT) -> None:
+        if precision not in ("f64", "bf16"):
+            raise ValueError(f"precision must be 'f64' or 'bf16'; got {precision!r}")
+        self.labels, self.is_bpe = normalize_labels(raw_labels)
+        self.ensemble = not isinstance(lm, ArpaModel)
+        self.lm = None if self.ensemble else lm  # a single LM's model, whose ``words`` read its states
+        self.members = list(lm) if self.ensemble else [Member(lm, alpha, beta, unk_score_offset, score_boundary)]
+        if self.ensemble and len(self.members) < 2:
+            raise ValueError("an ensemble needs two or more members")
         self.q = to_bf16 if precision == "bf16" else float
-        unigrams = {w for w in lm.unigram_lines if w in lm}
-        self.unigrams = unigrams
-        self.prefixes = {w[:i] for w in unigrams for i in range(len(w) + 1)}
+        self.hot = {w for phrase in hotwords for w in phrase.split()}
+        self.hot_weight = float(hotword_weight)
+        self.hot_len: Dict[str, int] = {}  # each prefix of a hotword: the length of the shortest it starts
+        for w in self.hot:
+            for i in range(1, len(w) + 1):
+                self.hot_len[w[:i]] = min(self.hot_len.get(w[:i], len(w)), len(w))
         self.kind, self.piece, self.rbound = [], [], []
         for lab in self.labels:
             if lab == "":
@@ -149,22 +201,27 @@ class ReferenceDecoder:
 
     # -- the LM ----------------------------------------------------------------
     def _word_score(self, state, word: str, end: bool):
-        raw, out = self.lm.score(state, word)
-        if (self.unigrams and word not in self.unigrams) or word not in self.lm:
-            raw += self.unk
-        if end and self.score_boundary:
-            raw += self.lm.score(out, EOS)[0]
-        return self.q(self.alpha * raw * LN10 + self.beta), out
+        """The members' mean fused score of ``word``; the state after it (a tuple of the members' for an ensemble)."""
+        if not self.ensemble:
+            s, out = self.members[0].word_score(state, word, end)
+            return self.q(s), out
+        scored = [m.word_score(st, word, end) for m, st in zip(self.members, state)]
+        return self.q(sum(self.q(s) for s, _ in scored) / len(scored)), tuple(out for _, out in scored)
 
     def _partial_score(self, partial: str) -> float:
-        score = self.unk * float(partial not in self.prefixes)
-        if len(partial) > AVG_TOKEN_LEN:
-            score = score * len(partial) / AVG_TOKEN_LEN
-        return self.q(score)
+        if partial in self.hot_len:
+            return self.q(self.hot_weight * len(partial) / self.hot_len[partial])
+        scores = [m.partial_score(partial) for m in self.members]
+        return self.q(scores[0] if len(scores) == 1 else sum(scores) / len(scores))
+
+    def _hot_score(self, text: str) -> float:
+        """``weight`` for every word of ``text`` that is a hotword."""
+        return self.q(self.hot_weight * sum(1 for w in text.split() if w in self.hot))
 
     def start(self) -> dict:
         """A fresh stream: the empty beam and the LM score caches."""
-        state0 = self.lm.start_state(self.score_boundary)
+        states = tuple(m.start_state() for m in self.members)
+        state0 = states if self.ensemble else states[0]
         return dict(beams=[Beam("", "", "", None, [], NULL_FRAMES, 0.0)],
                     lm_cache={("", False): (0.0, state0)}, p_cache={}, frames=0)
 
@@ -179,6 +236,8 @@ class ReferenceDecoder:
                 s, end_state = self._word_score(prev_state, b.next_word, end)
                 cache[key] = (q(prev_raw + s), end_state)
             score = cache[key][0]
+            if self.hot:
+                score = q(score + self._hot_score(text))
             if b.partial:
                 if b.partial not in p_cache:
                     p_cache[b.partial] = self._partial_score(b.partial)

@@ -49,9 +49,9 @@ sys.path.insert(0, ROOT)
 
 from cardbench.harness import manifest, program  # noqa: E402
 from cardbench.harness.loops import Spans  # noqa: E402
-from cardbench.harness.runner import CACHE_DIR, Cell, _device_info, _trace, log  # noqa: E402
+from cardbench.harness.runner import (  # noqa: E402
+    CACHE_DIR, Cell, _device_info, _trace, log, measure_window, traced_stretch)
 from cardbench.harness.trace import summarize  # noqa: E402
-from cardbench.harness.work import trie_letters  # noqa: E402
 
 PROGRAM_METRICS = ("lm_read_s", "lm_tables_s", "host_prep_ms.batch", "host_replay_ms.batch", "step_fill.batch",
                    "chunk_prep_ms.stream", "chunk_replay_ms.stream", "step_fill.stream")
@@ -64,23 +64,6 @@ def _quartiles(values):
         return dict(median=values[0] if values else None, q1=None, q3=None, n=len(values))
     q1, q2, q3 = statistics.quantiles(values, n=4)
     return dict(median=q2, q1=q1, q3=q3, n=len(values))
-
-
-def _window(cell, loop, rec, seconds):
-    """The measured window, as ``runner.run_cell`` runs it."""
-    if cell.kind == "batch":
-        window = loop.run(seconds)
-        frames = sum(c["frames"] for c in window["calls"])
-        rec["window"] = dict(start=window["start"], end=window["end"], audio_s=frames * cell.cfg["frame_s"],
-                             calls=len(window["calls"]))
-        return
-    loop.open()
-    w0 = time.perf_counter()
-    loop.schedule(w0)
-    served = loop.serve_until(w0 + seconds)
-    rec["window"] = dict(start=w0, end=w0 + seconds, chunks=len(served))
-    rec["latency_ms"] = [(c["end"] - c["due"]) * 1e3 for c in served if not c["failed"]]
-    rec["service_ms"] = [(c["end"] - c["start"]) * 1e3 for c in served if not c["failed"]]
 
 
 def _chunk_frames(loop, served):
@@ -266,18 +249,11 @@ def run(bench, cell_name, seed, seconds, device="cuda", cost_calls=40, cost_s=10
         spans.items.clear()
         rec = dict(kind=cell.kind, lm_build_s=cell.lm_build_s, trace=None, setup_s=time.perf_counter() - t_start)
         rec["program"] = dict(setup=program.drain(tr))
-        _window(cell, loop, rec, seconds)
+        measure_window(cell, loop, rec, seconds)
         rec["program"]["window"] = program.drain(tr)
         rec["spans"] = list(spans.items)
         first = len(spans.items)
-
-        def stretch():  # as run.py's: a batch mix's trace_calls calls, or trace_s seconds of the streams
-            if cell.kind == "batch":
-                return [loop.call() for _ in range(cell.mix["trace_calls"])]
-            loop.shift_to(time.perf_counter())
-            return loop.serve_until(time.perf_counter() + cell.mix["trace_s"])
-
-        traced, rows, offset = _trace(torch, device, spans, stretch)
+        traced, rows, offset = _trace(torch, device, spans, lambda: traced_stretch(cell, loop))
         rec["program"]["traced"] = program.drain(tr)
     harness = [(name, a + offset, b + offset) for name, a, b in spans.items[first:]]
     rec["trace"] = summarize(rows, harness, top=10)
@@ -292,8 +268,7 @@ def run(bench, cell_name, seed, seconds, device="cuda", cost_calls=40, cost_s=10
     else:
         rec["traced"] = dict(chunks=len(traced))
         needed = _chunk_frames(loop, traced)
-    rec["shape"] = dict(vocab=len(cell.columns), beam=cell.search["beam_width"],
-                        letters=trie_letters(cell.columns, cell.is_bpe), order=cell.cfg["lm"]["order"])
+    rec["shape"] = cell.shape()
     rec["peak_bytes"] = _device_info(torch, device)["memory_peak_bytes"]
     names = [m["name"] for m in manifest.metrics_of(bench, "per_layer", cell_name)] + list(PROGRAM_METRICS)
     metrics = {name: manifest.reader(name)(rec) for name in names}

@@ -41,9 +41,10 @@ def test_every_cell_has_its_files_and_limits():
     bench = manifest.manifest()
     for w in bench["workloads"]:
         cfg = manifest.config(bench, w["config"])
-        assert {"labels", "frame_s", "lm", "decoder", "search", "corpus", "assumed", "reduced"} <= set(cfg)
+        assert {"labels", "frame_s", "search", "corpus", "assumed", "reduced"} <= set(cfg)
+        assert manifest.config_problems(w["config"], cfg) == []
         assert manifest.module("generators", manifest.mix(w["traffic"])["generator"]).make
-        assert manifest.module("lms", cfg["lm"]["kind"]).files
+        assert all(manifest.module("lms", recipe["kind"]).files for recipe, _ in manifest.lm_members(cfg))
         assert set(manifest.limits(w["name"])) == {"missing", "top_gap", "score_err"}
 
 
@@ -137,3 +138,27 @@ def test_the_lm_files_are_keyed_by_the_whole_recipe(tmp_path, monkeypatch):
     b = runner.lm_files(dict(recipe, seed=8), tmp_path / ".cache")
     assert a["arpa"] != b["arpa"] and a["load"] == a["arpa"] and a["arpa"].read_bytes() != b["arpa"].read_bytes()
     assert runner.lm_files(recipe, tmp_path / ".cache") == a
+
+
+def test_an_ensemble_configuration_is_checked():
+    """An ensemble gives ``members`` (two or more, each an LM recipe and exactly the fusion settings) in place of
+    ``lm`` and ``decoder``."""
+    cfg = manifest.config(manifest.manifest(), "quartznet-char-3gram")
+    assert manifest.config_problems("one", cfg) == []
+    assert manifest.lm_members(cfg) == [(cfg["lm"], cfg["decoder"])]
+    weights = dict(alpha=0.3, beta=2.0, unk_score_offset=-6.0, lm_score_boundary=False)
+    members = [dict(lm=cfg["lm"], decoder=cfg["decoder"]), dict(lm=dict(cfg["lm"], n_bigrams=750000), decoder=weights)]
+    two = {k: v for k, v in cfg.items() if k not in ("lm", "decoder")}
+    assert manifest.config_problems("two", dict(two, members=members)) == []
+    assert [w for _, w in manifest.lm_members(dict(two, members=members))] == [cfg["decoder"], weights]
+    bad = {
+        "both": dict(cfg, members=members),
+        "neither": two,
+        "one member": dict(two, members=members[:1]),
+        "own settings": dict(two, members=members, decoder=cfg["decoder"]),
+        "settings": dict(two, members=[members[0], dict(lm=members[1]["lm"], decoder=dict(weights, segment_frames=8))]),
+        "kind": dict(two, members=[members[0], dict(members[1], lm=dict(cfg["lm"], kind="no_such_kind"))]),
+        "keys": dict(two, members=[members[0], dict(members[1], hotwords=["a"])]),
+    }
+    for name, c in bad.items():
+        assert manifest.config_problems(name, c), name

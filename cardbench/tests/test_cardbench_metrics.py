@@ -35,7 +35,7 @@ def _batch_record(**over):
                window=dict(start=10.0, end=30.5, audio_s=4100.0, calls=41),
                trace=dict(busy_s=0.8, window_s=1.0, device_rows=400_000),
                traced=dict(calls=2, steps=1000, row_steps=26_000),
-               shape=dict(vocab=29, beam=100, letters=27, order=3))
+               shape=dict(vocab=29, beam=100, letters=27, orders=[3], hotwords=False))
     rec.update(over)
     return rec
 
@@ -49,7 +49,7 @@ def test_batch_readers():
     assert read("idle_share.batch")(rec) == pytest.approx(1.0 - (0.8 / 2) / 0.5)  # 0.5 s a call untraced
     assert read("peak_mem_gb")(rec) == pytest.approx(0.2)
     assert read("setup_s")(rec) == 30.0 and read("lm_build_s")(rec) == 21.5
-    w = work.row_step(29, 100, 27, 3)
+    w = work.row_step(29, 100, 27, [3])
     assert w["bytes"] == 4 * 29 + 2 * 100 * 28 + 100 * 4 + 100 * 27 * 4 + 100 * 3 * 16
     want = 100 * 26_000 * w["bytes"] / work.PEAK_BYTES_S / 0.8
     assert read("step_roofline.batch")(rec) == pytest.approx(want)
@@ -85,8 +85,8 @@ def test_percentile_is_linear_and_empty_reads_nothing():
 
 
 def test_least_seconds_takes_the_larger_bound():
-    t = work.least_seconds(10, 29, 100, 27, 3)
-    w = work.row_step(29, 100, 27, 3)
+    t = work.least_seconds(10, 29, 100, 27, [3])
+    w = work.row_step(29, 100, 27, [3])
     assert t == pytest.approx(max(10 * w["bytes"] / 3.35e12, 10 * w["ops"] / 67e12))
 
 
@@ -94,3 +94,29 @@ def test_trie_letters_count_what_each_label_adds_to_the_word():
     assert work.trie_letters([" ", "a", "b", "'", ""], False) == 3
     assert work.trie_letters(["", "<s>", "</s>", "⁇", " ", "a"], False) == 3 + 4 + 1 + 1
     assert work.trie_letters(["▁⁇▁", "▁", "a", "▁ab", "cde", ""], True) == 1 + 0 + 1 + 2 + 3
+
+
+@pytest.mark.parametrize("config,vocab,letters,nbytes,ops", [
+    ("quartznet-char-3gram", 29, 27, 21716.0, 23200.0),
+    ("conformer-bpe128-3gram", 129, 273, 120516.0, 103200.0),
+    ("w2v2-char-3gram", 32, 35, 24928.0, 25600.0),
+])
+def test_row_step_of_the_cells_shapes_is_pinned(config, vocab, letters, nbytes, ops):
+    """The five cells' step (one 3-gram, no hotwords, beam 100) keeps the bytes and operations it had."""
+    from cardbench.reference.decoder import normalize_labels
+
+    cfg = manifest.config(manifest.manifest(), config)
+    columns, is_bpe = normalize_labels(cfg["labels"])
+    assert (len(columns), work.trie_letters(columns, is_bpe)) == (vocab, letters)
+    assert [recipe["order"] for recipe, _ in manifest.lm_members(cfg)] == [3]
+    assert work.row_step(vocab, 100, letters, [3]) == dict(bytes=nbytes, ops=ops)
+    assert work.row_step(vocab, 100, letters, [3], hotwords=False) == dict(bytes=nbytes, ops=ops)
+
+
+def test_row_step_counts_each_member_and_the_hotword_trie():
+    one = work.row_step(29, 100, 27, [3])["bytes"]
+    two = work.row_step(29, 100, 27, [3, 2])["bytes"]
+    # member B: one context word more in the state (read and written), its trie's slots, 2 n-gram entries a beam
+    assert two - one == 2 * 100 * 4 * 1 + 100 * 27 * 4 + 100 * 2 * 16
+    assert work.row_step(29, 100, 27, [3, 2], hotwords=True)["bytes"] - two == 100 * 27 * 4
+    assert work.row_step(29, 100, 27, [3, 2], hotwords=True)["ops"] == work.row_step(29, 100, 27, [3])["ops"]

@@ -95,6 +95,30 @@ def test_a_benchmark_run_leaves_the_program_tracer_off(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kind,names", [("batch", BATCH_METRICS), ("stream", STREAM_METRICS)])
+def test_a_traced_benchmark_run_reads_the_program_spans(tmp_path, monkeypatch, kind, names):
+    """With ``--trace 1`` the tracer is on from the build to the traced stretch's end, and off after it."""
+    from pyctcdecode_torch.utils import profiling
+
+    bench = tiny_bench(tmp_path, monkeypatch, "char", kind)
+    result = runner.run_cell(bench, "tiny.mix", SEED, 0.5, True, "cpu", cache_dir=tmp_path / ".cache")
+    assert result["correct"] and profiling.TRACER is None
+    assert all(result["metrics"].get(name) is not None for name in names), result["metrics"]
+    assert not set(tool.PROGRAM_METRICS) - set(names) & set(result["metrics"])
+    if kind == "batch":  # the traced call covers the traced window's middle, where the CPU's one gap lies
+        gaps = [name for name, _ in result["breakdown"]["idle_gaps"]]
+        assert any(name.startswith("decode_beams_batch/batch.") for name in gaps), gaps
+
+
+def test_ensemble_build_has_no_lm_read_or_tables_span(tmp_path, monkeypatch):
+    """An ensemble's members are read outside ``build_ctcdecoder``: the build's reader metrics read nothing."""
+    bench = tiny_bench(tmp_path, monkeypatch, "char", "batch", ensemble=True)
+    result = runner.run_cell(bench, "tiny.mix", SEED, 0.5, True, "cpu", cache_dir=tmp_path / ".cache")
+    assert result["correct"], result["compared"]
+    assert "lm_read_s" not in result["metrics"] and "lm_tables_s" not in result["metrics"]
+    assert result["metrics"]["host_prep_ms.batch"]["value"] > 0 and result["metrics"]["lm_build_s"]["value"] > 0
+
+
+@pytest.mark.parametrize("kind,names", [("batch", BATCH_METRICS), ("stream", STREAM_METRICS)])
 def test_the_tool_reads_every_metric_of_the_cell(tmp_path, monkeypatch, kind, names):
     from pyctcdecode_torch.utils import profiling
 

@@ -6,7 +6,10 @@ mix (``tiny.py``), with every answer judged. The faults break the timed
 path underneath: an answer that does not advance (a stale one), half of a
 batch answered with the other half's answers, a token altered in an
 answer, a stream whose state does not advance. The cells run on one chip,
-so there is no exchange between chips to leave out.
+so there is no exchange between chips to leave out. A tiny ensemble cell
+(two LM members, the calls with hotwords) runs correct too, and is not
+correct with the program called without the hotwords or with member B's
+weights swapped.
 """
 import dataclasses
 import json
@@ -17,15 +20,15 @@ import sys
 import pytest
 
 from cardbench.harness import manifest, runner
-from cardbench.tests.tiny import tiny_bench
+from cardbench.tests.tiny import HOT, tiny_bench
 
 import pyctcdecode_torch as P
 
 SEED = 3_000_000_017  # above 32 signed bits, as the driver's seeds may be
 
 
-def run(tmp_path, monkeypatch, alphabet="char", kind="batch", seconds=1.0, trace=False):
-    bench = tiny_bench(tmp_path, monkeypatch, alphabet, kind)
+def run(tmp_path, monkeypatch, alphabet="char", kind="batch", seconds=1.0, trace=False, ensemble=False):
+    bench = tiny_bench(tmp_path, monkeypatch, alphabet, kind, ensemble)
     mix = manifest.mix("mix")
     mix["check"] = 1000  # judge every answer
     (tmp_path / "traffic" / "mix.json").write_text(json.dumps(mix))
@@ -115,6 +118,57 @@ def _altered_stream(monkeypatch):
 def test_planted_fault_is_not_correct(tmp_path, monkeypatch, kind, fault):
     fault(monkeypatch)
     result = run(tmp_path, monkeypatch, "char", kind, seconds=1.5)
+    assert not result["correct"], result["compared"]
+
+
+@pytest.mark.parametrize("kind", ["batch", "stream"])
+def test_ensemble_with_hotwords_run_is_correct(tmp_path, monkeypatch, kind):
+    calls = []
+    for name in ("decode_beams_batch", "partial_decode_beams", "get_starting_state"):
+        real = getattr(P.TorchBeamSearchDecoderCTC, name)
+
+        def seen(self, *args, _real=real, _name=name, **kw):
+            calls.append((_name, kw))
+            return _real(self, *args, **kw)
+
+        monkeypatch.setattr(P.TorchBeamSearchDecoderCTC, name, seen)
+    result = run(tmp_path, monkeypatch, "char", kind, ensemble=True)
+    assert result["correct"], result["compared"]
+    assert result["attempted"] > 0 and result["failed"] == 0
+    decodes = [kw for name, kw in calls if name != "get_starting_state"]
+    assert decodes and all(kw["hotwords"] == HOT["hotwords"] and kw["hotword_weight"] == HOT["hotword_weight"]
+                           for kw in decodes)
+    assert all(kw.get("hotwords_enabled") for name, kw in calls if name == "get_starting_state")
+
+
+def _without_hotwords(monkeypatch):
+    for name in ("decode_beams_batch", "partial_decode_beams"):
+        real = getattr(P.TorchBeamSearchDecoderCTC, name)
+
+        def bare(self, *args, _real=real, **kw):
+            kw.pop("hotwords", None)
+            kw.pop("hotword_weight", None)
+            return _real(self, *args, **kw)
+
+        monkeypatch.setattr(P.TorchBeamSearchDecoderCTC, name, bare)
+
+
+def _member_b_weights_swapped(monkeypatch):
+    real = P.MultiLanguageModel.__init__
+
+    def swapped(self, language_models):
+        real(self, language_models)
+        b = self._language_models[1]
+        b.alpha, b.beta = b.beta, b.alpha
+
+    monkeypatch.setattr(P.MultiLanguageModel, "__init__", swapped)
+
+
+@pytest.mark.parametrize("kind", ["batch", "stream"])
+@pytest.mark.parametrize("fault", [_without_hotwords, _member_b_weights_swapped])
+def test_planted_ensemble_fault_is_not_correct(tmp_path, monkeypatch, kind, fault):
+    fault(monkeypatch)
+    result = run(tmp_path, monkeypatch, "char", kind, seconds=1.5, ensemble=True)
     assert not result["correct"], result["compared"]
 
 
