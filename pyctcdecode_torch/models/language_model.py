@@ -36,6 +36,7 @@ from ..constants import (
     DEFAULT_UNK_LOGP_OFFSET,
     LOG_BASE_CHANGE_FACTOR,
 )
+from ..utils import profiling
 from ..utils.trie import CharTrie
 from .base import AbstractLanguageModel, AbstractLMState, MultiLMState, NGramLMState
 from .kenlm_bin import KenLMBinaryModel
@@ -71,7 +72,10 @@ class LanguageModel(AbstractLanguageModel):
 
     ``ngram_model`` is an :class:`~.ngram.NGramModel` (ARPA or ``.ctclm``)
     or a :class:`~.kenlm_bin.KenLMBinaryModel` (a KenLM binary); both
-    engines take either.
+    engines take either. With the host tracer on, the constructor (the
+    unigram check and the word trie) is a root span ``lm.language_model``
+    of its own (inside another call, such as ``build_ctcdecoder``'s, it
+    opens none).
     """
 
     JSON_ATTRS = ("alpha", "beta", "unk_score_offset", "score_boundary")
@@ -88,16 +92,17 @@ class LanguageModel(AbstractLanguageModel):
         score_boundary: bool = DEFAULT_SCORE_LM_BOUNDARY,
     ) -> None:
         self._model = ngram_model
-        if unigrams is None:
-            logger.warning(
-                "decoding without a known-word vocabulary: every partial word "
-                "is scored as unknown, which usually costs accuracy"
-            )
-            unigram_set: Set[str] = set()
-            char_trie = None
-        else:
-            unigram_set = _prepare_unigram_set(unigrams, ngram_model)
-            char_trie = CharTrie.fromkeys(unigram_set)
+        with profiling.call("lm.language_model"):
+            if unigrams is None:
+                logger.warning(
+                    "decoding without a known-word vocabulary: every partial word "
+                    "is scored as unknown, which usually costs accuracy"
+                )
+                unigram_set: Set[str] = set()
+                char_trie = None
+            else:
+                unigram_set = _prepare_unigram_set(unigrams, ngram_model)
+                char_trie = CharTrie.fromkeys(unigram_set)
         self._unigram_set = unigram_set
         self._char_trie = char_trie
         self.alpha = alpha

@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
+from ..utils import profiling
+
 logger = logging.getLogger(__name__)
 
 UNK_WORD = "<unk>"
@@ -197,13 +199,15 @@ def load_unigram_set_from_arpa(arpa_path: str) -> Set[str]:
     """Read the \\1-grams section of an ARPA file into a set of words.
 
     Parity with ref ``language_model.py:67-84``: only lines with exactly
-    three tab-separated fields (prob, word, backoff) contribute.
+    three tab-separated fields (prob, word, backoff) contribute. With the
+    host tracer on, the read is a root span ``lm.unigrams`` of its own
+    (inside another call it opens none).
     """
     import gzip
 
     unigrams = set()
     opener = gzip.open if arpa_path.endswith(".gz") else open
-    with opener(arpa_path, "rt") as fh:
+    with profiling.call("lm.unigrams"), opener(arpa_path, "rt") as fh:
         in_unigrams = False
         for raw in fh:
             line = raw.strip()
@@ -301,11 +305,19 @@ def open_ngram_file(path: str, backend: str = "auto") -> "object":
 
     ``backend="native"`` for any file but plain ARPA text raises
     :class:`ValueError`: the C++ parser reads nothing else.
+
+    With the host tracer on, the read is a root span ``lm.read`` of its own
+    (inside another call, such as ``build_ctcdecoder``'s, it opens none).
     """
     if backend not in ("auto", "native", "python"):
         raise ValueError(
             f"backend must be 'auto', 'native' or 'python'; got {backend!r}"
         )
+    with profiling.call("lm.read"):
+        return _open_ngram_file(path, backend)
+
+
+def _open_ngram_file(path: str, backend: str) -> "object":
     ext = os.path.splitext(path)[1].lower()
     gzipped = path.endswith(".gz")
     is_arpa = ext not in (".bin", ".binary", ".ctclm")

@@ -510,7 +510,9 @@ class TorchBeamSearchDecoderCTC:
         """This call's hotword trie on the device and its weight.
 
         Returns ``(None, 0.0)`` when no hotwords are given. The tables of
-        the last 8 unigram sets stay on the device.
+        the last 8 unigram sets stay on the device. The tracer counts
+        ``hot.tables_built`` where a call builds and uploads a trie and
+        ``hot.tables_cached`` where the cache answers.
         """
         scorer = HotwordScorer.build_scorer(hotwords, weight=weight)
         if not scorer.unigrams:
@@ -518,10 +520,13 @@ class TorchBeamSearchDecoderCTC:
         key = tuple(sorted(scorer.unigrams))
         hot = self._hot_cache.get(key)
         if hot is None:
+            profiling.count("hot.tables_built")
             hot = self._hot_to_device(build_hotword_tables(list(key), self._tokens.char2id, self._tokens))
             if len(self._hot_cache) >= 8:  # bound per-call table churn
                 self._hot_cache.pop(next(iter(self._hot_cache)))
             self._hot_cache[key] = hot
+        else:
+            profiling.count("hot.tables_cached")
         return hot, float(weight)
 
     def _hot_to_device(self, tables: Dict[str, np.ndarray]) -> Dict[str, Any]:
